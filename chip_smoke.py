@@ -2,23 +2,41 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line:
+Phases, in the order they run, each printing one line:
   1. the card (nvidia-smi name and power limit); fails without CUDA;
   2. build the CUDA kernels from glsdet_tpu_torch/csrc (seconds taken);
   3. NMS kernel vs nms_sorted_plain: B=8, K in {500, 512, 800, 2000},
      offsets 0/1, thresholds 0.6/0.65, class-shifted detection-like
      boxes; keep masks must be equal; both times;
-  4. painter kernel vs assemble_mosaic_plain_batch on region rows the
-     port's packer made from the bench frames, paint sizes 1024 and 1280:
-     float32 bit-exact and bfloat16 equal; both times;
-  5. the two-stage pipeline at full width (YOLOX-s at 640x640, MPDet
+  4. GN kernel (GroupNorm -> ReLU -> int8 requant) vs gn_relu_quant_plain
+     at B=16, C=256, G=32 and every level of both buckets, with
+     per-channel offsets and one constant group: codes within +-1, at most
+     1e-3 of them differing, the constant group equal; both times;
+  5. the int8 convolution's torch._int_mm route vs its exact float64
+     version at the path's shapes: int32 results equal; the route's time,
+     its im2col and its GEMM alone, beside cuDNN's bf16 convolution at the
+     head-tower shape;
+  6. the two-stage pipeline at full width (YOLOX-s at 640x640, MPDet
      ResNet-50, buckets 1024/1152, bucket-fit packing, coarse threshold
      1e-4, seeded random weights with the JAX package's initializers) on
      16 RandomState(0) 765x1360 frames: the models in bfloat16 on the
-     card against float32 on the CPU, then warmup, run_device_batch and
-     run_batch; both kernels must have launched; img/s and peak memory;
-  6. where the time of one run_device_batch goes: stage times, the
-     models alone, torch.profiler's device busy time and largest ops.
+     card against float32 on the CPU;
+  7. painter kernel vs assemble_mosaic_plain_batch on region rows the
+     port's packer made from the bench frames, paint sizes 1024 and 1280:
+     float32 bit-exact and bfloat16 equal; both times;
+  8. the bf16 pipeline: warmup, run_device_batch and run_batch; the NMS
+     kernel and the painter must have launched; img/s and peak memory;
+  9. where the time of one run_device_batch goes: stage times, the
+     models alone, torch.profiler's device busy time and largest ops;
+ 10. static int8: calibrate_int8 on 4 bench frames with the bf16
+     pipeline, the scales through save_scales/load_scales, a
+     quant8="static" pipeline with the same weights; its int8 models vs
+     the bf16 models on a captured input (relative max error < 0.3, the
+     JAX package's bound in tests/test_quant_static.py); then as phases 8
+     and 9: warmup, run_device_batch and run_batch, the GN kernel launched
+     40 times per stage-2 group, int8 img/s beside bf16 img/s, peak
+     memory, and the stage breakdown of one int8 run_device_batch;
+ 11. dynamic int8 (quant8=True): one run_device_batch, results well formed.
 Then one JSON line of per-kernel results and, last, the device line.
 Any failure raises, and the script exits non-zero without the last line.
 """
@@ -26,6 +44,7 @@ Any failure raises, and the script exits non-zero without the last line.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -41,6 +60,9 @@ BUCKETS = (1024, 1152)
 PAINT_HW = (1024, 1280)      # paint canvases of the two buckets
 PHI, DEPTH = "s", 50
 NMS_K = (500, 512, 800, 2000)
+# MP-Det head levels (strides 8..128) of the two buckets
+LEVELS = {1024: (128, 64, 32, 16, 8), 1152: (144, 72, 36, 18, 9)}
+GN_C, GN_GROUPS = 256, 32
 
 
 def log(phase: str, **kw) -> None:
@@ -127,21 +149,27 @@ def phase_nms() -> dict:
             "plain_ms": times[NMS_K[-1]][1]}
 
 
-def build_pipeline():
-    from glsdet_tpu_torch.eval.two_stage import TwoStagePipeline
+def seeded_models():
+    """YOLOX-s and MPDet-R50 in float32 on the CPU, random weights from
+    ``torch.Generator().manual_seed(0)``: every call gives the same."""
     from glsdet_tpu_torch.models import MPDet, YOLOXDetector
 
-    t0 = time.perf_counter()
     g = torch.Generator().manual_seed(0)
-    coarse = YOLOXDetector(10, PHI, generator=g)
-    mp = MPDet(10, DEPTH, generator=g)
-    cpu_refs = (YOLOXDetector(10, PHI, generator=g),
-                MPDet(10, DEPTH, generator=g))
-    cpu_refs[0].load_state_dict(coarse.state_dict())
-    cpu_refs[1].load_state_dict(mp.state_dict())
-    pipe = TwoStagePipeline(coarse, mp, COARSE_HW, mosaic_buckets=BUCKETS,
+    return YOLOXDetector(10, PHI, generator=g), MPDet(10, DEPTH, generator=g)
+
+
+def make_pipeline(models, **kw):
+    from glsdet_tpu_torch.eval.two_stage import TwoStagePipeline
+
+    return TwoStagePipeline(*models, COARSE_HW, mosaic_buckets=BUCKETS,
                             coarse_score_thr=1e-4, max_batch=N_FRAMES,
-                            device=DEVICE)
+                            device=DEVICE, **kw)
+
+
+def build_pipeline():
+    t0 = time.perf_counter()
+    cpu_refs = seeded_models()
+    pipe = make_pipeline(seeded_models())
     log("init", seconds=time.perf_counter() - t0)
     return pipe, cpu_refs
 
@@ -245,8 +273,12 @@ def check_results(results, n_frames) -> int:
     return total
 
 
-def phase_pipeline(pipe, frames, dev_frames) -> dict:
-    from glsdet_tpu_torch.ops import nms_kernel
+def phase_pipeline(pipe, frames, dev_frames, name="pipeline",
+                   kernels=("nms", "paint")) -> dict:
+    """warmup, then 3x (run_device_batch, run_batch), with every kernel's
+    launch count set to 0 just before and read just after; each kernel of
+    ``kernels`` must have launched."""
+    from glsdet_tpu_torch.ops import gn_kernel, nms_kernel
     from glsdet_tpu_torch.ufp import paint_kernel
 
     t0 = time.perf_counter()
@@ -261,6 +293,7 @@ def phase_pipeline(pipe, frames, dev_frames) -> dict:
     torch.cuda.reset_peak_memory_stats()
     nms_kernel.launches = 0
     paint_kernel.launches = 0
+    gn_kernel.launches = 0
     times_dev, times_host = [], []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -271,25 +304,26 @@ def phase_pipeline(pipe, frames, dev_frames) -> dict:
         res_host = pipe.run_batch(frames)
         torch.cuda.synchronize()
         times_host.append(time.perf_counter() - t0)
-    launches = {"nms": nms_kernel.launches, "paint": paint_kernel.launches}
+    launches = {"nms": nms_kernel.launches, "paint": paint_kernel.launches,
+                "gn": gn_kernel.launches}
     peak = torch.cuda.max_memory_allocated()
-    if min(launches.values()) < 1:
+    if min(launches[k] for k in kernels) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
     n_dev = check_results(res_dev, N_FRAMES)
     n_host = check_results(res_host, N_FRAMES)
     if n_dev == 0 or n_host == 0:
         raise AssertionError("stage 2 produced no detections")
-    log("pipeline", frames=N_FRAMES, frame_hw=FRAME_HW, warmup_s=warm_s,
+    out = {"launches": launches, "peak_mem_bytes": peak,
+           "img_per_s_device": N_FRAMES / float(np.median(times_dev)),
+           "img_per_s_host": N_FRAMES / float(np.median(times_host))}
+    log(name, frames=N_FRAMES, frame_hw=FRAME_HW, warmup_s=warm_s,
         coarse_dets=n_coarse, stage2_dets_device=n_dev,
         stage2_dets_host=n_host,
-        device_batch_s=times_dev, host_batch_s=times_host,
-        img_per_s_device=N_FRAMES / float(np.median(times_dev)),
-        img_per_s_host=N_FRAMES / float(np.median(times_host)),
-        launches=launches, peak_mem_bytes=peak)
-    return launches
+        device_batch_s=times_dev, host_batch_s=times_host, **out)
+    return out
 
 
-def phase_profile(pipe, dev_frames) -> None:
+def phase_profile(pipe, dev_frames, name="profile") -> None:
     """Where the time of one ``run_device_batch`` goes: each stage called
     as the pipeline calls it, timed alone (ms); the models alone on inputs
     of the shapes and memory format the pipeline gives them (channels-last
@@ -306,7 +340,7 @@ def phase_profile(pipe, dev_frames) -> None:
     x = torch.randn(b, *COARSE_HW, 3, device=DEVICE).to(pipe.dtype)
     with torch.inference_mode():
         stages["coarse_model"] = cuda_ms(
-            lambda: pipe.coarse(x.permute(0, 3, 1, 2)), 3)
+            lambda: pipe.coarse_net(x.permute(0, 3, 1, 2)), 3)
     dets = unpack_detections(pipe.coarse_packed(dev_frames).cpu().numpy())
     t0 = time.perf_counter()
     jobs = pipe._pack_chunk([tuple(FRAME_HW)] * b, list(range(b)), dets)
@@ -320,7 +354,7 @@ def phase_profile(pipe, dev_frames) -> None:
                         device=DEVICE).to(pipe.dtype)
         with torch.inference_mode():
             stages[f"mp_model_{bucket}x{len(job_list)}"] = cuda_ms(
-                lambda: pipe.mp(m.permute(0, 3, 1, 2)), 3)
+                lambda: pipe.mp_net(m.permute(0, 3, 1, 2)), 3)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -335,17 +369,179 @@ def phase_profile(pipe, dev_frames) -> None:
     ops = sorted((e for e in events if e.device_type == DeviceType.CPU
                   and e.self_device_time_total > 0),
                  key=lambda e: -e.self_device_time_total)
-    log("profile", stage_ms=stages, profiled_wall_ms=wall_ms,
+    log(name, stage_ms=stages, profiled_wall_ms=wall_ms,
         device_busy_ms=device_ms,
         device_idle_share=max(0.0, 1.0 - device_ms / wall_ms),
         top_ops_ms=[(e.key, e.self_device_time_total / 1e3, e.count)
                     for e in ops[:12]])
 
 
+def phase_gn() -> dict:
+    """GN kernel vs its plain version at every head level of both buckets.
+    The only slack allowed is the f32 order of the group statistics: max
+    |code difference| <= 1 and at most 1e-3 of the codes differing; the
+    constant group (zero variance) must be equal."""
+    from glsdet_tpu_torch.ops.gn_kernel import (gn_relu_quant,
+                                                gn_relu_quant_plain)
+
+    rs = np.random.RandomState(2)
+    gamma = torch.from_numpy(rs.uniform(0.5, 1.5, GN_C).astype(np.float32)
+                             ).to(DEVICE)
+    beta = torch.from_numpy((rs.randn(GN_C) * 0.3).astype(np.float32)
+                            ).to(DEVICE)
+    s_out, worst, levels = 0.03, 0.0, []
+    for bucket, sizes in LEVELS.items():
+        for hw in sizes:
+            off = torch.from_numpy(rs.randn(GN_C).astype(np.float32) * 0.5)
+            y = (torch.randn(N_FRAMES, hw, hw, GN_C, device=DEVICE,
+                             generator=torch.Generator(DEVICE).manual_seed(hw))
+                 * 1.5 + off.to(DEVICE))
+            y[..., 8:16] = 0.75                   # one constant group
+            y = y.to(torch.bfloat16)
+            got = gn_relu_quant(y, gamma, beta, s_out, GN_GROUPS)
+            want = gn_relu_quant_plain(y, gamma, beta, s_out, GN_GROUPS)
+            torch.cuda.synchronize()
+            d = (got.int() - want.int()).abs()
+            err, share = float(d.max()), float((d > 0).float().mean())
+            if err > 1 or share > 1e-3:
+                raise AssertionError(f"GN {bucket}/{hw}: max |dq| {err}, "
+                                     f"{share:.2e} of the codes differ")
+            if not torch.equal(got[..., 8:16], want[..., 8:16]):
+                raise AssertionError(f"GN {bucket}/{hw}: constant group")
+            worst = max(worst, err)
+            levels.append({"bucket": bucket, "hw": hw, "max_abs_err": err,
+                           "share_differing": share})
+    y = torch.randn(N_FRAMES, 128, 128, GN_C, device=DEVICE
+                    ).to(torch.bfloat16)
+    t_k = cuda_ms(lambda: gn_relu_quant(y, gamma, beta, s_out))
+    t_p = cuda_ms(lambda: gn_relu_quant_plain(y, gamma, beta, s_out), 3)
+    log("gn", levels=levels, shape=[N_FRAMES, 128, 128, GN_C],
+        kernel_ms=t_k, plain_ms=t_p)
+    return {"max_abs_err": worst, "ms": t_k, "plain_ms": t_p}
+
+
+def phase_int8_conv() -> None:
+    """The int8 convolution's torch._int_mm route vs its float64 version
+    (exact: |acc| < 2**53) at the path's shapes; int32 results equal."""
+    from glsdet_tpu_torch.ops.int8_conv import Int8Conv2d, im2col
+
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    out = []
+    # (B, H, W, Cin, Cout, k, stride): head tower, ResNet stride-2 3x3,
+    # a 1x1 1024 -> 256 FPN lateral, the batch-1 P7 level
+    for b, h, w, cin, cout, k, st in ((16, 128, 128, 256, 256, 3, 1),
+                                      (16, 128, 128, 64, 64, 3, 2),
+                                      (16, 72, 72, 1024, 256, 1, 1),
+                                      (1, 9, 9, 256, 256, 3, 1)):
+        x = torch.randint(-127, 128, (b, h, w, cin), dtype=torch.int8,
+                          device=DEVICE, generator=g)
+        q_w = torch.randint(-127, 128, (cout, cin, k, k), dtype=torch.int8,
+                            device=DEVICE, generator=g)
+        conv = Int8Conv2d(q_w, st, k // 2)
+        got, want = conv(x), conv(x, plain=True)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"int8 conv {(b, h, w, cin, cout, k, st)}:"
+                                 f" {int((got != want).sum())} differ")
+        out.append({"shape": [b, h, w, cin, cout, k, st], "equal": True})
+    b, h, w, c = 16, 128, 128, 256
+    x = torch.randint(-127, 128, (b, h, w, c), dtype=torch.int8,
+                      device=DEVICE, generator=g)
+    conv = Int8Conv2d(torch.randint(-127, 128, (c, c, 3, 3), device=DEVICE,
+                                    dtype=torch.int8, generator=g), 1, 1)
+    xb = torch.randn(b, c, h, w, device=DEVICE, dtype=torch.bfloat16
+                     ).contiguous(memory_format=torch.channels_last)
+    wb = torch.randn(c, c, 3, 3, device=DEVICE, dtype=torch.bfloat16)
+    cols, _, _ = im2col(x, 3, 3, (1, 1), (1, 1))
+    w_t = conv.weight.t()
+    log("int8_conv", checks=out, head_shape=[b, h, w, c, c, 3],
+        int_mm_route_ms=cuda_ms(lambda: conv(x)),
+        of_which_im2col_ms=cuda_ms(lambda: im2col(x, 3, 3, (1, 1), (1, 1))),
+        of_which_int_mm_ms=cuda_ms(lambda: torch._int_mm(cols, w_t)),
+        cudnn_bf16_ms=cuda_ms(lambda: torch.nn.functional.conv2d(
+            xb, wb, padding=1)))
+
+
+def rel_errors(got, ref):
+    errs = []
+    for g, r in zip(got, ref):
+        for gm, rm in zip(g, r):
+            gm, rm = gm.float(), rm.float()
+            if gm.shape != rm.shape or not torch.isfinite(gm).all():
+                raise AssertionError(f"bad int8 output {tuple(gm.shape)}")
+            errs.append(float((gm - rm).abs().max() / rm.abs().max()))
+    return errs
+
+
+def phase_int8(pipe, frames, dev_frames, bf16) -> dict:
+    """Static int8 end to end (see the module docstring, phase 10)."""
+    from glsdet_tpu_torch.native.build import BUILD_DIR
+    from glsdet_tpu_torch.ops.quant_static import load_scales, save_scales
+
+    t0 = time.perf_counter()
+    scales = pipe.calibrate_int8(frames[:4])
+    calib_s = time.perf_counter() - t0
+    path = save_scales(os.path.join(BUILD_DIR, "int8_scales.json"), scales)
+    if load_scales(path) != scales:
+        raise AssertionError("scales changed through save/load")
+    t0 = time.perf_counter()
+    pipe8 = make_pipeline(seeded_models(), quant8="static",
+                          act_scales=load_scales(path))
+    build_s = time.perf_counter() - t0
+    try:
+        coarse_in, mosaic_in = pipe.capture_inputs(frames[:1])
+        with torch.inference_mode():
+            checks = {
+                "yolox": rel_errors(pipe8.coarse_net(coarse_in[0]),
+                                    pipe.coarse(coarse_in[0])),
+                "mpdet": rel_errors(pipe8.mp_net(mosaic_in[0]),
+                                    pipe.mp(mosaic_in[0]))}
+        worst = {k: max(v) for k, v in checks.items()}
+        if max(worst.values()) >= 0.3:
+            raise AssertionError(f"int8 vs bf16 rel err {checks}")
+        log("models_int8_vs_bf16", max_rel_err=worst, bound=0.3,
+            coarse_input=list(coarse_in[0].shape),
+            mosaic_input=list(mosaic_in[0].shape),
+            scales=[len(s) for s in scales], calibrate_s=calib_s,
+            build_s=build_s)
+        res = phase_pipeline(pipe8, frames, dev_frames, "pipeline_int8",
+                             ("nms", "paint", "gn"))
+        n = res["launches"]
+        if n["gn"] != 40 * n["paint"]:
+            raise AssertionError(f"GN kernel launched {n['gn']} times for "
+                                 f"{n['paint']} stage-2 groups, not 40 each")
+        log("int8_vs_bf16", int8_img_per_s_device=res["img_per_s_device"],
+            bf16_img_per_s_device=bf16["img_per_s_device"],
+            int8_img_per_s_host=res["img_per_s_host"],
+            bf16_img_per_s_host=bf16["img_per_s_host"],
+            int8_peak_mem_bytes=res["peak_mem_bytes"],
+            bf16_peak_mem_bytes=bf16["peak_mem_bytes"])
+        phase_profile(pipe8, dev_frames, "profile_int8")
+    finally:
+        pipe8.close()
+    return res
+
+
+def phase_dynamic(dev_frames) -> None:
+    pipe = make_pipeline(seeded_models(), quant8=True)
+    try:
+        t0 = time.perf_counter()
+        res = pipe.run_device_batch(dev_frames)
+        torch.cuda.synchronize()
+        n = check_results(res, N_FRAMES)
+        if n == 0:
+            raise AssertionError("dynamic int8: no detections")
+        log("dynamic_int8", seconds=time.perf_counter() - t0, detections=n)
+    finally:
+        pipe.close()
+
+
 def main() -> None:
     phase_card()
     phase_build()
     nms = phase_nms()
+    gn = phase_gn()
+    phase_int8_conv()
     rs = np.random.RandomState(0)
     frames = [rs.randint(0, 255, (*FRAME_HW, 3), np.uint8)
               for _ in range(N_FRAMES)]
@@ -354,10 +550,13 @@ def main() -> None:
     try:
         phase_models(pipe, cpu_refs)
         paint = phase_paint(pipe, dev_frames)
-        launches = phase_pipeline(pipe, frames, dev_frames)
+        bf16 = phase_pipeline(pipe, frames, dev_frames)
         phase_profile(pipe, dev_frames)
+        int8 = phase_int8(pipe, frames, dev_frames, bf16)
     finally:
         pipe.close()
+    phase_dynamic(dev_frames)
+    launches = bf16["launches"]
     print(json.dumps({"kernels": [
         {"name": "nms_sorted", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/nms.cu",
@@ -367,6 +566,10 @@ def main() -> None:
          "source": "glsdet_tpu_torch/csrc/paint.cu",
          "replaces": "glsdet_tpu/ufp/pallas_paint.py:335",
          "launches": launches["paint"], **paint},
+        {"name": "gn_relu_quant", "route": "cuda",
+         "source": "glsdet_tpu_torch/csrc/gn_quant.cu",
+         "replaces": "glsdet_tpu/ops/pallas_gn.py:154",
+         "launches": int8["launches"]["gn"], **gn},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,9 +9,13 @@ decode + NMS -> chip unmap + IoF gate + class-wise NMS.
 On the card the models run in bfloat16 with cuDNN convolutions, and both
 stages run in ``torch.inference_mode()``.  On the CPU (the parity tests)
 everything runs in float32 and the kernels' plain versions take over.
-Left out for now (see ROADMAP.md): int8 serving, global-local fusion,
-multi-device round robin, the scan-width grouping and the square packing
-mode.
+
+int8 serving, as in the JAX package: ``quant8="static"`` with the
+``act_scales`` that :meth:`TwoStagePipeline.calibrate_int8` returns
+(``ops/quant_static.py``), or ``quant8=True``, dynamic W8A8
+(``ops/quant.py``).  Left out for now (see ROADMAP.md): global-local
+fusion, multi-device round robin, the scan-width grouping and the square
+packing mode.
 """
 
 from __future__ import annotations
@@ -28,6 +32,9 @@ from glsdet_tpu_torch.eval.postprocess import (gfl_postprocess,
                                                yolox_postprocess)
 from glsdet_tpu_torch.native import unified_foreground_packing_rows_fit
 from glsdet_tpu_torch.ops.nms import NEG_INF, batched_nms, topk_stable
+from glsdet_tpu_torch.ops.quant import quantize_dynamic
+from glsdet_tpu_torch.ops.quant_static import (calibrate_scales,
+                                               quantize_static)
 from glsdet_tpu_torch.ufp.assembly import (regions_to_array,
                                            unmap_chip_detections_argmax)
 from glsdet_tpu_torch.ufp.paint_kernel import assemble_mosaic_cuda_batch
@@ -110,9 +117,19 @@ class TwoStagePipeline:
     """End-to-end UFPMP inference over (B, H, W, 3) uint8 RGB frames.
 
     ``coarse_model`` (a ``YOLOXDetector``) and ``mp_model`` (an
-    ``MPDet``) are moved to ``device`` in place and put in eval mode:
-    bfloat16 on ``"cuda"``, float32 on ``"cpu"``.  ``device="cuda"``
-    without a GPU raises; nothing falls back to the CPU.
+    ``MPDet``), with float32 weights, are moved to ``device`` in place and
+    put in eval mode: bfloat16 on ``"cuda"``, float32 on ``"cpu"``.
+    ``device="cuda"`` without a GPU raises; nothing falls back to the CPU.
+
+    ``quant8``: False (the float models) | True (dynamic W8A8) |
+    ``"static"`` (calibrated W8A8 with an explicit int8 ResNet and int8
+    head towers).  ``"static"`` serves int8 when ``act_scales`` is the
+    ``(coarse_scales, mp_scales)`` pair of :meth:`calibrate_int8` (or of
+    the JAX package's, or ``load_scales``); with ``act_scales=None`` it
+    serves the float models, the calibration vehicle.  The quantized
+    copies (``coarse_net``/``mp_net``) and their int8 weights are built
+    once, here, from the float32 weights; the float models stay, in
+    ``coarse``/``mp``, for calibration.
     """
 
     def __init__(self, coarse_model: torch.nn.Module,
@@ -124,7 +141,7 @@ class TwoStagePipeline:
                  chip_score_thr: float = 0.01, final_nms_thr: float = 0.6,
                  max_coarse_dets: int = 200, max_chip_dets: int = 500,
                  max_batch: int = 4, pack_threads: Optional[int] = None,
-                 device="cuda"):
+                 quant8=False, act_scales=None, device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -138,8 +155,24 @@ class TwoStagePipeline:
             self.dtype = torch.float32
         else:
             raise ValueError(f"device {device!r}: expected cuda or cpu")
+        if quant8 not in (False, True, "static"):
+            raise ValueError(f"quant8 {quant8!r}: expected False, True or "
+                             "'static'")
+        self.quant8 = quant8
+        # built before the float models are cast: the int8 weights come
+        # from the float32 parameters, as in the JAX package
+        nets = (coarse_model, mp_model)
+        place = dict(dtype=self.dtype, device=self.device)
+        if quant8 == "static" and act_scales is not None:
+            nets = (quantize_static(coarse_model, act_scales[0], **place),
+                    quantize_static(mp_model, act_scales[1], **place))
+        elif quant8 is True:
+            nets = (quantize_dynamic(coarse_model, **place),
+                    quantize_dynamic(mp_model, **place))
         self.coarse = coarse_model.to(self.device, self.dtype).eval()
         self.mp = mp_model.to(self.device, self.dtype).eval()
+        self.coarse_net, self.mp_net = nets       # what the stages run
+        self._capture = None        # (coarse inputs, mosaic inputs) lists
         self.coarse_hw = tuple(coarse_hw)
         self.num_classes = num_classes
         self.ufp_scale = ufp_scale
@@ -181,7 +214,9 @@ class TwoStagePipeline:
                           antialias=True, align_corners=False)
         x = ((x.to(self.dtype) - self._mean[:, None, None])
              * self._inv_std[:, None, None])
-        cls, reg, obj = self.coarse(x)
+        if self._capture is not None:
+            self._capture[0].append(x)
+        cls, reg, obj = self.coarse_net(x)
         d = yolox_postprocess(cls, reg, obj, self.coarse_hw,
                               score_thr=self.coarse_score_thr,
                               max_dets=self.max_coarse)
@@ -200,13 +235,42 @@ class TwoStagePipeline:
         canvas = assemble_mosaic_cuda_batch(imgs, idx, regions, ph, ph,
                                             self.dtype)[:, :hw, :hw]
         x = ((canvas - self._mean) * self._inv_std).permute(0, 3, 1, 2)
-        cls, reg = self.mp(x)
+        if self._capture is not None:
+            self._capture[1].append(x)
+        cls, reg = self.mp_net(x)
         d = gfl_postprocess(cls, reg, (hw, hw),
                             score_thr=self.chip_score_thr,
                             max_dets=self.max_chip)
         return pack_detections(*_unmap_and_nms(
             d["boxes"], d["scores"], d["labels"], d["valid"], regions,
             iou_thr=self.final_nms_thr, max_out=self.max_chip))
+
+    def capture_inputs(self, images: Sequence[np.ndarray]):
+        """One ``run_batch`` over ``images``, returning the model inputs
+        the stages saw: (normalized coarse batches, normalized mosaic
+        canvases), NCHW on the device."""
+        coarse_in: List[torch.Tensor] = []
+        mosaic_in: List[torch.Tensor] = []
+        self._capture = (coarse_in, mosaic_in)
+        try:
+            self.run_batch(list(images))
+        finally:
+            self._capture = None
+        return coarse_in, mosaic_in
+
+    def calibrate_int8(self, images: Sequence[np.ndarray],
+                       min_channels: int = 32):
+        """Static-int8 activation scales for both models: the float models
+        are calibrated (``calibrate_scales``) on the inputs one
+        ``run_batch`` over the sample frames gives them.  Returns
+        ``(coarse_scales, mp_scales)`` for ``TwoStagePipeline(...,
+        quant8="static", act_scales=...)``; ``save_scales`` persists them.
+        Build this pipeline without quantization, and keep the sample
+        small: the captured inputs stay on the device until the
+        calibration ends."""
+        coarse_in, mosaic_in = self.capture_inputs(images)
+        return (calibrate_scales(self.coarse, coarse_in, min_channels),
+                calibrate_scales(self.mp, mosaic_in, min_channels))
 
     # -- streaming protocol --------------------------------------------
 

@@ -58,6 +58,7 @@ class MPHead(nn.Module):
             raise ValueError("num_classes must equal len(proxies_list)")
         fc = feat_channels
         self.stacked_convs = stacked_convs
+        self.num_levels = num_levels
         self.gamma = gamma
         self.num_classes = num_classes
         for i in range(stacked_convs):

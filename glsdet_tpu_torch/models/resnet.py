@@ -76,6 +76,7 @@ class ResNet(nn.Module):
     def __init__(self, depth: int = 50, base_channels: int = 64):
         super().__init__()
         block = Bottleneck if depth >= 50 else BasicBlock
+        self.depth = depth
         self.stem = ResNetConv(3, base_channels, 7, 2)
         self.names = []
         cin = base_channels

@@ -18,7 +18,8 @@ from typing import Optional
 from glsdet_tpu_torch.native.build import PKG_DIR, build_shared
 
 CSRC = os.path.join(PKG_DIR, "csrc")
-SOURCES = tuple(os.path.join(CSRC, f) for f in ("nms.cu", "paint.cu"))
+SOURCES = tuple(os.path.join(CSRC, f)
+                for f in ("nms.cu", "paint.cu", "gn_quant.cu"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -33,6 +34,10 @@ _SIGNATURES = {
     # out_w, out_bf16, stream
     "glsdet_paint_mosaic": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I, _I,
                             _P],
+    # y, gamma, beta, s_out, eps, batch, hw, c, groups, chunk, partial,
+    # scale_bias, out, stream
+    "glsdet_gn_relu_quant": [_P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _P, _P,
+                             _P, _P],
 }
 
 

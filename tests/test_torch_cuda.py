@@ -15,14 +15,22 @@ boxes, canvases that are no multiple of the 32x8 block, zero region rows
 and chips overhanging the canvas and the frame.  Keep masks and the
 float32 canvas must be equal; the tap weights are k/8, so the canvas is
 exact in any summation order.
+
+The GN kernel (GroupNorm -> ReLU -> int8 requant) is held against its
+plain version with the slack of the f32 order of its statistics: codes
+within +-1 and at most 1e-3 of them differing, except where noted.  The
+int8 convolution's ``torch._int_mm`` route must equal its float64 version
+at row counts around the GEMM's minimum of 17, which the route pads.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from glsdet_tpu_torch.ops import gn_kernel
 from glsdet_tpu_torch.ops import nms as tnms
 from glsdet_tpu_torch.ops import nms_kernel
+from glsdet_tpu_torch.ops.int8_conv import Int8Conv2d
 from glsdet_tpu_torch.ufp import paint_kernel
 
 pytestmark = pytest.mark.cuda
@@ -131,3 +139,84 @@ def test_paint_kernel_matches_plain(card, out_hw, r, dtype):
     assert paint_kernel.launches == before + 1
     assert got.shape == (4, *out_hw, 3) and got.dtype == dtype
     assert torch.equal(got, want)
+
+
+def _gn_inputs(card, b, hw, c, seed, offset=0.5, scale=1.5):
+    g = torch.Generator(card).manual_seed(seed)
+    y = (torch.randn(b, hw, hw, c, device=card, generator=g) * scale
+         + torch.randn(c, device=card, generator=g) * offset)
+    gamma = torch.rand(c, device=card, generator=g) + 0.5
+    beta = torch.randn(c, device=card, generator=g) * 0.3
+    return y, gamma, beta
+
+
+def _gn_check(y, gamma, beta, s_out, share=1e-3):
+    before = gn_kernel.launches
+    got = gn_kernel.gn_relu_quant(y, gamma, beta, s_out)
+    want = gn_kernel.gn_relu_quant_plain(y, gamma, beta, s_out)
+    torch.cuda.synchronize()
+    assert gn_kernel.launches == before + 1
+    d = (got.int() - want.int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= share
+    return got, want
+
+
+@pytest.mark.parametrize("b,hw,c", [(1, 9, 256), (16, 9, 256),
+                                    (1, 36, 256), (16, 36, 256),
+                                    (2, 20, 128), (1, 1, 8), (3, 5, 288)])
+def test_gn_kernel_matches_plain(card, b, hw, c):
+    y, gamma, beta = _gn_inputs(card, b, hw, c, hw * c + b)
+    got, _ = _gn_check(y.to(torch.bfloat16), gamma, beta, 0.03)
+    assert got.dtype == torch.int8 and got.shape == y.shape
+
+
+def test_gn_kernel_negative_group_gives_zero_codes(card):
+    y, _, _ = _gn_inputs(card, 2, 16, 256, 1)
+    y[..., 32:40] = -y[..., 32:40].abs() - 1.0
+    gamma = torch.ones(256, device=card)
+    beta = torch.full((256,), -10.0, device=card)  # every v < 0: relu
+    got, want = _gn_check(y.to(torch.bfloat16), gamma, beta, 0.05)
+    assert int(got.abs().max()) == 0 and int(want.abs().max()) == 0
+
+
+def test_gn_kernel_large_mean_offset(card):
+    """mean 20 against a standard deviation of 1: E[y^2] - mean^2 cancels
+    most of its digits, in both versions alike."""
+    y, gamma, beta = _gn_inputs(card, 4, 32, 256, 7, offset=0.0, scale=1.0)
+    _gn_check((y + 20.0).to(torch.bfloat16), gamma, beta, 0.03, share=5e-3)
+
+
+def test_gn_kernel_constant_group_is_exact(card):
+    y, gamma, beta = _gn_inputs(card, 2, 18, 256, 3)
+    y[..., 64:72] = 0.75
+    got, want = _gn_check(y.to(torch.bfloat16), gamma, beta, 0.03)
+    assert torch.equal(got[..., 64:72], want[..., 64:72])
+
+
+def test_gn_kernel_rejects_what_it_cannot_take(card):
+    y, gamma, beta = _gn_inputs(card, 1, 8, 256, 0)
+    yb = y.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        gn_kernel.gn_relu_quant(yb.transpose(1, 2), gamma, beta, 0.03)
+    with pytest.raises(TypeError):
+        gn_kernel.gn_relu_quant(y, gamma, beta, 0.03)        # float32
+    with pytest.raises(ValueError, match="C ="):
+        gn_kernel.gn_relu_quant(yb[..., :100].contiguous(), gamma[:100],
+                                beta[:100], 0.03)
+    with pytest.raises(ValueError, match="gamma"):
+        gn_kernel.gn_relu_quant(yb, gamma.double(), beta, 0.03)
+
+
+@pytest.mark.parametrize("rows", [1, 15, 16, 17, 18, 24])
+@pytest.mark.parametrize("cin,cout,k", [(64, 64, 1), (20, 36, 3)])
+def test_int8_conv_gemm_rows_padded_and_exact(card, rows, cin, cout, k):
+    g = torch.Generator(card).manual_seed(rows)
+    x = torch.randint(-127, 128, (1, 1, rows, cin), dtype=torch.int8,
+                      device=card, generator=g)
+    q_w = torch.randint(-127, 128, (cout, cin, k, k), dtype=torch.int8,
+                        device=card, generator=g)
+    conv = Int8Conv2d(q_w, 1, k // 2)
+    got = conv(x)
+    torch.cuda.synchronize()
+    assert got.shape == (1, 1, rows, cout)
+    assert torch.equal(got, conv(x, plain=True))
