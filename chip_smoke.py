@@ -12,32 +12,49 @@ Phases, in the order they run, each printing one line:
      at B=16, C=256, G=32 and every level of both buckets, with
      per-channel offsets and one constant group: codes within +-1, at most
      1e-3 of them differing, the constant group equal; both times;
-  5. the int8 convolution's torch._int_mm route vs its exact float64
+  5. fused-bottleneck kernel vs fused_bottleneck_plain at batch 16 and the
+     four ResNet-50 stage shapes of the 1152 bucket (288/144/72/36 pixels,
+     4C = 256/512/1024/2048), with the folded weights of the seeded
+     MP-Det's identity blocks, and at edge shapes (a single-row image, odd
+     H, W off the 16-pixel tile, 4C = 64): max |kernel - plain| <=
+     5e-3 * max |plain|; per stage shape the kernel's, the plain version's
+     and the stock Bottleneck's (bf16, channels-last: the cuDNN chain the
+     kernel replaces) times beside the bound;
+  6. the int8 convolution's torch._int_mm route vs its exact float64
      version at the path's shapes: int32 results equal; the route's time,
      its im2col and its GEMM alone, beside cuDNN's bf16 convolution at the
      head-tower shape;
-  6. the two-stage pipeline at full width (YOLOX-s at 640x640, MPDet
+  7. the two-stage pipeline at full width (YOLOX-s at 640x640, MPDet
      ResNet-50, buckets 1024/1152, bucket-fit packing, coarse threshold
      1e-4, seeded random weights with the JAX package's initializers) on
      16 RandomState(0) 765x1360 frames: the models in bfloat16 on the
      card against float32 on the CPU;
-  7. painter kernel vs assemble_mosaic_plain_batch on region rows the
+  8. painter kernel vs assemble_mosaic_plain_batch on region rows the
      port's packer made from the bench frames, paint sizes 1024 and 1280:
      float32 bit-exact and bfloat16 equal; both times;
-  8. the bf16 pipeline: warmup, run_device_batch and run_batch; the NMS
+  9. the bf16 pipeline: warmup, run_device_batch and run_batch; the NMS
      kernel and the painter must have launched; img/s and peak memory;
-  9. where the time of one run_device_batch goes: stage times, the
-     models alone, torch.profiler's device busy time and largest ops;
- 10. static int8: calibrate_int8 on 4 bench frames with the bf16
+ 10. where the time of one run_device_batch goes: stage times, the
+     models alone, torch.profiler's device busy time, largest ops and
+     largest kernels;
+ 11. static int8: calibrate_int8 on 4 bench frames with the bf16
      pipeline, the scales through save_scales/load_scales, a
      quant8="static" pipeline with the same weights; its int8 models vs
      the bf16 models on a captured input (relative max error < 0.3, the
-     JAX package's bound in tests/test_quant_static.py); then as phases 8
-     and 9: warmup, run_device_batch and run_batch, the GN kernel launched
+     JAX package's bound in tests/test_quant_static.py); then as phases 9
+     and 10: warmup, run_device_batch and run_batch, the GN kernel launched
      40 times per stage-2 group, int8 img/s beside bf16 img/s, peak
      memory, and the stage breakdown of one int8 run_device_batch;
- 11. dynamic int8 (quant8=True): one run_device_batch, results well formed.
-Then one JSON line of per-kernel results and, last, the device line.
+ 12. the fused pipeline: the same seeded weights with MP-Det wrapped by
+     wrap_model_fused; the fused MP-Det vs the unfused bf16 one on a
+     captured mosaic (relative max error < 0.15, the JAX package's bound in
+     tests/test_pallas_bottleneck.py); then as phases 9 and 10, with the
+     bottleneck kernel launched 12 times per stage-2 group; fused img/s and
+     peak memory beside bf16's;
+ 13. dynamic int8 (quant8=True): one run_device_batch, results well formed.
+Then one JSON line of per-kernel results (each with its bound: the bytes
+it must move at 3.35 TB/s or its operations at the card's peak for their
+type, whichever is longer) and, last, the device line.
 Any failure raises, and the script exits non-zero without the last line.
 """
 
@@ -63,6 +80,11 @@ NMS_K = (500, 512, 800, 2000)
 # MP-Det head levels (strides 8..128) of the two buckets
 LEVELS = {1024: (128, 64, 32, 16, 8), 1152: (144, 72, 36, 18, 9)}
 GN_C, GN_GROUPS = 256, 32
+# ResNet-50 stages at the 1152 bucket: (pixels, C, identity blocks)
+STAGES = {"layer1": (288, 64, 2), "layer2": (144, 128, 3),
+          "layer3": (72, 256, 5), "layer4": (36, 512, 2)}
+# NVIDIA H100 SXM, dense: HBM bytes/s, bf16 tensor-core and f32 FLOP/s
+PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 
 
 def log(phase: str, **kw) -> None:
@@ -81,6 +103,14 @@ def cuda_ms(fn, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, ops: float, peak_ops: float) -> dict:
+    """The least time for the work: bytes over the memory rate or
+    operations over the peak rate, whichever is longer (ms)."""
+    t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES, 1e3 * ops / peak_ops
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def phase_card() -> str:
@@ -141,12 +171,19 @@ def phase_nms() -> dict:
                         f"NMS K={k} offset={offset} thr={thr}: "
                         f"{int((got != want).sum())} keep flags differ")
                 worst = max(worst, err)
+        keep = nms_sorted_cuda(bx, vd, 0.6)
         times[k] = (cuda_ms(lambda: nms_sorted_cuda(bx, vd, 0.6)),
                     cuda_ms(lambda: nms_sorted_plain(bx, vd, 0.6), 3))
         log("nms", batch=8, k=k, kernel_ms=times[k][0],
             plain_ms=times[k][1], kept=int(got.sum()), masks_equal=True)
+    # greedy NMS needs the IoU of every kept box with each later valid
+    # box (~17 f32 operations with the threshold test); it reads the
+    # boxes and valid flags and writes the keep flags
+    later = vd.flip(1).cumsum(1).flip(1) - vd.int()
+    pairs = float((later * keep).sum())
     return {"max_abs_err": worst, "ms": times[NMS_K[-1]][0],
-            "plain_ms": times[NMS_K[-1]][1]}
+            "plain_ms": times[NMS_K[-1]][1], "library_ms": None,
+            **bound(bx.numel() * 4 + 2 * vd.numel(), 17 * pairs, PEAK_F32)}
 
 
 def seeded_models():
@@ -241,8 +278,18 @@ def phase_paint(pipe, dev_frames) -> dict:
             f32_bit_exact=True, bf16_equal=True,
             covered_share=float((got.float().abs().sum(-1) > 0)
                                 .float().mean()))
-    return {"max_abs_err": worst, "ms": out[PAINT_HW[0]][0],
-            "plain_ms": out[PAINT_HW[0]][1]}
+    # the bf16 canvases written, the rows read, and the source pixels
+    # under the crops read once; ~11 f32 operations per painted channel
+    ph = PAINT_HW[0]
+    canvas = assemble_mosaic_cuda_batch(dev_frames, idx, regs, ph, ph)
+    r = regs.to(torch.int64)
+    src = float((r[..., 2].clamp(0, FRAME_HW[1])
+                 * r[..., 3].clamp(0, FRAME_HW[0])).sum() * 3)
+    painted = float((canvas.float().abs().sum(-1) > 0).sum() * 3)
+    return {"max_abs_err": worst, "ms": out[ph][0], "plain_ms": out[ph][1],
+            "library_ms": None,
+            **bound(canvas.numel() * 2 + regs.numel() * 4 + src,
+                    11 * painted, PEAK_F32)}
 
 
 def check_results(results, n_frames) -> int:
@@ -278,7 +325,7 @@ def phase_pipeline(pipe, frames, dev_frames, name="pipeline",
     """warmup, then 3x (run_device_batch, run_batch), with every kernel's
     launch count set to 0 just before and read just after; each kernel of
     ``kernels`` must have launched."""
-    from glsdet_tpu_torch.ops import gn_kernel, nms_kernel
+    from glsdet_tpu_torch.ops import bottleneck_kernel, gn_kernel, nms_kernel
     from glsdet_tpu_torch.ufp import paint_kernel
 
     t0 = time.perf_counter()
@@ -294,6 +341,7 @@ def phase_pipeline(pipe, frames, dev_frames, name="pipeline",
     nms_kernel.launches = 0
     paint_kernel.launches = 0
     gn_kernel.launches = 0
+    bottleneck_kernel.launches = 0
     times_dev, times_host = [], []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -305,7 +353,8 @@ def phase_pipeline(pipe, frames, dev_frames, name="pipeline",
         torch.cuda.synchronize()
         times_host.append(time.perf_counter() - t0)
     launches = {"nms": nms_kernel.launches, "paint": paint_kernel.launches,
-                "gn": gn_kernel.launches}
+                "gn": gn_kernel.launches,
+                "bottleneck": bottleneck_kernel.launches}
     peak = torch.cuda.max_memory_allocated()
     if min(launches[k] for k in kernels) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
@@ -369,11 +418,17 @@ def phase_profile(pipe, dev_frames, name="profile") -> None:
     ops = sorted((e for e in events if e.device_type == DeviceType.CPU
                   and e.self_device_time_total > 0),
                  key=lambda e: -e.self_device_time_total)
+    # device rows: the port's own kernels (launched through ctypes, under
+    # no aten op) show only here
+    kerns = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                   key=lambda e: -e.self_device_time_total)
     log(name, stage_ms=stages, profiled_wall_ms=wall_ms,
         device_busy_ms=device_ms,
         device_idle_share=max(0.0, 1.0 - device_ms / wall_ms),
         top_ops_ms=[(e.key, e.self_device_time_total / 1e3, e.count)
-                    for e in ops[:12]])
+                    for e in ops[:12]],
+        top_kernels_ms=[(e.key[:80], e.self_device_time_total / 1e3, e.count)
+                        for e in kerns[:8]])
 
 
 def phase_gn() -> dict:
@@ -415,9 +470,17 @@ def phase_gn() -> dict:
                     ).to(torch.bfloat16)
     t_k = cuda_ms(lambda: gn_relu_quant(y, gamma, beta, s_out))
     t_p = cuda_ms(lambda: gn_relu_quant_plain(y, gamma, beta, s_out), 3)
+    # no one PyTorch call computes GN -> ReLU -> int8; group_norm alone
+    # (NCHW channels-last, bf16 out) is logged as a partial yardstick
+    y_cl = y.permute(0, 3, 1, 2)
+    t_gn = cuda_ms(lambda: torch.nn.functional.group_norm(
+        y_cl, GN_GROUPS, gamma.to(y.dtype), beta.to(y.dtype)))
     log("gn", levels=levels, shape=[N_FRAMES, 128, 128, GN_C],
-        kernel_ms=t_k, plain_ms=t_p)
-    return {"max_abs_err": worst, "ms": t_k, "plain_ms": t_p}
+        kernel_ms=t_k, plain_ms=t_p, group_norm_only_ms=t_gn)
+    # reads bf16 and writes int8 once; ~12 f32 operations per element
+    return {"max_abs_err": worst, "ms": t_k, "plain_ms": t_p,
+            "library_ms": None, **bound(3 * y.numel(), 12 * y.numel(),
+                                        PEAK_F32)}
 
 
 def phase_int8_conv() -> None:
@@ -468,13 +531,13 @@ def rel_errors(got, ref):
         for gm, rm in zip(g, r):
             gm, rm = gm.float(), rm.float()
             if gm.shape != rm.shape or not torch.isfinite(gm).all():
-                raise AssertionError(f"bad int8 output {tuple(gm.shape)}")
+                raise AssertionError(f"bad output {tuple(gm.shape)}")
             errs.append(float((gm - rm).abs().max() / rm.abs().max()))
     return errs
 
 
 def phase_int8(pipe, frames, dev_frames, bf16) -> dict:
-    """Static int8 end to end (see the module docstring, phase 10)."""
+    """Static int8 end to end (see the module docstring, phase 11)."""
     from glsdet_tpu_torch.native.build import BUILD_DIR
     from glsdet_tpu_torch.ops.quant_static import load_scales, save_scales
 
@@ -522,6 +585,140 @@ def phase_int8(pipe, frames, dev_frames, bf16) -> dict:
     return res
 
 
+def bottleneck_bound(b, h, w, c) -> dict:
+    """x read and y written once in bf16, the folded weights and biases
+    read once; 34 C^2 FLOP per pixel on bf16 tensor cores."""
+    nbytes = 2 * 2 * b * h * w * 4 * c + 2 * 17 * c * c + 4 * 6 * c
+    return bound(nbytes, 34 * c * c * b * h * w, PEAK_BF16)
+
+
+def check_bottleneck(x, ops) -> dict:
+    """Kernel vs plain version on one input; raises beyond 5e-3 of the
+    plain version's maximum."""
+    from glsdet_tpu_torch.ops import bottleneck_kernel as bk
+
+    got = bk.fused_bottleneck(x, *ops)
+    want = bk.fused_bottleneck_plain(x, *ops)
+    torch.cuda.synchronize()
+    if got.shape != x.shape or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"bottleneck {tuple(x.shape)}: bad output")
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    if err > 5e-3 * scale:
+        raise AssertionError(f"bottleneck {tuple(x.shape)}: max abs err "
+                             f"{err} against max |plain| {scale}")
+    return {"shape": list(x.shape), "max_abs_err": err,
+            "max_rel_err": err / scale,
+            "share_differing": float((got != want).float().mean())}
+
+
+def phase_bottleneck() -> dict:
+    """The fused-bottleneck kernel at the path's shapes and at edge shapes
+    (module docstring, phase 5)."""
+    from glsdet_tpu_torch.models import MPDet
+    from glsdet_tpu_torch.ops import bottleneck_kernel as bk
+    from glsdet_tpu_torch.ops.fused_infer import FusedBottleneck
+
+    mp = MPDet(10, DEPTH, generator=torch.Generator().manual_seed(0))
+    g = torch.Generator(DEVICE).manual_seed(4)
+    stages, total = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                         "cudnn_chain_ms": 0.0}
+    bound_share = {"bytes": 0.0, "operations": 0.0}
+    worst, worst_rel = 0.0, 0.0
+    for name, (hw, c, n_blocks) in STAGES.items():
+        fused = FusedBottleneck(getattr(mp.backbone, f"{name}_1")).eval().to(
+            DEVICE, torch.bfloat16)
+        ops = (fused.w1, fused.b1, fused.w2, fused.b2, fused.w3, fused.b3)
+        x = torch.relu(torch.randn(N_FRAMES, hw, hw, 4 * c, device=DEVICE,
+                                   generator=g)).to(torch.bfloat16)
+        check = check_bottleneck(x, ops)
+        x_nchw = x.permute(0, 3, 1, 2)          # channels-last strides
+        with torch.inference_mode():
+            times = {
+                "kernel_ms": cuda_ms(lambda: bk.fused_bottleneck(x, *ops)),
+                "plain_ms": cuda_ms(
+                    lambda: bk.fused_bottleneck_plain(x, *ops), 3),
+                "cudnn_chain_ms": cuda_ms(lambda: fused.block(x_nchw)),
+            }
+            stock = fused.block(x_nchw).permute(0, 2, 3, 1).float()
+        ref = bk.fused_bottleneck(x, *ops).float()
+        b = bottleneck_bound(N_FRAMES, hw, hw, c)
+        stages.append({"stage": name, **check, **times, **b,
+                       "blocks_per_mpdet": n_blocks,
+                       "kernel_vs_stock_rel_err": float(
+                           (ref - stock).abs().max() / stock.abs().max())})
+        log("bottleneck", **stages[-1])
+        worst, worst_rel = (max(worst, check["max_abs_err"]),
+                            max(worst_rel, check["max_rel_err"]))
+        for key, t in (("ms", times["kernel_ms"]),
+                       ("plain_ms", times["plain_ms"]),
+                       ("bound_ms", b["bound_ms"]),
+                       ("cudnn_chain_ms", times["cudnn_chain_ms"])):
+            total[key] += n_blocks * t
+        bound_share[b["bound_by"]] += n_blocks * b["bound_ms"]
+        del x, x_nchw, stock, ref
+    # single-row image, odd H, W off the 16-pixel tile, 4C = 64
+    edges = []
+    for b, h, w, cin in ((1, 1, 40, 256), (2, 9, 20, 512),
+                         (2, 12, 27, 1024), (3, 16, 16, 64)):
+        c = cin // 4
+
+        def rnd(*shape, scale):
+            return torch.randn(*shape, device=DEVICE, generator=g) * scale
+
+        x = torch.relu(rnd(b, h, w, cin, scale=1.0)).to(torch.bfloat16)
+        ops = (rnd(cin, c, scale=cin ** -0.5).to(torch.bfloat16),
+               rnd(c, scale=0.1),
+               rnd(9 * c, c, scale=(9 * c) ** -0.5).to(torch.bfloat16),
+               rnd(c, scale=0.1),
+               rnd(c, cin, scale=c ** -0.5).to(torch.bfloat16),
+               rnd(cin, scale=0.1))
+        edges.append(check_bottleneck(x, ops))
+        worst = max(worst, edges[-1]["max_abs_err"])
+        worst_rel = max(worst_rel, edges[-1]["max_rel_err"])
+    log("bottleneck_edges", checks=edges, bound=5e-3)
+    # one MP-Det forward's 12 launches at the 1152 bucket
+    log("bottleneck_per_mpdet", **total)
+    return {"max_abs_err": worst, "max_rel_err": worst_rel,
+            "ms": total["ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": total["bound_ms"],
+            "bound_by": max(bound_share, key=bound_share.get),
+            "library_ms": None, "cudnn_chain_ms": total["cudnn_chain_ms"]}
+
+
+def phase_fused(pipe, frames, dev_frames, bf16) -> dict:
+    """The fused pipeline (module docstring, phase 12)."""
+    from glsdet_tpu_torch.ops.fused_infer import wrap_model_fused
+
+    coarse, mp = seeded_models()
+    pipe_f = make_pipeline((coarse, wrap_model_fused(mp)))
+    try:
+        _, mosaic_in = pipe.capture_inputs(frames[:1])
+        with torch.inference_mode():
+            errs = rel_errors(pipe_f.mp(mosaic_in[0]), pipe.mp(mosaic_in[0]))
+        if max(errs) >= 0.15:
+            raise AssertionError(f"fused vs bf16 MP-Det rel err {errs}")
+        log("mpdet_fused_vs_bf16", max_rel_err=max(errs), bound=0.15,
+            mosaic_input=list(mosaic_in[0].shape))
+        res = phase_pipeline(pipe_f, frames, dev_frames, "pipeline_fused",
+                             ("nms", "paint", "bottleneck"))
+        n = res["launches"]
+        if n["bottleneck"] != 12 * n["paint"]:
+            raise AssertionError(
+                f"bottleneck kernel launched {n['bottleneck']} times for "
+                f"{n['paint']} stage-2 groups, not 12 each")
+        log("fused_vs_bf16", fused_img_per_s_device=res["img_per_s_device"],
+            bf16_img_per_s_device=bf16["img_per_s_device"],
+            fused_img_per_s_host=res["img_per_s_host"],
+            bf16_img_per_s_host=bf16["img_per_s_host"],
+            fused_peak_mem_bytes=res["peak_mem_bytes"],
+            bf16_peak_mem_bytes=bf16["peak_mem_bytes"])
+        phase_profile(pipe_f, dev_frames, "profile_fused")
+    finally:
+        pipe_f.close()
+    return res
+
+
 def phase_dynamic(dev_frames) -> None:
     pipe = make_pipeline(seeded_models(), quant8=True)
     try:
@@ -537,10 +734,14 @@ def phase_dynamic(dev_frames) -> None:
 
 
 def main() -> None:
+    # float32 products of the plain versions stay float32 on the card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     phase_card()
     phase_build()
     nms = phase_nms()
     gn = phase_gn()
+    bottleneck = phase_bottleneck()
     phase_int8_conv()
     rs = np.random.RandomState(0)
     frames = [rs.randint(0, 255, (*FRAME_HW, 3), np.uint8)
@@ -553,6 +754,7 @@ def main() -> None:
         bf16 = phase_pipeline(pipe, frames, dev_frames)
         phase_profile(pipe, dev_frames)
         int8 = phase_int8(pipe, frames, dev_frames, bf16)
+        fused = phase_fused(pipe, frames, dev_frames, bf16)
     finally:
         pipe.close()
     phase_dynamic(dev_frames)
@@ -570,6 +772,10 @@ def main() -> None:
          "source": "glsdet_tpu_torch/csrc/gn_quant.cu",
          "replaces": "glsdet_tpu/ops/pallas_gn.py:154",
          "launches": int8["launches"]["gn"], **gn},
+        {"name": "fused_bottleneck", "route": "cuda",
+         "source": "glsdet_tpu_torch/csrc/bottleneck.cu",
+         "replaces": "glsdet_tpu/ops/pallas_bottleneck.py:181",
+         "launches": fused["launches"]["bottleneck"], **bottleneck},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,9 +13,17 @@ everything runs in float32 and the kernels' plain versions take over.
 int8 serving, as in the JAX package: ``quant8="static"`` with the
 ``act_scales`` that :meth:`TwoStagePipeline.calibrate_int8` returns
 (``ops/quant_static.py``), or ``quant8=True``, dynamic W8A8
-(``ops/quant.py``).  Left out for now (see ROADMAP.md): global-local
-fusion, multi-device round robin, the scan-width grouping and the square
-packing mode.
+(``ops/quant.py``).
+
+Fused bottlenecks, as in the JAX package, take no knob: hand the pipeline
+a wrapped MP-Det, ``TwoStagePipeline(coarse, wrap_model_fused(mp), ...)``
+(``ops/fused_infer.py``), and its 12 identity ResNet blocks run as the
+fused kernel (``csrc/bottleneck.cu``).  The pipeline's cast of the model
+to bfloat16 leaves the folded biases in float32.  Fused serving is float
+only: a wrapped MP-Det with ``quant8`` raises.
+
+Left out for now (see ROADMAP.md): global-local fusion, multi-device round
+robin, the scan-width grouping and the square packing mode.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import torch.nn.functional as F
 from glsdet_tpu_torch.eval.postprocess import (gfl_postprocess,
                                                yolox_postprocess)
 from glsdet_tpu_torch.native import unified_foreground_packing_rows_fit
+from glsdet_tpu_torch.ops.fused_infer import FusedBottleneck
 from glsdet_tpu_torch.ops.nms import NEG_INF, batched_nms, topk_stable
 from glsdet_tpu_torch.ops.quant import quantize_dynamic
 from glsdet_tpu_torch.ops.quant_static import (calibrate_scales,
@@ -158,6 +167,10 @@ class TwoStagePipeline:
         if quant8 not in (False, True, "static"):
             raise ValueError(f"quant8 {quant8!r}: expected False, True or "
                              "'static'")
+        if quant8 and any(isinstance(m, FusedBottleneck)
+                          for m in mp_model.modules()):
+            raise ValueError("fused bottlenecks serve in float only: "
+                             "quant8 must be False")
         self.quant8 = quant8
         # built before the float models are cast: the int8 weights come
         # from the float32 parameters, as in the JAX package

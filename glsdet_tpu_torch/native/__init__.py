@@ -29,8 +29,8 @@ def get_lib() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build_shared(
-                "ufp", [_SRC],
-                ["g++", "-O3", "-shared", "-fPIC", "-std=c++17"]))
+                "ufp", [_SRC], ["g++", "-O3", "-fPIC", "-std=c++17"],
+                ["g++", "-shared"]))
             lib.ufp_pack.restype = ctypes.c_int
             lib.ufp_pack.argtypes = [
                 _D, ctypes.c_int, ctypes.c_double, ctypes.c_double,

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ctypes at first
-use (never at import: the CPU tests import every module).  Each entry
+All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source, all started together, and link into one shared
+library with a plain C interface, loaded with ctypes at first use (never
+at import: the CPU tests import every module).  Each entry
 point launches on the stream it is given and returns
 ``cudaGetLastError()``.
 """
@@ -19,9 +20,11 @@ from glsdet_tpu_torch.native.build import PKG_DIR, build_shared
 
 CSRC = os.path.join(PKG_DIR, "csrc")
 SOURCES = tuple(os.path.join(CSRC, f)
-                for f in ("nms.cu", "paint.cu", "gn_quant.cu"))
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+                for f in ("nms.cu", "paint.cu", "gn_quant.cu",
+                          "bottleneck.cu"))
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+LINK_FLAGS = (*_ARCH, "-shared")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -38,6 +41,9 @@ _SIGNATURES = {
     # scale_bias, out, stream
     "glsdet_gn_relu_quant": [_P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _P, _P,
                              _P, _P],
+    # x, w1, b1, w2, b2, w3, b3, out, batch, h, w, c, stream
+    "glsdet_fused_bottleneck": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _P],
 }
 
 
@@ -55,8 +61,10 @@ def load_kernels() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
+            nv = nvcc()
             lib = ctypes.CDLL(build_shared(
-                "glsdet_kernels", SOURCES, [nvcc(), *NVCC_FLAGS]))
+                "glsdet_kernels", SOURCES, [nv, *NVCC_FLAGS],
+                [nv, *LINK_FLAGS]))
             for fn, argtypes in _SIGNATURES.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int

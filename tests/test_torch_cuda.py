@@ -21,13 +21,27 @@ plain version with the slack of the f32 order of its statistics: codes
 within +-1 and at most 1e-3 of them differing, except where noted.  The
 int8 convolution's ``torch._int_mm`` route must equal its float64 version
 at row counts around the GEMM's minimum of 17, which the route pads.
+
+The fused bottleneck kernel is held against ``fused_bottleneck_plain``
+within 5e-3 of the plain version's maximum (the two sum in another order,
+so a bf16 intermediate can round to its other neighbour) at 4C = 64, 256
+and 2048, odd and even H, W below and off the 16-pixel tile, one pixel;
+``FusedBottleneck`` must take channels-last NCHW input and launch the
+kernel once per eligible block.
 """
+
+import math
+
 
 import numpy as np
 import pytest
 import torch
 
+from glsdet_tpu_torch.models.layers import flax_init_
+from glsdet_tpu_torch.models.resnet import ResNet
+from glsdet_tpu_torch.ops import bottleneck_kernel as bk
 from glsdet_tpu_torch.ops import gn_kernel
+from glsdet_tpu_torch.ops.fused_infer import FusedBottleneck, wrap_model_fused
 from glsdet_tpu_torch.ops import nms as tnms
 from glsdet_tpu_torch.ops import nms_kernel
 from glsdet_tpu_torch.ops.int8_conv import Int8Conv2d
@@ -220,3 +234,114 @@ def test_int8_conv_gemm_rows_padded_and_exact(card, rows, cin, cout, k):
     torch.cuda.synchronize()
     assert got.shape == (1, 1, rows, cout)
     assert torch.equal(got, conv(x, plain=True))
+
+
+def _bottleneck_inputs(card, b, h, w, cin, seed):
+    """bf16 post-ReLU x and folded-like weights scaled by 1/sqrt(fan-in)."""
+    g = torch.Generator(card).manual_seed(seed)
+    c = cin // 4
+
+    def rnd(*shape, scale=0.1):
+        return torch.randn(*shape, device=card, generator=g) * scale
+
+    x = torch.relu(rnd(b, h, w, cin, scale=1.0)).to(torch.bfloat16)
+    return x, [rnd(cin, c, scale=1 / math.sqrt(cin)).to(torch.bfloat16),
+               rnd(c), rnd(9 * c, c, scale=1 / math.sqrt(9 * c)).to(
+                   torch.bfloat16), rnd(c),
+               rnd(c, cin, scale=1 / math.sqrt(c)).to(torch.bfloat16),
+               rnd(cin)]
+
+
+def _bottleneck_check(x, ws):
+    before = bk.launches
+    got = bk.fused_bottleneck(x, *ws)
+    want = bk.fused_bottleneck_plain(x, *ws)
+    torch.cuda.synchronize()
+    assert bk.launches == before + 1
+    assert got.shape == x.shape and got.dtype == x.dtype
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 5e-3 * float(want.float().abs().max()), err
+    return got
+
+
+@pytest.mark.parametrize("h,w", [(7, 10), (8, 12), (10, 37)])
+@pytest.mark.parametrize("cin", [64, 256, 2048])
+def test_bottleneck_kernel_matches_plain(card, cin, h, w):
+    _bottleneck_check(*_bottleneck_inputs(card, 2, h, w, cin, h * w + cin))
+
+
+@pytest.mark.parametrize("cin", [64, 512])
+def test_bottleneck_kernel_one_pixel(card, cin):
+    """Every 3x3 tap but the centre reads the zero padding."""
+    _bottleneck_check(*_bottleneck_inputs(card, 3, 1, 1, cin, cin))
+
+
+def test_bottleneck_kernel_float32_input(card):
+    x, ws = _bottleneck_inputs(card, 1, 6, 20, 128, 11)
+    got = _bottleneck_check(x.float(), ws)
+    assert got.dtype == torch.float32
+
+
+def test_bottleneck_kernel_rejects_what_it_cannot_take(card):
+    x, ws = _bottleneck_inputs(card, 1, 8, 8, 256, 0)
+    for cin in (32, 192):                               # C = 8, C = 48
+        x_c, ws_c = _bottleneck_inputs(card, 1, 8, 8, cin, 0)
+        with pytest.raises(ValueError, match="4C ="):
+            bk.fused_bottleneck(x_c, *ws_c)
+    with pytest.raises(ValueError, match="NHWC-contiguous"):
+        bk.fused_bottleneck(x.transpose(1, 2), *ws)
+    with pytest.raises(ValueError, match="w2"):
+        bk.fused_bottleneck(x, *ws[:2], ws[2][:-1], *ws[3:])
+    with pytest.raises(ValueError, match="b3"):
+        bk.fused_bottleneck(x, *ws[:5], ws[5].cpu())
+    with pytest.raises(TypeError):
+        bk.fused_bottleneck(x.to(torch.int32), *ws)
+
+
+@pytest.fixture
+def fused_resnet(card):
+    """ResNet-50 at base width 16 in bf16 on the card, wrapped, in eval
+    mode; the same weights unwrapped."""
+    g = torch.Generator().manual_seed(0)
+    ref = flax_init_(ResNet(50, base_channels=16), g).eval()
+    model = wrap_model_fused(
+        flax_init_(ResNet(50, base_channels=16), g.manual_seed(0)).eval())
+    place = dict(device=card, dtype=torch.bfloat16)
+    return model.to(**place), ref.to(**place)
+
+
+def test_fused_block_takes_channels_last_input(card, fused_resnet):
+    model, _ = fused_resnet
+    block = model.layer1_1
+    assert isinstance(block, FusedBottleneck)
+    x = torch.relu(torch.randn(2, 64, 16, 24, device=card)).to(torch.bfloat16)
+    xl = x.contiguous(memory_format=torch.channels_last)
+    before = bk.launches
+    with torch.inference_mode():
+        got_cl, got = block(xl), block(x)
+        want = bk.fused_bottleneck_plain(
+            xl.permute(0, 2, 3, 1), block.w1, block.b1, block.w2, block.b2,
+            block.w3, block.b3).permute(0, 3, 1, 2)
+    torch.cuda.synchronize()
+    assert bk.launches == before + 2
+    assert got_cl.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got_cl, got)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 5e-3 * float(want.float().abs().max())
+
+
+def test_fused_resnet_launches_once_per_eligible_block(card, fused_resnet):
+    """At 64x64 layer1 (16x16, 2 identity blocks) and layer2 (8x8, 3)
+    fire; layer3 (4x4) and layer4 (2x2) fall through: 5 launches."""
+    model, ref = fused_resnet
+    x = torch.randn(2, 3, 64, 64, device=card).to(torch.bfloat16)
+    before = bk.launches
+    with torch.inference_mode():
+        got, want = model(x), ref(x)
+    torch.cuda.synchronize()
+    assert bk.launches == before + 5
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g.float()).all()
+        rel = float((g.float() - w.float()).abs().max()
+                    / w.float().abs().max())
+        assert rel < 0.15, rel
