@@ -11,15 +11,21 @@ Phases, in the order they run, each printing one line:
   4. GN kernel (GroupNorm -> ReLU -> int8 requant) vs gn_relu_quant_plain
      at B=16, C=256, G=32 and every level of both buckets, with
      per-channel offsets and one constant group: codes within +-1, at most
-     1e-3 of them differing, the constant group equal; both times;
+     1e-3 of them differing, the constant group equal; the kernel's, the
+     plain version's and F.group_norm's times with the bound at each
+     level of the 1152 bucket (the one the path runs), and summed over the
+     40 launches of a stage-2 group (8 per level);
   5. fused-bottleneck kernel vs fused_bottleneck_plain at batch 16 and the
      four ResNet-50 stage shapes of the 1152 bucket (288/144/72/36 pixels,
      4C = 256/512/1024/2048), with the folded weights of the seeded
      MP-Det's identity blocks, and at edge shapes (a single-row image, odd
      H, W off the 16-pixel tile, 4C = 64): max |kernel - plain| <=
-     5e-3 * max |plain|; per stage shape the kernel's, the plain version's
-     and the stock Bottleneck's (bf16, channels-last: the cuDNN chain the
-     kernel replaces) times beside the bound;
+     5e-3 * max |plain|; per stage shape the kernel's (with the packed
+     weights FusedBottleneck holds), the plain version's and the stock
+     Bottleneck's (bf16, channels-last: the cuDNN chain the kernel
+     replaces) times beside the bound, the share of the bound, the
+     achieved TFLOP/s and the weight bytes that leave L2 per launch,
+     counted from the tile plan;
   6. the int8 convolution's torch._int_mm route vs its exact float64
      version at the path's shapes: int32 results equal; the route's time,
      its im2col and its GEMM alone, beside cuDNN's bf16 convolution at the
@@ -80,6 +86,7 @@ NMS_K = (500, 512, 800, 2000)
 # MP-Det head levels (strides 8..128) of the two buckets
 LEVELS = {1024: (128, 64, 32, 16, 8), 1152: (144, 72, 36, 18, 9)}
 GN_C, GN_GROUPS = 256, 32
+GN_PER_LEVEL = 8             # int8 GN launches per head level (2 x 4)
 # ResNet-50 stages at the 1152 bucket: (pixels, C, identity blocks)
 STAGES = {"layer1": (288, 64, 2), "layer2": (144, 128, 3),
           "layer3": (72, 256, 5), "layer4": (36, 512, 2)}
@@ -466,21 +473,39 @@ def phase_gn() -> dict:
             worst = max(worst, err)
             levels.append({"bucket": bucket, "hw": hw, "max_abs_err": err,
                            "share_differing": share})
-    y = torch.randn(N_FRAMES, 128, 128, GN_C, device=DEVICE
-                    ).to(torch.bfloat16)
-    t_k = cuda_ms(lambda: gn_relu_quant(y, gamma, beta, s_out))
-    t_p = cuda_ms(lambda: gn_relu_quant_plain(y, gamma, beta, s_out), 3)
-    # no one PyTorch call computes GN -> ReLU -> int8; group_norm alone
-    # (NCHW channels-last, bf16 out) is logged as a partial yardstick
-    y_cl = y.permute(0, 3, 1, 2)
-    t_gn = cuda_ms(lambda: torch.nn.functional.group_norm(
-        y_cl, GN_GROUPS, gamma.to(y.dtype), beta.to(y.dtype)))
-    log("gn", levels=levels, shape=[N_FRAMES, 128, 128, GN_C],
-        kernel_ms=t_k, plain_ms=t_p, group_norm_only_ms=t_gn)
-    # reads bf16 and writes int8 once; ~12 f32 operations per element
-    return {"max_abs_err": worst, "ms": t_k, "plain_ms": t_p,
-            "library_ms": None, **bound(3 * y.numel(), 12 * y.numel(),
-                                        PEAK_F32)}
+    # times at the levels the path runs: all 16 mosaics land in the 1152
+    # bucket, whose int8 towers launch the kernel 8 times per level (2
+    # towers x 4 GroupNorms), 40 per stage-2 group
+    timed, total = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                        "group_norm_only_ms": 0.0}
+    share = {"bytes": 0.0, "operations": 0.0}
+    for hw in LEVELS[1152]:
+        y = torch.randn(N_FRAMES, hw, hw, GN_C, device=DEVICE
+                        ).to(torch.bfloat16)
+        # no one PyTorch call computes GN -> ReLU -> int8; group_norm
+        # alone (NCHW channels-last, bf16 out) is a partial yardstick
+        y_cl = y.permute(0, 3, 1, 2)
+        t = {"ms": cuda_ms(lambda: gn_relu_quant(y, gamma, beta, s_out)),
+             "plain_ms": cuda_ms(
+                 lambda: gn_relu_quant_plain(y, gamma, beta, s_out), 3),
+             "group_norm_only_ms": cuda_ms(
+                 lambda: torch.nn.functional.group_norm(
+                     y_cl, GN_GROUPS, gamma.to(y.dtype), beta.to(y.dtype)))}
+        # reads bf16 and writes int8 once; ~12 f32 operations an element
+        b = bound(3 * y.numel(), 12 * y.numel(), PEAK_F32)
+        timed.append({"hw": hw, **t, **b,
+                      "share_of_bound": b["bound_ms"] / t["ms"]})
+        for key in ("ms", "plain_ms", "group_norm_only_ms"):
+            total[key] += GN_PER_LEVEL * t[key]
+        total["bound_ms"] += GN_PER_LEVEL * b["bound_ms"]
+        share[b["bound_by"]] += b["bound_ms"]
+    log("gn", levels=levels, batch=N_FRAMES, channels=GN_C, timed=timed,
+        launches_per_level=GN_PER_LEVEL, per_stage2_group=total)
+    return {"max_abs_err": worst, "ms": total["ms"],
+            "plain_ms": total["plain_ms"], "library_ms": None,
+            "bound_ms": total["bound_ms"],
+            "bound_by": max(share, key=share.get),
+            "group_norm_only_ms": total["group_norm_only_ms"]}
 
 
 def phase_int8_conv() -> None:
@@ -592,12 +617,27 @@ def bottleneck_bound(b, h, w, c) -> dict:
     return bound(nbytes, 34 * c * c * b * h * w, PEAK_BF16)
 
 
-def check_bottleneck(x, ops) -> dict:
+def l2_weight_bytes(b, h, w, c) -> dict:
+    """Weight bytes that leave L2 in one launch, counted from the tile
+    plan: all 17 C^2 bf16 weights once per cluster of CL tiles of TH x 16
+    pixels (``PLAN``); beside them the first design's (every TH x 16 tile
+    its own, TH = 8, 4, 2 at C <= 128, 256, 512)."""
+    from glsdet_tpu_torch.ops.bottleneck_kernel import PLAN
+
+    th, cl = PLAN[c][:2]
+    tiles = b * -(-h // th) * -(-w // 16)
+    th0 = 8 if c <= 128 else (4 if c == 256 else 2)
+    return {"l2_weight_bytes": -(-tiles // cl) * 34 * c * c,
+            "l2_weight_bytes_first_design":
+                b * -(-h // th0) * -(-w // 16) * 34 * c * c}
+
+
+def check_bottleneck(x, ops, packed=None) -> dict:
     """Kernel vs plain version on one input; raises beyond 5e-3 of the
     plain version's maximum."""
     from glsdet_tpu_torch.ops import bottleneck_kernel as bk
 
-    got = bk.fused_bottleneck(x, *ops)
+    got = bk.fused_bottleneck(x, *ops, packed=packed)
     want = bk.fused_bottleneck_plain(x, *ops)
     torch.cuda.synchronize()
     if got.shape != x.shape or not torch.isfinite(got.float()).all():
@@ -629,21 +669,29 @@ def phase_bottleneck() -> dict:
         fused = FusedBottleneck(getattr(mp.backbone, f"{name}_1")).eval().to(
             DEVICE, torch.bfloat16)
         ops = (fused.w1, fused.b1, fused.w2, fused.b2, fused.w3, fused.b3)
+        packed = (fused.w1p, fused.w2p, fused.w3p)
         x = torch.relu(torch.randn(N_FRAMES, hw, hw, 4 * c, device=DEVICE,
                                    generator=g)).to(torch.bfloat16)
-        check = check_bottleneck(x, ops)
+        check = check_bottleneck(x, ops, packed)
         x_nchw = x.permute(0, 3, 1, 2)          # channels-last strides
         with torch.inference_mode():
             times = {
-                "kernel_ms": cuda_ms(lambda: bk.fused_bottleneck(x, *ops)),
+                "kernel_ms": cuda_ms(
+                    lambda: bk.fused_bottleneck(x, *ops, packed=packed)),
                 "plain_ms": cuda_ms(
                     lambda: bk.fused_bottleneck_plain(x, *ops), 3),
                 "cudnn_chain_ms": cuda_ms(lambda: fused.block(x_nchw)),
             }
             stock = fused.block(x_nchw).permute(0, 2, 3, 1).float()
-        ref = bk.fused_bottleneck(x, *ops).float()
+        ref = bk.fused_bottleneck(x, *ops, packed=packed).float()
         b = bottleneck_bound(N_FRAMES, hw, hw, c)
         stages.append({"stage": name, **check, **times, **b,
+                       "share_of_bound": b["bound_ms"] / times["kernel_ms"],
+                       "tflops": 34 * c * c * N_FRAMES * hw * hw
+                       / times["kernel_ms"] / 1e9,
+                       "vs_cudnn_chain": times["kernel_ms"]
+                       / times["cudnn_chain_ms"],
+                       **l2_weight_bytes(N_FRAMES, hw, hw, c),
                        "blocks_per_mpdet": n_blocks,
                        "kernel_vs_stock_rel_err": float(
                            (ref - stock).abs().max() / stock.abs().max())})
@@ -678,7 +726,8 @@ def phase_bottleneck() -> dict:
         worst_rel = max(worst_rel, edges[-1]["max_rel_err"])
     log("bottleneck_edges", checks=edges, bound=5e-3)
     # one MP-Det forward's 12 launches at the 1152 bucket
-    log("bottleneck_per_mpdet", **total)
+    log("bottleneck_per_mpdet", **total,
+        vs_cudnn_chain=total["ms"] / total["cudnn_chain_ms"])
     return {"max_abs_err": worst, "max_rel_err": worst_rel,
             "ms": total["ms"], "plain_ms": total["plain_ms"],
             "bound_ms": total["bound_ms"],

@@ -41,7 +41,7 @@ _SIGNATURES = {
     # scale_bias, out, stream
     "glsdet_gn_relu_quant": [_P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _P, _P,
                              _P, _P],
-    # x, w1, b1, w2, b2, w3, b3, out, batch, h, w, c, stream
+    # x, w1p, b1, w2p, b2, w3p, b3, out, batch, h, w, c, stream
     "glsdet_fused_bottleneck": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _P],
 }

@@ -1,5 +1,6 @@
 """Fused identity ResNet bottleneck: wrapper of the CUDA kernel
-(``csrc/bottleneck.cu``) and its plain PyTorch version.
+(``csrc/bottleneck.cu``), its plain PyTorch version, and the weight
+packing that feeds the kernel.
 
 Replaces ``glsdet_tpu/ops/pallas_bottleneck.py: fused_bottleneck``, which
 ``ops/fused_infer.py`` runs for every identity ``Bottleneck`` of MP-Det's
@@ -12,6 +13,18 @@ ResNet.  With BN folded into each convolution:
 bf16 operands, f32 sums, bf16 intermediates, the result in ``x.dtype``.
 Tensors are NHWC.  On a CPU tensor the wrapper computes the plain version;
 on a CUDA tensor it launches the kernel or raises.
+
+The kernel runs its products on ``wgmma`` and streams the weights through a
+ring in shared memory, one K-chunk at a time, multicast to the blocks of a
+thread-block cluster (``csrc/bottleneck.cu`` has the design and the tile
+plan).  Each chunk is one contiguous copy, in the layout the ``wgmma``
+descriptor reads, so the weights are packed ahead of time:
+:func:`pack_weights` (and its inverse :func:`unpack_weights`) cut each
+(K, N) weight into chunks of ``KC`` rows by ``NCH`` columns (``PLAN``),
+orders them as the kernel reads them (column pass outer, K chunk inner),
+and lays each chunk out as 8 x 8 core matrices, ``[n / 8][k / 8][n % 8][k %
+8]``.  ``FusedBottleneck`` packs once when it folds; the wrapper packs on
+the fly when it is given no packed weights.
 """
 
 from __future__ import annotations
@@ -25,6 +38,51 @@ from glsdet_tpu_torch.native import kernels
 KERNEL_C = (16, 32, 64, 128, 256, 512)
 
 launches = 0          # kernel launches since the last reset
+
+# The kernel's tile plan (``csrc/bottleneck.cu: Plan<C>``), per C: output
+# tile rows TH, cluster size CL, and for conv1, conv2, conv3 the K rows per
+# chunk KC and the columns per pass NCH (the split is the kernel's own
+# business).  tests/test_torch_bottleneck_pack.py holds it to the source.
+PLAN = {16: (8, 1, (32, 16), (16, 16), (16, 64)),
+        32: (8, 1, (32, 32), (32, 32), (32, 128)),
+        64: (8, 1, (32, 64), (64, 64), (32, 128)),
+        128: (8, 2, (64, 128), (64, 128), (64, 256)),
+        256: (8, 4, (32, 128), (64, 256), (64, 256)),
+        512: (4, 4, (32, 256), (32, 512), (32, 512))}
+
+
+def _shapes(c: int):
+    """(K, N) of w1, w2, w3 for bottleneck width C."""
+    return (4 * c, c), (9 * c, c), (c, 4 * c)
+
+
+def pack_weights(w1: torch.Tensor, w2: torch.Tensor, w3: torch.Tensor):
+    """w1 (4C, C), w2 (9C, C), w3 (C, 4C) -> three flat bf16 buffers in the
+    kernel's chunk order and core-matrix layout (module docstring), on the
+    weights' device."""
+    c = w1.shape[1]
+    if c not in PLAN:
+        raise ValueError(f"C = {c}: the kernel takes C in {KERNEL_C}")
+    out = []
+    for w, (k, n), (kc, nch) in zip((w1, w2, w3), _shapes(c), PLAN[c][2:]):
+        if tuple(w.shape) != (k, n):
+            raise ValueError(f"expected a ({k}, {n}) weight, got "
+                             f"{tuple(w.shape)}")
+        blocks = w.to(torch.bfloat16).reshape(k // kc, kc // 8, 8, n // nch,
+                                              nch // 8, 8)
+        # [kc, kg, k8, pass, ng, n8] -> [pass, kc, ng, kg, n8, k8]
+        out.append(blocks.permute(3, 0, 4, 1, 5, 2).contiguous().reshape(-1))
+    return tuple(out)
+
+
+def unpack_weights(p1: torch.Tensor, p2: torch.Tensor, p3: torch.Tensor,
+                   c: int):
+    """The inverse of :func:`pack_weights`: (w1, w2, w3) in bf16."""
+    out = []
+    for p, (k, n), (kc, nch) in zip((p1, p2, p3), _shapes(c), PLAN[c][2:]):
+        blocks = p.reshape(n // nch, k // kc, nch // 8, kc // 8, 8, 8)
+        out.append(blocks.permute(1, 3, 5, 0, 2, 4).reshape(k, n))
+    return tuple(out)
 
 
 def fused_bottleneck_plain(x: torch.Tensor, w1: torch.Tensor,
@@ -81,9 +139,20 @@ def _check_operands(x, w1, b1, w2, b2, w3, b3) -> int:
     return c
 
 
+def _check_packed(packed, c: int, device) -> tuple:
+    sizes = [k * n for k, n in _shapes(c)]
+    if (len(packed) != 3 or any(
+            t.dtype != torch.bfloat16 or t.dim() != 1 or t.numel() != size
+            or t.device != device or not t.is_contiguous()
+            for t, size in zip(packed, sizes))):
+        raise ValueError(f"packed: expected three contiguous bf16 buffers of "
+                         f"{sizes} elements on {device} (pack_weights)")
+    return tuple(packed)
+
+
 def fused_bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                      w2: torch.Tensor, b2: torch.Tensor, w3: torch.Tensor,
-                     b3: torch.Tensor) -> torch.Tensor:
+                     b3: torch.Tensor, packed=None) -> torch.Tensor:
     """Fused identity-bottleneck forward.
 
     Args:
@@ -95,6 +164,9 @@ def fused_bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         w3: (C, 4C) folded conv3;  b3: (4C,).
         Weights are used as bf16 and biases as float32; the casts are
         no-ops for operands already in those types.
+        packed: ``pack_weights(w1, w2, w3)`` made ahead of time, which the
+            kernel reads in place of w1, w2, w3 (``FusedBottleneck`` keeps
+            them); None packs on the fly.  The plain version ignores it.
 
     Returns (B, H, W, 4C) NHWC-contiguous in ``x.dtype``.
     """
@@ -106,10 +178,10 @@ def fused_bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     c = _check_operands(x, w1, b1, w2, b2, w3, b3)
     bsz, h, w, cin = x.shape
     xb = x.to(torch.bfloat16)
-    ops = [xb] + [t.to(dt).contiguous() for t, dt in (
-        (w1, torch.bfloat16), (b1, torch.float32),
-        (w2, torch.bfloat16), (b2, torch.float32),
-        (w3, torch.bfloat16), (b3, torch.float32))]
+    wp = (pack_weights(w1, w2, w3) if packed is None
+          else _check_packed(packed, c, x.device))
+    ops = [xb, wp[0], b1.float().contiguous(), wp[1],
+           b2.float().contiguous(), wp[2], b3.float().contiguous()]
     out = torch.empty_like(xb)
     if out.numel() == 0:
         return out.to(x.dtype)
@@ -122,3 +194,4 @@ def fused_bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         "glsdet_fused_bottleneck")
     launches += 1
     return out.to(x.dtype)
+

@@ -27,9 +27,14 @@ within 5e-3 of the plain version's maximum (the two sum in another order,
 so a bf16 intermediate can round to its other neighbour) at 4C = 64, 256
 and 2048, odd and even H, W below and off the 16-pixel tile, one pixel;
 ``FusedBottleneck`` must take channels-last NCHW input and launch the
-kernel once per eligible block.
+kernel once per eligible block.  The tile plan's edges: for every C, a
+grid whose block count is no multiple of the cluster size, H and W off
+the tile, images with fewer tiles than a cluster, batch 1 at the four
+ResNet-50 stage shapes of the 1152 bucket, and two launches that must
+agree bit for bit.
 """
 
+import functools
 import math
 
 
@@ -37,6 +42,7 @@ import numpy as np
 import pytest
 import torch
 
+from glsdet_tpu_torch.models import MPDet
 from glsdet_tpu_torch.models.layers import flax_init_
 from glsdet_tpu_torch.models.resnet import ResNet
 from glsdet_tpu_torch.ops import bottleneck_kernel as bk
@@ -296,6 +302,68 @@ def test_bottleneck_kernel_rejects_what_it_cannot_take(card):
         bk.fused_bottleneck(x, *ws[:5], ws[5].cpu())
     with pytest.raises(TypeError):
         bk.fused_bottleneck(x.to(torch.int32), *ws)
+
+
+@pytest.mark.parametrize("c", bk.KERNEL_C)
+def test_bottleneck_kernel_ragged_tiles_and_clusters(card, c):
+    """17 x 33: H off every TH, W off the 16-pixel tile, and 9 (TH = 8)
+    or 15 (TH = 4) tiles, no multiple of a cluster of 2 or 4: the last
+    cluster has spare blocks."""
+    _bottleneck_check(*_bottleneck_inputs(card, 1, 17, 33, 4 * c, c + 1))
+
+
+@pytest.mark.parametrize("c", [128, 256, 512])
+def test_bottleneck_kernel_images_smaller_than_a_cluster(card, c):
+    """One tile per image (3 x 10): a cluster spans images, and with 3
+    images the grid's last cluster is mostly spare."""
+    _bottleneck_check(*_bottleneck_inputs(card, 3, 3, 10, 4 * c, c + 2))
+
+
+@functools.lru_cache(maxsize=None)
+def _stage_block(name):
+    """The seeded MP-Det's first identity block of a ResNet-50 stage,
+    folded, in bf16 on the card (as ``chip_smoke.py`` takes it)."""
+    mp = MPDet(10, 50, generator=torch.Generator().manual_seed(0))
+    return FusedBottleneck(getattr(mp.backbone, f"{name}_1")).eval().to(
+        "cuda", torch.bfloat16)
+
+
+@pytest.mark.parametrize("name,hw", [("layer1", 288), ("layer2", 144),
+                                     ("layer3", 72), ("layer4", 36)])
+def test_bottleneck_kernel_batch_one_at_stage_shapes(card, name, hw):
+    """Batch 1 at the stage shapes of the 1152 bucket, with the path's
+    folded weights and packed buffers."""
+    block = _stage_block(name)
+    g = torch.Generator(card).manual_seed(hw)
+    x = torch.relu(torch.randn(1, hw, hw, block.w1.shape[0], device=card,
+                               generator=g)).to(torch.bfloat16)
+    ws = (block.w1, block.b1, block.w2, block.b2, block.w3, block.b3)
+    got = bk.fused_bottleneck(x, *ws, packed=(block.w1p, block.w2p,
+                                              block.w3p))
+    want = bk.fused_bottleneck_plain(x, *ws)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 5e-3 * float(want.float().abs().max()), err
+
+
+@pytest.mark.parametrize("hw,cin", [(72, 1024), (36, 2048)])
+def test_bottleneck_kernel_is_deterministic(card, hw, cin):
+    """No atomics and no order dependence: two launches, equal bits."""
+    x, ws = _bottleneck_inputs(card, 4, hw, hw, cin, 7)
+    first = bk.fused_bottleneck(x, *ws)
+    second = bk.fused_bottleneck(x, *ws)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_bottleneck_kernel_prepacked_equals_packed_on_the_fly(card):
+    x, ws = _bottleneck_inputs(card, 2, 16, 40, 1024, 3)
+    packed = bk.pack_weights(ws[0], ws[2], ws[4])
+    got = bk.fused_bottleneck(x, *ws, packed=packed)
+    assert torch.equal(got, bk.fused_bottleneck(x, *ws))
+    with pytest.raises(ValueError, match="packed"):
+        bk.fused_bottleneck(x, *ws, packed=(packed[0], packed[1],
+                                            packed[2][:-8]))
 
 
 @pytest.fixture
