@@ -7,14 +7,22 @@ Phases, in the order they run, each printing one line:
   2. build the CUDA kernels from glsdet_tpu_torch/csrc (seconds taken);
   3. NMS kernel vs nms_sorted_plain: B=8, K in {500, 512, 800, 2000},
      offsets 0/1, thresholds 0.6/0.65, class-shifted detection-like
-     boxes; keep masks must be equal; both times;
-  4. GN kernel (GroupNorm -> ReLU -> int8 requant) vs gn_relu_quant_plain
-     at B=16, C=256, G=32 and every level of both buckets, with
-     per-channel offsets and one constant group: codes within +-1, at most
-     1e-3 of them differing, the constant group equal; the kernel's, the
-     plain version's and F.group_norm's times with the bound at each
-     level of the 1152 bucket (the one the path runs), and summed over the
-     40 launches of a stage-2 group (8 per level);
+     boxes; keep masks must be equal; the kernel's time, each of its two
+     passes alone, and the plain version's;
+  4. GN kernel (GroupNorm -> ReLU -> int8 requant), both entries (the
+     accumulator entry the int8 towers call, and the bf16 entry) vs their
+     plain versions at B=16, C=256, G=32 and every level of both buckets,
+     with per-channel offsets and one constant group: codes within +-1, at
+     most 1e-3 of them differing, the constant group equal; and equal
+     codes where the inputs make every f32 sum exact.  Per level of
+     the 1152 bucket (the one the path runs): the regime the kernel takes
+     (resident in a cluster, one launch; or streaming, two) and its
+     cluster; the accumulator entry, the bf16 entry, and the route the
+     accumulator entry replaces (dequantize, cast to bf16, bf16 entry),
+     timed in the same call, each with its bound and share of it, and the
+     accumulator entry's time split by kernel (torch.profiler); and all
+     summed over the 40 launches of a stage-2 group (8 per level), where
+     the accumulator entry must beat the route it replaces;
   5. fused-bottleneck kernel vs fused_bottleneck_plain at batch 16 and the
      four ResNet-50 stage shapes of the 1152 bucket (288/144/72/36 pixels,
      4C = 256/512/1024/2048), with the folded weights of the seeded
@@ -40,6 +48,11 @@ Phases, in the order they run, each printing one line:
      float32 bit-exact and bfloat16 equal; both times;
   9. the bf16 pipeline: warmup, run_device_batch and run_batch; the NMS
      kernel and the painter must have launched; img/s and peak memory;
+     then the NMS kernel where the path runs it: the inputs of every
+     launch in one run_device_batch, captured, with the wrapper's shape
+     log; per launch keep masks equal to the plain version, the kernel's
+     time, each pass alone, the plain version's and the bound, and their
+     sums over the batch;
  10. where the time of one run_device_batch goes: stage times, the
      models alone, torch.profiler's device busy time, largest ops and
      largest kernels;
@@ -50,7 +63,10 @@ Phases, in the order they run, each printing one line:
      JAX package's bound in tests/test_quant_static.py); then as phases 9
      and 10: warmup, run_device_batch and run_batch, the GN kernel launched
      40 times per stage-2 group, int8 img/s beside bf16 img/s, peak
-     memory, and the stage breakdown of one int8 run_device_batch;
+     memory, the NMS kernel at the batch's shapes, the ops of one int8
+     head tower (its GEMMs and one float multiply: no dequantize pass
+     between a GEMM and the GN kernel), and the stage breakdown of one
+     int8 run_device_batch;
  12. the fused pipeline: the same seeded weights with MP-Det wrapped by
      wrap_model_fused; the fused MP-Det vs the unfused bf16 one on a
      captured mosaic (relative max error < 0.15, the JAX package's bound in
@@ -60,7 +76,9 @@ Phases, in the order they run, each printing one line:
  13. dynamic int8 (quant8=True): one run_device_batch, results well formed.
 Then one JSON line of per-kernel results (each with its bound: the bytes
 it must move at 3.35 TB/s or its operations at the card's peak for their
-type, whichever is longer) and, last, the device line.
+type, whichever is longer) and, last, the device line.  A kernel's ``ms``
+is the mean of eager calls between two CUDA events, host gaps included;
+``graph_ms`` beside it is the same calls replayed from a CUDA graph.
 Any failure raises, and the script exits non-zero without the last line.
 """
 
@@ -68,6 +86,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -85,7 +104,7 @@ PHI, DEPTH = "s", 50
 NMS_K = (500, 512, 800, 2000)
 # MP-Det head levels (strides 8..128) of the two buckets
 LEVELS = {1024: (128, 64, 32, 16, 8), 1152: (144, 72, 36, 18, 9)}
-GN_C, GN_GROUPS = 256, 32
+GN_C, GN_GROUPS, GN_S_OUT = 256, 32, 0.03
 GN_PER_LEVEL = 8             # int8 GN launches per head level (2 x 4)
 # ResNet-50 stages at the 1152 bucket: (pixels, C, identity blocks)
 STAGES = {"layer1": (288, 64, 2), "layer2": (144, 128, 3),
@@ -107,6 +126,33 @@ def cuda_ms(fn, iters: int = 10) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 10) -> float:
+    """Mean device time of ``fn`` over ``iters`` runs captured in one CUDA
+    graph and replayed: the kernels' own time, without the host's gaps
+    between eager launches (which set an eager time of a few microseconds
+    of work).  ``fn`` runs once eagerly first, so that what it caches
+    (built libraries, plans) is made outside the capture."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -157,40 +203,111 @@ def det_boxes(rs, b, k, n_classes=10, extent=1024.0):
     return boxes.astype(np.float32), valid
 
 
-def phase_nms() -> dict:
+def nms_bound(bx, vd, keep) -> dict:
+    """Greedy NMS needs the IoU of every kept box with each later valid
+    box (~17 f32 operations with the threshold test); it reads the boxes
+    and valid flags and writes the keep flags."""
+    later = vd.flip(1).cumsum(1).flip(1) - vd.int()
+    pairs = float((later * keep).sum())
+    return bound(bx.numel() * 4 + 2 * vd.numel(), 17 * pairs, PEAK_F32)
+
+
+def nms_times(bx, vd, thr, offset) -> dict:
+    """The kernel's time (eager, and replayed from a graph), each of its
+    passes alone (replayed), the plain version's."""
+    from glsdet_tpu_torch.ops.nms import nms_sorted_plain
+    from glsdet_tpu_torch.ops.nms_kernel import nms_passes, nms_sorted_cuda
+
+    mask_pass, reduce_pass, _ = nms_passes(bx, vd, thr, offset)
+    mask_pass()
+    run = lambda: nms_sorted_cuda(bx, vd, thr, offset)  # noqa: E731
+    return {"ms": cuda_ms(run), "graph_ms": graph_ms(run),
+            "pass1_graph_ms": graph_ms(mask_pass),
+            "pass2_graph_ms": graph_ms(reduce_pass),
+            "plain_ms": cuda_ms(
+                lambda: nms_sorted_plain(bx, vd, thr, offset), 3)}
+
+
+def check_nms(bx, vd, thr, offset, what) -> torch.Tensor:
     from glsdet_tpu_torch.ops.nms import nms_sorted_plain
     from glsdet_tpu_torch.ops.nms_kernel import nms_sorted_cuda
 
+    got = nms_sorted_cuda(bx, vd, thr, offset)
+    want = nms_sorted_plain(bx, vd, thr, offset)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"NMS {what}: {int((got != want).sum())} keep "
+                             f"flags differ")
+    return got
+
+
+def phase_nms() -> None:
+    """Keep masks at synthetic detection-like shapes (module docstring,
+    phase 3); the path's own shapes are timed by phase_nms_path."""
     rs = np.random.RandomState(0)
-    worst, times = 0.0, {}
     for k in NMS_K:
         boxes, valid = det_boxes(rs, 8, k)
         bx = torch.from_numpy(boxes).to(DEVICE)
         vd = torch.from_numpy(valid).to(DEVICE)
         for offset in (0.0, 1.0):
             for thr in (0.6, 0.65):
-                got = nms_sorted_cuda(bx, vd, thr, offset)
-                want = nms_sorted_plain(bx, vd, thr, offset)
-                torch.cuda.synchronize()
-                err = float((got != want).float().max())
-                if err != 0.0:
-                    raise AssertionError(
-                        f"NMS K={k} offset={offset} thr={thr}: "
-                        f"{int((got != want).sum())} keep flags differ")
-                worst = max(worst, err)
-        keep = nms_sorted_cuda(bx, vd, 0.6)
-        times[k] = (cuda_ms(lambda: nms_sorted_cuda(bx, vd, 0.6)),
-                    cuda_ms(lambda: nms_sorted_plain(bx, vd, 0.6), 3))
-        log("nms", batch=8, k=k, kernel_ms=times[k][0],
-            plain_ms=times[k][1], kept=int(got.sum()), masks_equal=True)
-    # greedy NMS needs the IoU of every kept box with each later valid
-    # box (~17 f32 operations with the threshold test); it reads the
-    # boxes and valid flags and writes the keep flags
-    later = vd.flip(1).cumsum(1).flip(1) - vd.int()
-    pairs = float((later * keep).sum())
-    return {"max_abs_err": worst, "ms": times[NMS_K[-1]][0],
-            "plain_ms": times[NMS_K[-1]][1], "library_ms": None,
-            **bound(bx.numel() * 4 + 2 * vd.numel(), 17 * pairs, PEAK_F32)}
+                keep = check_nms(bx, vd, thr, offset,
+                                 f"K={k} offset={offset} thr={thr}")
+        log("nms", batch=8, k=k, **nms_times(bx, vd, 0.6, 0.0),
+            kept=int(keep.sum()), masks_equal=True)
+
+
+def phase_nms_path(pipe, dev_frames, name="nms_path") -> dict:
+    """The NMS kernel at the inputs the path gives it: one
+    run_device_batch with every launch's inputs captured (and the
+    wrapper's shape log beside them), then each launch checked and timed
+    alone; sums over the batch."""
+    from glsdet_tpu_torch.ops import nms as nms_mod
+    from glsdet_tpu_torch.ops import nms_kernel
+
+    captured, inner = [], nms_mod.nms_sorted_cuda
+
+    def capture(bx, vd, thr, offset=0.0):
+        captured.append((bx.clone(), vd.clone(), float(thr), float(offset)))
+        return inner(bx, vd, thr, offset)
+
+    nms_kernel.shapes.clear()
+    nms_mod.nms_sorted_cuda = capture
+    try:
+        pipe.run_device_batch(dev_frames)
+        torch.cuda.synchronize()
+    finally:
+        nms_mod.nms_sorted_cuda = inner
+    logged = list(nms_kernel.shapes)
+    shapes = [(bx.shape[0], bx.shape[1], off, thr)
+              for bx, _, thr, off in captured]
+    if not captured or logged != shapes:
+        raise AssertionError(f"NMS shape log {logged} != launches {shapes}")
+    # for glsdet_tpu_torch/tools/kernel_ab.py, which times another tree's
+    # kernel on the same inputs
+    from glsdet_tpu_torch.native.build import BUILD_DIR
+
+    torch.save([(bx.cpu(), vd.cpu(), thr, off)
+                for bx, vd, thr, off in captured],
+               os.path.join(BUILD_DIR, f"{name}_inputs.pt"))
+    launches = []
+    total = dict.fromkeys(("ms", "graph_ms", "pass1_graph_ms",
+                           "pass2_graph_ms", "plain_ms", "bound_ms"), 0.0)
+    share = {"bytes": 0.0, "operations": 0.0}
+    for bx, vd, thr, off in captured:
+        keep = check_nms(bx, vd, thr, off, f"{tuple(bx.shape)} at the path")
+        t = nms_times(bx, vd, thr, off)
+        b = nms_bound(bx, vd, keep)
+        launches.append({"batch": bx.shape[0], "k": bx.shape[1],
+                         "offset": off, "threshold": thr,
+                         "valid": int(vd.sum()), "kept": int(keep.sum()),
+                         **t, **b, "share_of_bound": b["bound_ms"] / t["ms"]})
+        for key in total:
+            total[key] += launches[-1][key]
+        share[b["bound_by"]] += b["bound_ms"]
+    log(name, launches=launches, per_batch=total, masks_equal=True)
+    return {"max_abs_err": 0.0, **total, "bound_by": max(share, key=share.get),
+            "library_ms": None}
 
 
 def seeded_models():
@@ -279,24 +396,32 @@ def phase_paint(pipe, dev_frames) -> dict:
             dev_frames, idx, regs, ph, ph))
         t_p = cuda_ms(lambda: assemble_mosaic_plain_batch(
             dev_frames, idx, regs, ph, ph), 3)
-        out[ph] = (t_k, t_p)
+        t_g = graph_ms(lambda: assemble_mosaic_cuda_batch(
+            dev_frames, idx, regs, ph, ph))
+        out[ph] = (t_k, t_p, t_g)
         log("paint", batch=N_FRAMES, paint_hw=ph, kernel_ms=t_k,
-            plain_ms=t_p, regions_per_frame=n_regions,
+            kernel_graph_ms=t_g, plain_ms=t_p, regions_per_frame=n_regions,
             f32_bit_exact=True, bf16_equal=True,
             covered_share=float((got.float().abs().sum(-1) > 0)
                                 .float().mean()))
     # the bf16 canvases written, the rows read, and the source pixels
     # under the crops read once; ~11 f32 operations per painted channel
-    ph = PAINT_HW[0]
-    canvas = assemble_mosaic_cuda_batch(dev_frames, idx, regs, ph, ph)
     r = regs.to(torch.int64)
     src = float((r[..., 2].clamp(0, FRAME_HW[1])
                  * r[..., 3].clamp(0, FRAME_HW[0])).sum() * 3)
-    painted = float((canvas.float().abs().sum(-1) > 0).sum() * 3)
-    return {"max_abs_err": worst, "ms": out[ph][0], "plain_ms": out[ph][1],
-            "library_ms": None,
-            **bound(canvas.numel() * 2 + regs.numel() * 4 + src,
-                    11 * painted, PEAK_F32)}
+    bounds = {}
+    for ph in PAINT_HW:
+        canvas = assemble_mosaic_cuda_batch(dev_frames, idx, regs, ph, ph)
+        painted = float((canvas.float().abs().sum(-1) > 0).sum() * 3)
+        bounds[ph] = bound(canvas.numel() * 2 + regs.numel() * 4 + src,
+                           11 * painted, PEAK_F32)
+        log("paint_bound", paint_hw=ph, kernel_ms=out[ph][0], **bounds[ph],
+            share_of_bound=bounds[ph]["bound_ms"] / out[ph][0])
+    # the path paints the 1152 bucket's mosaics at 1280 (paint_hw_for)
+    ph = PAINT_HW[1]
+    return {"max_abs_err": worst, "ms": out[ph][0], "graph_ms": out[ph][2],
+            "plain_ms": out[ph][1], "library_ms": None, "paint_hw": ph,
+            **bounds[ph]}
 
 
 def check_results(results, n_frames) -> int:
@@ -429,29 +554,87 @@ def phase_profile(pipe, dev_frames, name="profile") -> None:
     # no aten op) show only here
     kerns = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                    key=lambda e: -e.self_device_time_total)
+    # the elementwise passes an int8 tower step used to run between the
+    # GEMM and the GN kernel (a multiply and a cast per step)
+    op_calls = {e.key: e.count for e in events
+                if e.device_type == DeviceType.CPU
+                and e.key in ("aten::mul", "aten::_to_copy", "aten::copy_")}
     log(name, stage_ms=stages, profiled_wall_ms=wall_ms,
         device_busy_ms=device_ms,
         device_idle_share=max(0.0, 1.0 - device_ms / wall_ms),
         top_ops_ms=[(e.key, e.self_device_time_total / 1e3, e.count)
                     for e in ops[:12]],
         top_kernels_ms=[(e.key[:80], e.self_device_time_total / 1e3, e.count)
-                        for e in kerns[:8]])
+                        for e in kerns[:8]],
+        op_calls=op_calls)
 
 
-def phase_gn() -> dict:
-    """GN kernel vs its plain version at every head level of both buckets.
-    The only slack allowed is the f32 order of the group statistics: max
-    |code difference| <= 1 and at most 1e-3 of the codes differing; the
-    constant group (zero variance) must be equal."""
-    from glsdet_tpu_torch.ops.gn_kernel import (gn_relu_quant,
-                                                gn_relu_quant_plain)
-
+def gn_affine():
+    """The GroupNorm affine of the timed GN calls, and the RandomState
+    that made it."""
     rs = np.random.RandomState(2)
     gamma = torch.from_numpy(rs.uniform(0.5, 1.5, GN_C).astype(np.float32)
                              ).to(DEVICE)
     beta = torch.from_numpy((rs.randn(GN_C) * 0.3).astype(np.float32)
                             ).to(DEVICE)
-    s_out, worst, levels = 0.03, 0.0, []
+    return rs, gamma, beta
+
+
+def gn_acc_inputs(b, hw, seed):
+    """int32 accumulators of a head-tower convolution's magnitude, with
+    per-channel offsets, and QConv-like per-channel scales deq."""
+    g = torch.Generator(DEVICE).manual_seed(seed)
+    acc = (torch.randn(b, hw, hw, GN_C, device=DEVICE, generator=g) * 3000
+           + torch.randn(GN_C, device=DEVICE, generator=g) * 800
+           ).round().to(torch.int32)
+    deq = (torch.rand(GN_C, device=DEVICE, generator=g) + 0.5) * (0.03 / 127)
+    return acc, deq
+
+
+def kernel_times(fn, iters: int = 5) -> dict:
+    """Device time per call of each kernel ``fn`` launches, by name
+    (torch.profiler): how a GN call splits into its passes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            name = re.search(r"::(\w+)[<(]", e.key)
+            out[name.group(1) if name else e.key[:60]] = (
+                e.self_device_time_total / 1e3 / iters)
+    return out
+
+
+def check_codes(got, want, what) -> dict:
+    """+-1 code and at most 1e-3 of the codes differing (the f32 order of
+    the group statistics); returns the error and the differing share."""
+    torch.cuda.synchronize()
+    d = (got.int() - want.int()).abs()
+    err, share = float(d.max()), float((d > 0).float().mean())
+    if err > 1 or share > 1e-3:
+        raise AssertionError(f"GN {what}: max |dq| {err}, {share:.2e} of "
+                             f"the codes differ")
+    return {"max_abs_err": err, "share_differing": share}
+
+
+def phase_gn() -> dict:
+    """Both GN entries vs their plain versions at every head level of both
+    buckets, then timed at the 1152 bucket's levels (module docstring,
+    phase 4)."""
+    from glsdet_tpu_torch.ops import gn_kernel
+    from glsdet_tpu_torch.ops.gn_kernel import (
+        gn_relu_quant, gn_relu_quant_acc, gn_relu_quant_acc_plain,
+        gn_relu_quant_plain)
+
+    rs, gamma, beta = gn_affine()
+    s_out, worst, levels = GN_S_OUT, 0.0, []
     for bucket, sizes in LEVELS.items():
         for hw in sizes:
             off = torch.from_numpy(rs.randn(GN_C).astype(np.float32) * 0.5)
@@ -460,51 +643,106 @@ def phase_gn() -> dict:
                  * 1.5 + off.to(DEVICE))
             y[..., 8:16] = 0.75                   # one constant group
             y = y.to(torch.bfloat16)
-            got = gn_relu_quant(y, gamma, beta, s_out, GN_GROUPS)
-            want = gn_relu_quant_plain(y, gamma, beta, s_out, GN_GROUPS)
-            torch.cuda.synchronize()
-            d = (got.int() - want.int()).abs()
-            err, share = float(d.max()), float((d > 0).float().mean())
-            if err > 1 or share > 1e-3:
-                raise AssertionError(f"GN {bucket}/{hw}: max |dq| {err}, "
-                                     f"{share:.2e} of the codes differ")
-            if not torch.equal(got[..., 8:16], want[..., 8:16]):
-                raise AssertionError(f"GN {bucket}/{hw}: constant group")
-            worst = max(worst, err)
-            levels.append({"bucket": bucket, "hw": hw, "max_abs_err": err,
-                           "share_differing": share})
+            acc, deq = gn_acc_inputs(N_FRAMES, hw, hw + 1)
+            acc[..., 8:16] = 3072
+            deq[8:16] = 2.0 ** -12                # y = 0.75 exactly
+            row = {"bucket": bucket, "hw": hw}
+            for name, got, want in (
+                    ("acc", gn_relu_quant_acc(acc, deq, gamma, beta, s_out),
+                     gn_relu_quant_acc_plain(acc, deq, gamma, beta, s_out)),
+                    ("bf16", gn_relu_quant(y, gamma, beta, s_out),
+                     gn_relu_quant_plain(y, gamma, beta, s_out))):
+                c = check_codes(got, want, f"{name} {bucket}/{hw}")
+                if not torch.equal(got[..., 8:16], want[..., 8:16]):
+                    raise AssertionError(f"GN {name} {bucket}/{hw}: "
+                                         f"constant group")
+                worst = max(worst, c["max_abs_err"])
+                row[name] = c
+            # accumulators in [-8, 8] at deq = 1/8: every f32 partial sum
+            # is exact in any order, so the codes must equal the plain
+            # version's (the requant's division included)
+            small = torch.randint(-8, 9, acc.shape, dtype=torch.int32,
+                                  device=DEVICE,
+                                  generator=torch.Generator(DEVICE)
+                                  .manual_seed(hw))
+            eighth = torch.full_like(deq, 0.125)
+            if not torch.equal(
+                    gn_relu_quant_acc(small, eighth, gamma, beta, s_out),
+                    gn_relu_quant_acc_plain(small, eighth, gamma, beta,
+                                            s_out)):
+                raise AssertionError(f"GN acc {bucket}/{hw}: codes differ "
+                                     f"where the sums are exact")
+            row["exact_sums_equal"] = True
+            levels.append(row)
+            del y, acc, small
     # times at the levels the path runs: all 16 mosaics land in the 1152
     # bucket, whose int8 towers launch the kernel 8 times per level (2
     # towers x 4 GroupNorms), 40 per stage-2 group
-    timed, total = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                        "group_norm_only_ms": 0.0}
+    keys = ("acc_ms", "acc_graph_ms", "acc_plain_ms", "acc_bound_ms",
+            "bf16_ms", "bf16_graph_ms", "bf16_plain_ms", "bf16_bound_ms",
+            "replaced_route_ms", "replaced_route_graph_ms",
+            "group_norm_only_ms")
+    timed, total = [], dict.fromkeys(keys, 0.0)
     share = {"bytes": 0.0, "operations": 0.0}
     for hw in LEVELS[1152]:
-        y = torch.randn(N_FRAMES, hw, hw, GN_C, device=DEVICE
-                        ).to(torch.bfloat16)
-        # no one PyTorch call computes GN -> ReLU -> int8; group_norm
-        # alone (NCHW channels-last, bf16 out) is a partial yardstick
+        acc, deq = gn_acc_inputs(N_FRAMES, hw, hw)
+        y = (acc.float() * deq).to(torch.bfloat16)
         y_cl = y.permute(0, 3, 1, 2)
-        t = {"ms": cuda_ms(lambda: gn_relu_quant(y, gamma, beta, s_out)),
-             "plain_ms": cuda_ms(
+        runs = {
+            "acc": lambda: gn_relu_quant_acc(acc, deq, gamma, beta, s_out),
+            "bf16": lambda: gn_relu_quant(y, gamma, beta, s_out),
+            # what the towers ran before: QConv's f32 dequantize, the cast
+            # to bf16, then the bf16 entry
+            "replaced_route": lambda: gn_relu_quant(
+                (acc.float() * deq).to(torch.bfloat16), gamma, beta, s_out)}
+        t = {**{f"{k}_ms": cuda_ms(fn) for k, fn in runs.items()},
+             **{f"{k}_graph_ms": graph_ms(fn) for k, fn in runs.items()},
+             "acc_plain_ms": cuda_ms(lambda: gn_relu_quant_acc_plain(
+                 acc, deq, gamma, beta, s_out), 3),
+             "bf16_plain_ms": cuda_ms(
                  lambda: gn_relu_quant_plain(y, gamma, beta, s_out), 3),
+             # no one PyTorch call computes GN -> ReLU -> int8; group_norm
+             # alone (NCHW channels-last, bf16 out) is a partial yardstick
              "group_norm_only_ms": cuda_ms(
                  lambda: torch.nn.functional.group_norm(
                      y_cl, GN_GROUPS, gamma.to(y.dtype), beta.to(y.dtype)))}
-        # reads bf16 and writes int8 once; ~12 f32 operations an element
-        b = bound(3 * y.numel(), 12 * y.numel(), PEAK_F32)
-        timed.append({"hw": hw, **t, **b,
-                      "share_of_bound": b["bound_ms"] / t["ms"]})
-        for key in ("ms", "plain_ms", "group_norm_only_ms"):
+        # the accumulator entry reads int32 and writes int8 once (5 bytes an
+        # element), the bf16 entry reads bf16 (3); ~12 f32 operations each
+        n = acc.numel()
+        b_acc = bound(5 * n, 12 * n, PEAK_F32)
+        b_bf16 = bound(3 * n, 12 * n, PEAK_F32)
+        t["acc_bound_ms"], t["bf16_bound_ms"] = (b_acc["bound_ms"],
+                                                 b_bf16["bound_ms"])
+        plans = {"acc": gn_kernel.plan(torch.int32, N_FRAMES, hw, hw, GN_C),
+                 "bf16": gn_kernel.plan(torch.bfloat16, N_FRAMES, hw, hw,
+                                        GN_C)}
+        kernel_ms = kernel_times(runs["acc"])
+        timed.append({"hw": hw, **t, "bound_by": b_acc["bound_by"],
+                      "acc_share_of_bound": t["acc_bound_ms"] / t["acc_ms"],
+                      "bf16_share_of_bound": t["bf16_bound_ms"]
+                      / t["bf16_ms"],
+                      "replaced_route_share_of_bound": t["acc_bound_ms"]
+                      / t["replaced_route_ms"],
+                      "plan": plans, "acc_kernels_ms": kernel_ms})
+        for key in keys:
             total[key] += GN_PER_LEVEL * t[key]
-        total["bound_ms"] += GN_PER_LEVEL * b["bound_ms"]
-        share[b["bound_by"]] += b["bound_ms"]
+        share[b_acc["bound_by"]] += b_acc["bound_ms"]
+        del acc, y, y_cl
     log("gn", levels=levels, batch=N_FRAMES, channels=GN_C, timed=timed,
         launches_per_level=GN_PER_LEVEL, per_stage2_group=total)
-    return {"max_abs_err": worst, "ms": total["ms"],
-            "plain_ms": total["plain_ms"], "library_ms": None,
-            "bound_ms": total["bound_ms"],
+    for how in ("", "_graph"):
+        if total[f"acc{how}_ms"] >= total[f"replaced_route{how}_ms"]:
+            raise AssertionError(
+                f"GN: the accumulator entry's 40 launches take "
+                f"{total[f'acc{how}_ms']:.3f} ms, the route it replaces "
+                f"{total[f'replaced_route{how}_ms']:.3f} ms ({how or 'eager'})")
+    return {"max_abs_err": worst, "ms": total["acc_ms"],
+            "graph_ms": total["acc_graph_ms"],
+            "plain_ms": total["acc_plain_ms"], "library_ms": None,
+            "bound_ms": total["acc_bound_ms"],
             "bound_by": max(share, key=share.get),
+            "replaced_route_ms": total["replaced_route_ms"],
+            "bf16_entry_ms": total["bf16_ms"],
             "group_norm_only_ms": total["group_norm_only_ms"]}
 
 
@@ -604,10 +842,44 @@ def phase_int8(pipe, frames, dev_frames, bf16) -> dict:
             bf16_img_per_s_host=bf16["img_per_s_host"],
             int8_peak_mem_bytes=res["peak_mem_bytes"],
             bf16_peak_mem_bytes=bf16["peak_mem_bytes"])
+        phase_nms_path(pipe8, dev_frames, "nms_path_int8")
+        phase_tower_ops(pipe8)
         phase_profile(pipe8, dev_frames, "profile_int8")
     finally:
         pipe8.close()
     return res
+
+
+def phase_tower_ops(pipe8) -> None:
+    """The ops of one int8 head tower (4 int8 convolutions, each followed
+    by the GN kernel) on a 36x36 level of 16 mosaics: its four _int_mm
+    GEMMs and a single float multiply, the tower output's dequantization.
+    A float dequantize pass between a GEMM and the GN kernel would add a
+    multiply per convolution."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from glsdet_tpu_torch.ops.quant_static import _Int8Tower
+
+    tower = next(m for m in pipe8.mp_net.modules()
+                 if isinstance(m, _Int8Tower))
+    x = torch.randn(N_FRAMES, GN_C, 36, 36, device=DEVICE
+                    ).to(pipe8.dtype)
+    with torch.inference_mode():
+        tower(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            tower(x)
+            torch.cuda.synchronize()
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.device_type == DeviceType.CPU and e.key.startswith("aten::")}
+    n_conv = len(tower.convs)
+    if (calls.get("aten::_int_mm") != n_conv
+            or calls.get("aten::mul", 0) != 1):
+        raise AssertionError(f"int8 tower ops: {calls}")
+    log("tower_ops", convs=n_conv, int_mm=calls["aten::_int_mm"],
+        mul=calls["aten::mul"], to_copy=calls.get("aten::_to_copy", 0),
+        calls=calls)
 
 
 def bottleneck_bound(b, h, w, c) -> dict:
@@ -661,8 +933,8 @@ def phase_bottleneck() -> dict:
 
     mp = MPDet(10, DEPTH, generator=torch.Generator().manual_seed(0))
     g = torch.Generator(DEVICE).manual_seed(4)
-    stages, total = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                         "cudnn_chain_ms": 0.0}
+    stages, total = [], {"ms": 0.0, "graph_ms": 0.0, "plain_ms": 0.0,
+                         "bound_ms": 0.0, "cudnn_chain_ms": 0.0}
     bound_share = {"bytes": 0.0, "operations": 0.0}
     worst, worst_rel = 0.0, 0.0
     for name, (hw, c, n_blocks) in STAGES.items():
@@ -677,6 +949,8 @@ def phase_bottleneck() -> dict:
         with torch.inference_mode():
             times = {
                 "kernel_ms": cuda_ms(
+                    lambda: bk.fused_bottleneck(x, *ops, packed=packed)),
+                "kernel_graph_ms": graph_ms(
                     lambda: bk.fused_bottleneck(x, *ops, packed=packed)),
                 "plain_ms": cuda_ms(
                     lambda: bk.fused_bottleneck_plain(x, *ops), 3),
@@ -699,6 +973,7 @@ def phase_bottleneck() -> dict:
         worst, worst_rel = (max(worst, check["max_abs_err"]),
                             max(worst_rel, check["max_rel_err"]))
         for key, t in (("ms", times["kernel_ms"]),
+                       ("graph_ms", times["kernel_graph_ms"]),
                        ("plain_ms", times["plain_ms"]),
                        ("bound_ms", b["bound_ms"]),
                        ("cudnn_chain_ms", times["cudnn_chain_ms"])):
@@ -729,8 +1004,8 @@ def phase_bottleneck() -> dict:
     log("bottleneck_per_mpdet", **total,
         vs_cudnn_chain=total["ms"] / total["cudnn_chain_ms"])
     return {"max_abs_err": worst, "max_rel_err": worst_rel,
-            "ms": total["ms"], "plain_ms": total["plain_ms"],
-            "bound_ms": total["bound_ms"],
+            "ms": total["ms"], "graph_ms": total["graph_ms"],
+            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
             "bound_by": max(bound_share, key=bound_share.get),
             "library_ms": None, "cudnn_chain_ms": total["cudnn_chain_ms"]}
 
@@ -788,7 +1063,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     phase_card()
     phase_build()
-    nms = phase_nms()
+    phase_nms()
     gn = phase_gn()
     bottleneck = phase_bottleneck()
     phase_int8_conv()
@@ -801,6 +1076,7 @@ def main() -> None:
         phase_models(pipe, cpu_refs)
         paint = phase_paint(pipe, dev_frames)
         bf16 = phase_pipeline(pipe, frames, dev_frames)
+        nms = phase_nms_path(pipe, dev_frames)
         phase_profile(pipe, dev_frames)
         int8 = phase_int8(pipe, frames, dev_frames, bf16)
         fused = phase_fused(pipe, frames, dev_frames, bf16)
@@ -811,19 +1087,19 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": "nms_sorted", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/nms.cu",
-         "replaces": "glsdet_tpu/ops/pallas_nms.py:72",
+         "replaces": "glsdet_tpu/ops/pallas_nms.py:91",
          "launches": launches["nms"], **nms},
         {"name": "paint_mosaic", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/paint.cu",
-         "replaces": "glsdet_tpu/ufp/pallas_paint.py:335",
+         "replaces": "glsdet_tpu/ufp/pallas_paint.py:368",
          "launches": launches["paint"], **paint},
         {"name": "gn_relu_quant", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/gn_quant.cu",
-         "replaces": "glsdet_tpu/ops/pallas_gn.py:154",
+         "replaces": "glsdet_tpu/ops/pallas_gn.py:173",
          "launches": int8["launches"]["gn"], **gn},
         {"name": "fused_bottleneck", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/bottleneck.cu",
-         "replaces": "glsdet_tpu/ops/pallas_bottleneck.py:181",
+         "replaces": "glsdet_tpu/ops/pallas_bottleneck.py:212",
          "launches": fused["launches"]["bottleneck"], **bottleneck},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

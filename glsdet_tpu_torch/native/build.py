@@ -22,13 +22,14 @@ _lock = threading.Lock()
 
 
 def build_shared(name: str, sources: Sequence[str], compile_cmd: Sequence[str],
-                 link_cmd: Sequence[str]) -> str:
+                 link_cmd: Sequence[str], deps: Sequence[str] = ()) -> str:
     """Build ``sources`` into one shared library unless a library of the
-    same sources and commands exists; returns its path.  Each source runs
-    ``compile_cmd + ["-c", src, "-o", obj]`` (all started together), then
-    ``link_cmd + objects + ["-o", lib]`` links them."""
+    same sources, headers (``deps``) and commands exists; returns its
+    path.  Each source runs ``compile_cmd + ["-c", src, "-o", obj]`` (all
+    started together), then ``link_cmd + objects + ["-o", lib]`` links
+    them."""
     h = hashlib.sha256(" ".join([*compile_cmd, "|", *link_cmd]).encode())
-    for src in sources:
+    for src in (*sources, *deps):
         with open(src, "rb") as f:
             h.update(f.read())
     out = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")

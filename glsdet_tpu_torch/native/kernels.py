@@ -22,6 +22,7 @@ CSRC = os.path.join(PKG_DIR, "csrc")
 SOURCES = tuple(os.path.join(CSRC, f)
                 for f in ("nms.cu", "paint.cu", "gn_quant.cu",
                           "bottleneck.cu"))
+HEADERS = (os.path.join(CSRC, "ptx.cuh"),)
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 LINK_FLAGS = (*_ARCH, "-shared")
@@ -31,16 +32,25 @@ _lib: Optional[ctypes.CDLL] = None
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # boxes, valid, keep, mask, batch, k, iou_thr, offset, stream
-    "glsdet_nms_sorted": [_P, _P, _P, _P, _I, _I, _F, _F, _P],
+    # boxes, valid, keep, mask, batch, k, stride, iou_thr, offset, stream
+    "glsdet_nms_sorted": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
+    # boxes, mask, batch, k, stride, iou_thr, offset, stream
+    "glsdet_nms_mask": [_P, _P, _I, _I, _I, _F, _F, _P],
+    # mask, valid, keep, batch, k, stride, stream
+    "glsdet_nms_reduce": [_P, _P, _P, _I, _I, _I, _P],
     # src, n_src, src_h, src_w, idx, rows, batch, n_rows, out, out_h,
     # out_w, out_bf16, stream
     "glsdet_paint_mosaic": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I, _I,
                             _P],
-    # y, gamma, beta, s_out, eps, batch, hw, c, groups, chunk, partial,
-    # scale_bias, out, stream
+    # y, gamma, beta, s_out, eps, batch, hw, c, groups, chunk, work,
+    # counter, out, stream
     "glsdet_gn_relu_quant": [_P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _P, _P,
                              _P, _P],
+    # acc, deq, then as glsdet_gn_relu_quant from gamma on
+    "glsdet_gn_relu_quant_acc": [_P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I,
+                                 _P, _P, _P, _P],
+    # src_bytes, batch, hw, c, plan (int[5] out)
+    "glsdet_gn_plan": [_I, _I, _I, _I, _P],
     # x, w1p, b1, w2p, b2, w3p, b3, out, batch, h, w, c, stream
     "glsdet_fused_bottleneck": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _P],
@@ -64,7 +74,7 @@ def load_kernels() -> ctypes.CDLL:
             nv = nvcc()
             lib = ctypes.CDLL(build_shared(
                 "glsdet_kernels", SOURCES, [nv, *NVCC_FLAGS],
-                [nv, *LINK_FLAGS]))
+                [nv, *LINK_FLAGS], deps=HEADERS))
             for fn, argtypes in _SIGNATURES.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int

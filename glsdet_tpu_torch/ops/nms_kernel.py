@@ -8,13 +8,18 @@ kernel or raises.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from glsdet_tpu_torch.native import kernels
 
-MAX_K = 2048          # the reduce pass keeps ceil(K/64) <= 32 words per lane
+MAX_K = 2048          # the reduce pass keeps ceil(K/64) <= 32 words per row
 
 launches = 0          # kernel launches since the last reset
+# (B, K, offset, iou_threshold) of the launches since the last
+# ``shapes.clear()``, the latest 1024
+shapes = collections.deque(maxlen=1024)
 
 
 def nms_sorted_cuda(boxes_sorted: torch.Tensor, valid: torch.Tensor,
@@ -30,11 +35,33 @@ def nms_sorted_cuda(boxes_sorted: torch.Tensor, valid: torch.Tensor,
 
     Returns the (B, K) bool keep mask in the sorted order.
     """
-    global launches
     if boxes_sorted.device.type == "cpu":
         from glsdet_tpu_torch.ops.nms import nms_sorted_plain
 
         return nms_sorted_plain(boxes_sorted, valid, iou_threshold, offset)
+    b, k = _check(boxes_sorted, valid)
+    keep = torch.empty((b, k), dtype=torch.bool, device=boxes_sorted.device)
+    if b == 0 or k == 0:
+        return keep
+    mask = _mask_scratch(b, k, boxes_sorted.device)
+    lib = kernels.load_kernels()
+    stream = torch.cuda.current_stream(boxes_sorted.device).cuda_stream
+    kernels.check(lib.glsdet_nms_sorted(
+        boxes_sorted.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+        mask.data_ptr(), b, k, mask.shape[-1], float(iou_threshold),
+        float(offset), stream), "glsdet_nms_sorted")
+    _count(b, k, offset, iou_threshold)
+    return keep
+
+
+def _count(b, k, offset, iou_threshold) -> None:
+    global launches
+    launches += 1
+    shapes.append((b, k, float(offset), float(iou_threshold)))
+
+
+def _check(boxes_sorted: torch.Tensor, valid: torch.Tensor):
+    """Raises on what the kernel cannot take; returns (B, K)."""
     if boxes_sorted.device.type != "cuda":
         raise ValueError(f"no NMS for device {boxes_sorted.device}")
     if boxes_sorted.dim() != 3 or boxes_sorted.shape[-1] != 4:
@@ -49,17 +76,39 @@ def nms_sorted_cuda(boxes_sorted: torch.Tensor, valid: torch.Tensor,
         raise ValueError("boxes and valid must be contiguous")
     if k > MAX_K:
         raise ValueError(f"K = {k} > {MAX_K}")
-    keep = torch.empty((b, k), dtype=torch.bool, device=boxes_sorted.device)
-    if b == 0 or k == 0:
-        return keep
+    return b, k
+
+
+def _mask_scratch(b: int, k: int, device) -> torch.Tensor:
+    """Pass 1's bitmask: (B, K, stride) words, stride = ceil(K/64)
+    rounded up to even so that every 64-row chunk is 16-byte aligned for
+    pass 2's bulk copies."""
     nwords = (k + 63) // 64
-    mask = torch.empty((b, k, nwords), dtype=torch.int64,
-                       device=boxes_sorted.device)
+    return torch.empty((b, k, nwords + nwords % 2), dtype=torch.int64,
+                       device=device)
+
+
+def nms_passes(boxes_sorted: torch.Tensor, valid: torch.Tensor,
+               iou_threshold: float, offset: float = 0.0):
+    """The kernel's two passes as separate callables over buffers made
+    once, for timing each alone: ``(mask_pass, reduce_pass, keep)``.
+    They do not count as launches of the wrapper."""
+    b, k = _check(boxes_sorted, valid)
+    keep = torch.empty((b, k), dtype=torch.bool, device=boxes_sorted.device)
+    mask = _mask_scratch(b, k, boxes_sorted.device)
     lib = kernels.load_kernels()
-    stream = torch.cuda.current_stream(boxes_sorted.device).cuda_stream
-    kernels.check(lib.glsdet_nms_sorted(
-        boxes_sorted.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-        mask.data_ptr(), b, k, float(iou_threshold), float(offset), stream),
-        "glsdet_nms_sorted")
-    launches += 1
-    return keep
+
+    def stream():
+        return torch.cuda.current_stream(boxes_sorted.device).cuda_stream
+
+    def mask_pass():
+        kernels.check(lib.glsdet_nms_mask(
+            boxes_sorted.data_ptr(), mask.data_ptr(), b, k, mask.shape[-1],
+            float(iou_threshold), float(offset), stream()), "glsdet_nms_mask")
+
+    def reduce_pass():
+        kernels.check(lib.glsdet_nms_reduce(
+            mask.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k,
+            mask.shape[-1], stream()), "glsdet_nms_reduce")
+
+    return mask_pass, reduce_pass, keep

@@ -51,7 +51,7 @@ from glsdet_tpu_torch.models.layers import ConvNormAct
 from glsdet_tpu_torch.models.mp_head import MPHead, proxy_scores
 from glsdet_tpu_torch.models.resnet import (BasicBlock, Bottleneck, ResNet,
                                             ResNetConv)
-from glsdet_tpu_torch.ops.gn_kernel import gn_relu_quant
+from glsdet_tpu_torch.ops.gn_kernel import gn_relu_quant_acc
 from glsdet_tpu_torch.ops.int8_conv import (Int8Conv2d, Int8Module,
                                             fake_quant, place_quantized,
                                             quantize_weight, requant)
@@ -410,7 +410,9 @@ class Int8ResNet(Int8Module):
 class _Int8Tower(Int8Module):
     """One stacked GN tower: int8 codes between the convolutions; after
     each, GroupNorm (32 groups, eps 1e-6) -> ReLU -> requant, the CUDA
-    kernel on the card and its plain version on the CPU."""
+    kernel on the card and its plain version on the CPU.  The kernel reads
+    the convolution's int32 accumulator and its ``deq`` and dequantizes on
+    load, so no float tensor lies between the GEMM and the GN."""
 
     def __init__(self, convs, s_in0: float, s_outs):
         super().__init__()
@@ -428,10 +430,11 @@ class _Int8Tower(Int8Module):
         """x: (B, C, H, W) float view -> (B, H, W, C) in x's dtype."""
         q = requant(_nhwc(x).float(), self.s_in0)
         for i, (conv, s_out) in enumerate(zip(self.convs, self.s_outs)):
-            y = conv(q).to(x.dtype)
-            q = gn_relu_quant(y.contiguous(), getattr(self, f"gn_weight{i}"),
-                              getattr(self, f"gn_bias{i}"), s_out,
-                              groups=HEAD_GN_GROUPS, eps=INT8_GN_EPS)
+            q = gn_relu_quant_acc(conv.conv(q).contiguous(), conv.deq,
+                                  getattr(self, f"gn_weight{i}"),
+                                  getattr(self, f"gn_bias{i}"), s_out,
+                                  groups=HEAD_GN_GROUPS, eps=INT8_GN_EPS,
+                                  dtype=x.dtype)
         return (q.float() * self.s_outs[-1]).to(x.dtype)
 
 

@@ -73,7 +73,7 @@ def _det_boxes(rs, b, k, extent=500.0):
 
 
 @pytest.mark.parametrize("b,k", [(1, 1), (2, 63), (1, 64), (3, 65),
-                                 (2, 300), (1, 2048)])
+                                 (2, 300), (1, 2047), (1, 2048)])
 @pytest.mark.parametrize("offset", [0.0, 1.0])
 def test_nms_kernel_matches_plain(card, b, k, offset):
     rs = np.random.RandomState(k)
@@ -95,6 +95,43 @@ def test_nms_kernel_identical_boxes_and_all_invalid(card):
     valid[1] = False
     got = nms_kernel.nms_sorted_cuda(boxes, valid, 0.5)
     assert got[0, 0] and int(got[0].sum()) == 1 and not got[1].any()
+
+
+@pytest.mark.parametrize("k", [1, 65, 2048])
+def test_nms_kernel_none_suppressed_and_all_invalid(card, k):
+    """Disjoint boxes: every valid one is kept; no valid box: none is."""
+    i = torch.arange(k, device=card, dtype=torch.float32)
+    boxes = torch.stack([i * 10, i * 0, i * 10 + 5, i * 0 + 5], -1)[None]
+    valid = torch.ones(1, k, dtype=torch.bool, device=card)
+    assert bool(nms_kernel.nms_sorted_cuda(boxes, valid, 0.1).all())
+    valid[:, 1::2] = False
+    assert torch.equal(nms_kernel.nms_sorted_cuda(boxes, valid, 0.1), valid)
+    assert not nms_kernel.nms_sorted_cuda(boxes, valid & False, 0.1).any()
+
+
+# (B, K, offset, threshold) of the three launches of one bf16 and one
+# static-int8 run_device_batch at the smoke's fixture (chip_smoke.py's
+# nms_path phases log them: the coarse YOLOX NMS, the chip GFL NMS and the
+# unmapped class-wise NMS)
+PATH_NMS_SHAPES = [(16, 800, 0.0, 0.65), (16, 2000, 0.0, 0.6),
+                   (16, 500, 1.0, 0.6)]
+
+
+@pytest.mark.parametrize("b,k,offset,thr", PATH_NMS_SHAPES)
+def test_nms_kernel_at_the_path_shapes(card, b, k, offset, thr):
+    rs = np.random.RandomState(k)
+    boxes = _det_boxes(rs, b, k, extent=1152.0)
+    labels = rs.randint(0, 10, (b, k))
+    boxes = torch.from_numpy((boxes + labels[..., None] * 8192.0)
+                             .astype(np.float32)).to(card)
+    valid = torch.from_numpy(rs.rand(b, k) > 0.2).to(card)
+    before = len(nms_kernel.shapes)
+    got = nms_kernel.nms_sorted_cuda(boxes, valid, thr, offset)
+    want = tnms.nms_sorted_plain(boxes, valid, thr, offset)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert len(nms_kernel.shapes) == min(before + 1, 1024)
+    assert nms_kernel.shapes[-1] == (b, k, offset, thr)
 
 
 def test_nms_kernel_rejects_what_it_cannot_take(card):
@@ -225,6 +262,188 @@ def test_gn_kernel_rejects_what_it_cannot_take(card):
                                 beta[:100], 0.03)
     with pytest.raises(ValueError, match="gamma"):
         gn_kernel.gn_relu_quant(yb, gamma.double(), beta, 0.03)
+
+
+def _acc_inputs(card, b, h, w, c, seed, scale=3000.0, offset=800.0):
+    """int32 accumulators of an int8 convolution's magnitude, QConv-like
+    per-channel dequantization scales, and a GN affine."""
+    g = torch.Generator(card).manual_seed(seed)
+    acc = (torch.randn(b, h, w, c, device=card, generator=g) * scale
+           + torch.randn(c, device=card, generator=g) * offset
+           ).round().to(torch.int32)
+    deq = (torch.rand(c, device=card, generator=g) + 0.5) * (0.03 / 127)
+    gamma = torch.rand(c, device=card, generator=g) + 0.5
+    beta = torch.randn(c, device=card, generator=g) * 0.3
+    return acc, deq, gamma, beta
+
+
+def _acc_check(acc, deq, gamma, beta, s_out, share=1e-3, lively=True):
+    before = gn_kernel.launches
+    got = gn_kernel.gn_relu_quant_acc(acc, deq, gamma, beta, s_out)
+    want = gn_kernel.gn_relu_quant_acc_plain(acc, deq, gamma, beta, s_out,
+                                             min(32, acc.shape[-1]))
+    torch.cuda.synchronize()
+    assert gn_kernel.launches == before + 1
+    assert got.dtype == torch.int8 and got.shape == acc.shape
+    d = (got.int() - want.int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= share
+    if lively:                                       # not all clipped
+        assert float((want != 0).float().mean()) > 0.2
+    return got, want
+
+
+@pytest.mark.parametrize("hw", [144, 72, 36, 18, 9, 128, 64, 32, 16, 8])
+def test_gn_acc_kernel_matches_plain_at_every_level(card, hw):
+    """The head levels of both buckets at the path's batch and width; the
+    regime is the one the card grants (72 and 64 resident only where a
+    cluster of 16 is)."""
+    acc, deq, gamma, beta = _acc_inputs(card, 16, hw, hw, 256, hw)
+    _acc_check(acc, deq, gamma, beta, 0.03)
+    plan = gn_kernel.plan(torch.int32, 16, hw, hw, 256)
+    if hw >= 128:
+        assert plan["regime"] == "streaming"
+    elif hw <= 36:
+        assert plan["regime"] == "resident" and plan["cluster"] <= 8
+    elif plan["regime"] == "resident":
+        assert plan["cluster"] == 16
+
+
+@pytest.mark.parametrize("c", [8, 64, 256, 2048])
+@pytest.mark.parametrize("h,w", [(9, 9), (37, 35), (145, 143)])
+def test_gn_acc_kernel_one_image_odd_sizes(card, c, h, w):
+    acc, deq, gamma, beta = _acc_inputs(card, 1, h, w, c, c + h)
+    _acc_check(acc, deq, gamma, beta, 0.03)
+
+
+@pytest.mark.parametrize("hw", [9, 36, 72, 144])
+def test_gn_acc_kernel_constant_and_negative_groups(card, hw):
+    acc, deq, gamma, beta = _acc_inputs(card, 2, hw, hw, 256, 5)
+    acc[..., 64:72] = 3072
+    deq[64:72] = 2.0 ** -12                      # y = 0.75 exactly
+    got, want = _acc_check(acc, deq, gamma, beta, 0.03)
+    assert torch.equal(got[..., 64:72], want[..., 64:72])
+    acc[..., 32:40] = -acc[..., 32:40].abs() - 1000
+    beta = torch.full_like(beta, -10.0)          # every v < 0: relu
+    got, want = _acc_check(acc, deq, torch.ones_like(gamma), beta, 0.05,
+                           lively=False)
+    assert int(got.abs().max()) == 0 and int(want.abs().max()) == 0
+
+
+@pytest.mark.parametrize("hw", [144, 72, 36, 18, 9])
+def test_gn_kernels_equal_plain_where_the_sums_are_exact(card, hw):
+    """Accumulators in [-8, 8] at deq = 1/8: every partial sum of y and y*y
+    is exact in f32 in any order, so the statistics agree to the bit and
+    the codes must be equal: the affine, the bf16 round and the requant's
+    division are the plain version's, element for element."""
+    g = torch.Generator(card).manual_seed(hw)
+    acc = torch.randint(-8, 9, (2, hw, hw, 256), device=card, generator=g,
+                        dtype=torch.int32)
+    deq = torch.full((256,), 0.125, device=card)
+    gamma = torch.rand(256, device=card, generator=g) + 0.5
+    beta = torch.randn(256, device=card, generator=g) * 0.3
+    for s_out in (0.0137, 0.03, 0.11):
+        got = gn_kernel.gn_relu_quant_acc(acc, deq, gamma, beta, s_out)
+        want = gn_kernel.gn_relu_quant_acc_plain(acc, deq, gamma, beta, s_out)
+        assert torch.equal(got, want)
+        y = (acc.float() * deq).to(torch.bfloat16)
+        assert torch.equal(gn_kernel.gn_relu_quant(y, gamma, beta, s_out),
+                           want)
+
+
+@pytest.mark.parametrize("hw", [9, 36, 72, 144])
+def test_gn_acc_kernel_near_two_to_the_24(card, hw):
+    """Accumulators around +-2**24, where int32 -> f32 rounds: the acc
+    entry equals the bf16 entry fed (acc.float() * deq).to(bfloat16)
+    code for code (same sums in the same order), and both are within
+    +-1 of the plain version."""
+    g = torch.Generator(card).manual_seed(hw)
+    sign = torch.where(torch.rand(256, device=card, generator=g) > 0.5,
+                       1, -1)
+    acc = (sign * (2 ** 24 + torch.randint(-2 ** 21, 2 ** 21,
+                                           (2, hw, hw, 256), device=card,
+                                           generator=g))).to(torch.int32)
+    deq = torch.rand(256, device=card, generator=g) * 1e-6 + 5e-7
+    gamma = torch.rand(256, device=card, generator=g) + 0.5
+    beta = torch.randn(256, device=card, generator=g) * 0.3
+    got, _ = _acc_check(acc, deq, gamma, beta, 0.03)
+    y = (acc.float() * deq).to(torch.bfloat16)
+    assert torch.equal(got, gn_kernel.gn_relu_quant(y, gamma, beta, 0.03))
+
+
+@pytest.mark.parametrize("hw", [9, 36, 72, 144])
+def test_gn_kernels_are_deterministic(card, hw):
+    acc, deq, gamma, beta = _acc_inputs(card, 4, hw, hw, 256, 9)
+    y = (acc.float() * deq).to(torch.bfloat16)
+    for fn, args in ((gn_kernel.gn_relu_quant_acc, (acc, deq)),
+                     (gn_kernel.gn_relu_quant, (y,))):
+        first = fn(*args, gamma, beta, 0.03)
+        for _ in range(3):
+            assert torch.equal(fn(*args, gamma, beta, 0.03), first)
+
+
+@pytest.mark.parametrize("hw", [144, 36])
+def test_gn_acc_kernel_on_two_streams_at_once(card, hw):
+    """Two streams run the entry at once, each on its own inputs (144:
+    the streaming regime's workspace and counters, 36: resident); both
+    agree with the plain version, and the streams' last results equal
+    their first."""
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    inputs = [_acc_inputs(card, 8, hw, hw, 256, 20 + i) for i in range(2)]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(4):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(gn_kernel.gn_relu_quant_acc(*inputs[i],
+                                                           0.03))
+    torch.cuda.synchronize()
+    for (acc, deq, gamma, beta), got in zip(inputs, outs):
+        want = gn_kernel.gn_relu_quant_acc_plain(acc, deq, gamma, beta, 0.03)
+        d = (got[0].int() - want.int()).abs()
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+        assert all(torch.equal(o, got[0]) for o in got[1:])
+
+
+def test_gn_acc_kernel_in_a_cuda_graph(card):
+    """A graph captured over the streaming regime replays right after
+    eager calls of a larger batch on the capturing stream and others."""
+    acc, deq, gamma, beta = _acc_inputs(card, 2, 144, 144, 256, 31)
+    want = gn_kernel.gn_relu_quant_acc(acc, deq, gamma, beta, 0.03)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = gn_kernel.gn_relu_quant_acc(acc, deq, gamma, beta, 0.03)
+    big = _acc_inputs(card, 6, 144, 144, 256, 32)
+    torch.cuda.synchronize()
+    for st in (side, torch.cuda.current_stream()):
+        with torch.cuda.stream(st):
+            _acc_check(*big, 0.03)
+    for _ in range(2):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_gn_acc_kernel_rejects_what_it_cannot_take(card):
+    acc, deq, gamma, beta = _acc_inputs(card, 1, 8, 8, 256, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        gn_kernel.gn_relu_quant_acc(acc.transpose(1, 2), deq, gamma, beta,
+                                    0.03)
+    with pytest.raises(TypeError):
+        gn_kernel.gn_relu_quant_acc(acc.float(), deq, gamma, beta, 0.03)
+    with pytest.raises(TypeError):                 # the kernel's is bf16
+        gn_kernel.gn_relu_quant_acc(acc, deq, gamma, beta, 0.03,
+                                    dtype=torch.float32)
+    with pytest.raises(ValueError, match="C ="):
+        gn_kernel.gn_relu_quant_acc(acc[..., :100].contiguous(), deq[:100],
+                                    gamma[:100], beta[:100], 0.03)
+    with pytest.raises(ValueError, match="deq"):
+        gn_kernel.gn_relu_quant_acc(acc, deq[:128], gamma, beta, 0.03)
+    for s_out in (0.0, -0.03, float("inf"), 1e-40):
+        with pytest.raises(ValueError, match="s_out"):
+            gn_kernel.gn_relu_quant_acc(acc, deq, gamma, beta, s_out)
 
 
 @pytest.mark.parametrize("rows", [1, 15, 16, 17, 18, 24])
