@@ -8,7 +8,10 @@ Phases, in the order they run, each printing one line:
   3. NMS kernel vs nms_sorted_plain: B=8, K in {500, 512, 800, 2000},
      offsets 0/1, thresholds 0.6/0.65, class-shifted detection-like
      boxes; keep masks must be equal; the kernel's time, each of its two
-     passes alone, and the plain version's;
+     passes alone, and the plain version's; then the candidate ladder's
+     two budgets (the NMS and ranking of multiclass_nms_batched at 512
+     and at 2000 candidates, on 16 images whose 512 candidates fit the
+     smaller): outputs equal, both times;
   4. GN kernel (GroupNorm -> ReLU -> int8 requant), both entries (the
      accumulator entry the int8 towers call, and the bf16 entry) vs their
      plain versions at B=16, C=256, G=32 and every level of both buckets,
@@ -38,16 +41,28 @@ Phases, in the order they run, each printing one line:
      version at the path's shapes: int32 results equal; the route's time,
      its im2col and its GEMM alone, beside cuDNN's bf16 convolution at the
      head-tower shape;
-  7. the two-stage pipeline at full width (YOLOX-s at 640x640, MPDet
+  7. the coarse resize of the 16 frames as the port runs it (float32,
+     one rounding to bf16) against F.interpolate on bf16 frames: share
+     of values differing, largest difference in ulps, both times; then
+     the two-stage pipeline at full width (YOLOX-s at 640x640, MPDet
      ResNet-50, buckets 1024/1152, bucket-fit packing, coarse threshold
      1e-4, seeded random weights with the JAX package's initializers) on
      16 RandomState(0) 765x1360 frames: the models in bfloat16 on the
      card against float32 on the CPU;
-  8. painter kernel vs assemble_mosaic_plain_batch on region rows the
-     port's packer made from the bench frames, paint sizes 1024 and 1280:
-     float32 bit-exact and bfloat16 equal; both times;
+  8. the painter on region rows the port's packer made from the bench
+     frames: the canvas entry vs assemble_mosaic_plain_batch at paint
+     sizes 1024 and 1280, float32 bit-exact and bfloat16 equal; the path
+     entry (MP-Det's normalized bf16 input, painted at the bucket) at
+     1024 and 1152, equal to mosaic_inputs_plain and to the route it
+     replaces (the canvas entry at paint_hw_for(hw) = 1024 / 1280, the
+     crop, the bf16 normalize); each timed eagerly and replayed, with
+     its plain version's time, its bound and share of the bound;
   9. the bf16 pipeline: warmup, run_device_batch and run_batch; the NMS
-     kernel and the painter must have launched; img/s and peak memory;
+     kernel and the painter must have launched, every painter launch the
+     path entry; img/s and peak memory; one more run_device_batch with
+     every coarse_packed and stage2_packed call under
+     torch.cuda.set_sync_debug_mode("error") (no op inside a stage may
+     wait for the card; this check runs in phases 11 and 12 too);
      then the NMS kernel where the path runs it: the inputs of every
      launch in one run_device_batch, captured, with the wrapper's shape
      log; per launch keep masks equal to the plain version, the kernel's
@@ -257,6 +272,65 @@ def phase_nms() -> None:
             kept=int(keep.sum()), masks_equal=True)
 
 
+def phase_nms_ladder() -> None:
+    """What the candidate ladder of multiclass_nms_batched chose between
+    (ROADMAP §C, item C1): its NMS and ranking over the full 2000 budget
+    against the 512 tier, on a batch of 16 whose candidates all fit the
+    tier (rows past 512 score NEG_INF); running both and picking with
+    torch.where costs their sum.  The outputs must be equal."""
+    from glsdet_tpu_torch.ops.nms import NEG_INF, batched_nms, topk_stable
+
+    rs = np.random.RandomState(5)
+    boxes, _ = det_boxes(rs, N_FRAMES, 2000, n_classes=1)
+    scores = np.full((N_FRAMES, 2000), NEG_INF, np.float32)
+    scores[:, :512] = -np.sort(-rs.uniform(0.05, 1.0, (N_FRAMES, 512)))
+    bx = torch.from_numpy(boxes).to(DEVICE)
+    sc = torch.from_numpy(scores).to(DEVICE)
+    lb = torch.from_numpy(rs.randint(0, 10, (N_FRAMES, 2000))).to(DEVICE)
+
+    def run(k):
+        keep, _ = batched_nms(bx[:, :k], sc[:, :k], lb[:, :k], 0.6)
+        return topk_stable(torch.where(keep, sc[:, :k], NEG_INF), 500)
+
+    for a, b in zip(run(512), run(2000)):
+        if not torch.equal(a, b):
+            raise AssertionError("NMS ladder: the 512 tier and the full "
+                                 "budget disagree")
+    t = {f"{name}_{key}": timer(fn)
+         for name, fn in (("tier_512", lambda: run(512)),
+                          ("full_2000", lambda: run(2000)))
+         for key, timer in (("ms", cuda_ms), ("graph_ms", graph_ms))}
+    log("nms_ladder", batch=N_FRAMES, candidates=512, **t,
+        both_ms=t["tier_512_ms"] + t["full_2000_ms"], outputs_equal=True)
+
+
+def phase_coarse_resize(dev_frames) -> None:
+    """The coarse resize as the port runs it (float32, then one rounding
+    to bf16) against F.interpolate on the bf16 frames, which the JAX
+    package's bf16 chain would call for (ROADMAP §C, item C2): the share
+    of values that differ, the largest difference in bf16 ulps of the
+    resized value, and both times."""
+    x = dev_frames.permute(0, 3, 1, 2)
+    resize = lambda t: torch.nn.functional.interpolate(  # noqa: E731
+        t, size=COARSE_HW, mode="bilinear", antialias=True,
+        align_corners=False)
+    port = resize(x.float()).to(torch.bfloat16)
+    try:
+        in_bf16 = resize(x.to(torch.bfloat16))
+    except (RuntimeError, NotImplementedError) as e:
+        log("coarse_resize_bf16", supported=False, error=str(e)[:200])
+        return
+    a, b = port.float(), in_bf16.float()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        torch.maximum(a.abs(), b.abs()).clamp(min=1.0))) - 7)
+    log("coarse_resize_bf16", supported=True,
+        share_differing=float((a != b).float().mean()),
+        max_ulps=float(((a - b).abs() / ulp).max()),
+        f32_then_cast_ms=cuda_ms(lambda: resize(x.float()).to(
+            torch.bfloat16)),
+        bf16_ms=cuda_ms(lambda: resize(x.to(torch.bfloat16))))
+
+
 def phase_nms_path(pipe, dev_frames, name="nms_path") -> dict:
     """The NMS kernel at the inputs the path gives it: one
     run_device_batch with every launch's inputs captured (and the
@@ -360,10 +434,10 @@ def phase_models(pipe, cpu_refs) -> None:
     log("models_bf16_vs_cpu_f32", checks=checks, bound=0.1)
 
 
-def phase_paint(pipe, dev_frames) -> dict:
+def paint_rows(pipe, dev_frames):
+    """Region rows the port's packer makes from the bench frames' coarse
+    detections, one slot per frame: (rows, idx, regions per frame)."""
     from glsdet_tpu_torch.native import unified_foreground_packing_rows_fit
-    from glsdet_tpu_torch.ufp.paint_kernel import (
-        assemble_mosaic_cuda_batch, assemble_mosaic_plain_batch)
 
     coarse = pipe.coarse_packed(dev_frames).cpu().numpy()
     sx, sy = FRAME_HW[1] / COARSE_HW[1], FRAME_HW[0] / COARSE_HW[0]
@@ -377,10 +451,36 @@ def phase_paint(pipe, dev_frames) -> dict:
         n_regions.append(n)
     if min(n_regions) == 0:
         raise AssertionError(f"frames without regions: {n_regions}")
-    regs = torch.from_numpy(np.stack(rows)).to(DEVICE)
-    idx = torch.arange(N_FRAMES, dtype=torch.int64).to(DEVICE)
-    out, worst = {}, 0.0
-    for ph in PAINT_HW:
+    return (torch.from_numpy(np.stack(rows)).to(DEVICE),
+            torch.arange(N_FRAMES, dtype=torch.int64).to(DEVICE), n_regions)
+
+
+def paint_bound(out, regs, painted, normalized=0) -> dict:
+    """The painter's least time: ``out`` written once, the rows read, and
+    the source pixels under the crops read once; ~11 f32 operations per
+    painted channel, 2 more per ``normalized`` channel."""
+    r = regs.to(torch.int64)
+    src = float((r[..., 2].clamp(0, FRAME_HW[1])
+                 * r[..., 3].clamp(0, FRAME_HW[0])).sum() * 3)
+    return bound(out.numel() * out.element_size() + regs.numel() * 4 + src,
+                 11 * painted + 2 * normalized, PEAK_F32)
+
+
+def phase_paint(pipe, dev_frames) -> dict:
+    """The painter on the packer's rows (module docstring, phase 8)."""
+    from glsdet_tpu_torch.eval.preprocess import (mosaic_inputs_plain,
+                                                  norm_constants,
+                                                  paint_hw_for)
+    from glsdet_tpu_torch.native.build import BUILD_DIR
+    from glsdet_tpu_torch.ufp.paint_kernel import (
+        assemble_mosaic_cuda_batch, assemble_mosaic_plain_batch,
+        paint_mosaic_inputs_cuda)
+
+    regs, idx, n_regions = paint_rows(pipe, dev_frames)
+    # for glsdet_tpu_torch/tools/kernel_ab.py (the frames it makes anew)
+    torch.save(regs.cpu(), os.path.join(BUILD_DIR, "paint_rows.pt"))
+    canvas, worst = {}, 0.0
+    for ph in PAINT_HW:                  # the canvas entry
         for dt in (torch.float32, torch.bfloat16):
             got = assemble_mosaic_cuda_batch(dev_frames, idx, regs, ph, ph,
                                              dt)
@@ -392,36 +492,64 @@ def phase_paint(pipe, dev_frames) -> dict:
                 raise AssertionError(f"paint {ph} {dt}: {n} values differ, "
                                      f"max abs err {err}")
             worst = max(worst, err)
-        t_k = cuda_ms(lambda: assemble_mosaic_cuda_batch(
-            dev_frames, idx, regs, ph, ph))
-        t_p = cuda_ms(lambda: assemble_mosaic_plain_batch(
-            dev_frames, idx, regs, ph, ph), 3)
-        t_g = graph_ms(lambda: assemble_mosaic_cuda_batch(
-            dev_frames, idx, regs, ph, ph))
-        out[ph] = (t_k, t_p, t_g)
-        log("paint", batch=N_FRAMES, paint_hw=ph, kernel_ms=t_k,
-            kernel_graph_ms=t_g, plain_ms=t_p, regions_per_frame=n_regions,
-            f32_bit_exact=True, bf16_equal=True,
-            covered_share=float((got.float().abs().sum(-1) > 0)
-                                .float().mean()))
-    # the bf16 canvases written, the rows read, and the source pixels
-    # under the crops read once; ~11 f32 operations per painted channel
-    r = regs.to(torch.int64)
-    src = float((r[..., 2].clamp(0, FRAME_HW[1])
-                 * r[..., 3].clamp(0, FRAME_HW[0])).sum() * 3)
-    bounds = {}
-    for ph in PAINT_HW:
-        canvas = assemble_mosaic_cuda_batch(dev_frames, idx, regs, ph, ph)
-        painted = float((canvas.float().abs().sum(-1) > 0).sum() * 3)
-        bounds[ph] = bound(canvas.numel() * 2 + regs.numel() * 4 + src,
-                           11 * painted, PEAK_F32)
-        log("paint_bound", paint_hw=ph, kernel_ms=out[ph][0], **bounds[ph],
-            share_of_bound=bounds[ph]["bound_ms"] / out[ph][0])
-    # the path paints the 1152 bucket's mosaics at 1280 (paint_hw_for)
-    ph = PAINT_HW[1]
-    return {"max_abs_err": worst, "ms": out[ph][0], "graph_ms": out[ph][2],
-            "plain_ms": out[ph][1], "library_ms": None, "paint_hw": ph,
-            **bounds[ph]}
+        run = lambda: assemble_mosaic_cuda_batch(  # noqa: E731
+            dev_frames, idx, regs, ph, ph)
+        painted = float((got.float().abs().sum(-1) > 0).sum() * 3)
+        t = {"ms": cuda_ms(run), "graph_ms": graph_ms(run),
+             "plain_ms": cuda_ms(lambda: assemble_mosaic_plain_batch(
+                 dev_frames, idx, regs, ph, ph), 3),
+             **paint_bound(got, regs, painted)}
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        t["graph_share_of_bound"] = t["bound_ms"] / t["graph_ms"]
+        canvas[ph] = t
+        log("paint", entry="canvas", batch=N_FRAMES, paint_hw=ph, **t,
+            regions_per_frame=n_regions, f32_bit_exact=True,
+            bf16_equal=True, covered_share=painted / got.numel())
+    mean, inv_std = norm_constants(torch.bfloat16, DEVICE)
+    inputs = {}
+    for hw in BUCKETS:                   # the path entry
+        ph = paint_hw_for(hw)
+        run = lambda: paint_mosaic_inputs_cuda(  # noqa: E731
+            dev_frames, idx, regs, hw, mean, inv_std)
+        # what it replaces: the canvas entry at paint_hw_for(hw), the
+        # crop and the bf16 normalize
+        route = lambda: ((assemble_mosaic_cuda_batch(  # noqa: E731
+            dev_frames, idx, regs, ph, ph)[:, :hw, :hw] - mean) * inv_std)
+        got = run()
+        for name, want in (
+                ("plain", mosaic_inputs_plain(dev_frames, idx, regs, hw,
+                                              torch.bfloat16)),
+                ("replaced route", route())):
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"paint inputs {hw}: {int((got != want).sum())} values "
+                    f"differ from the {name}")
+        painted = float((assemble_mosaic_cuda_batch(
+            dev_frames, idx, regs, hw, hw).float().abs().sum(-1) > 0).sum()
+            * 3)
+        t = {"ms": cuda_ms(run), "graph_ms": graph_ms(run),
+             "replaced_route_ms": cuda_ms(route),
+             "replaced_route_graph_ms": graph_ms(route),
+             "plain_ms": cuda_ms(lambda: mosaic_inputs_plain(
+                 dev_frames, idx, regs, hw, torch.bfloat16), 3),
+             **paint_bound(got, regs, painted, got.numel())}
+        for key in ("ms", "graph_ms", "replaced_route_ms",
+                    "replaced_route_graph_ms"):
+            t[key.replace("ms", "share_of_bound")] = t["bound_ms"] / t[key]
+        inputs[hw] = t
+        log("paint", entry="inputs", batch=N_FRAMES, hw=hw, **t,
+            equal_to_plain=True, equal_to_replaced_route=True)
+    # the path's bucket: 1152, whose canvas entry painted at 1280
+    hw = BUCKETS[1]
+    t, c = inputs[hw], canvas[paint_hw_for(hw)]
+    return {"max_abs_err": worst, "hw": hw, "ms": t["ms"],
+            "graph_ms": t["graph_ms"], "plain_ms": t["plain_ms"],
+            "library_ms": None, "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "share_of_bound": t["share_of_bound"],
+            "canvas_entry_ms": c["ms"], "canvas_entry_graph_ms": c["graph_ms"],
+            "canvas_entry_bound_ms": c["bound_ms"],
+            "replaced_route_ms": t["replaced_route_ms"],
+            "replaced_route_graph_ms": t["replaced_route_graph_ms"]}
 
 
 def check_results(results, n_frames) -> int:
@@ -472,6 +600,7 @@ def phase_pipeline(pipe, frames, dev_frames, name="pipeline",
     torch.cuda.reset_peak_memory_stats()
     nms_kernel.launches = 0
     paint_kernel.launches = 0
+    paint_kernel.inputs_launches = 0
     gn_kernel.launches = 0
     bottleneck_kernel.launches = 0
     times_dev, times_host = [], []
@@ -490,18 +619,56 @@ def phase_pipeline(pipe, frames, dev_frames, name="pipeline",
     peak = torch.cuda.max_memory_allocated()
     if min(launches[k] for k in kernels) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
+    if paint_kernel.inputs_launches != launches["paint"]:
+        raise AssertionError(
+            f"{launches['paint']} painter launches, of them "
+            f"{paint_kernel.inputs_launches} the path entry")
     n_dev = check_results(res_dev, N_FRAMES)
     n_host = check_results(res_host, N_FRAMES)
     if n_dev == 0 or n_host == 0:
         raise AssertionError("stage 2 produced no detections")
     out = {"launches": launches, "peak_mem_bytes": peak,
            "img_per_s_device": N_FRAMES / float(np.median(times_dev)),
-           "img_per_s_host": N_FRAMES / float(np.median(times_host))}
+           "img_per_s_host": N_FRAMES / float(np.median(times_host)),
+           "no_sync_calls": check_no_sync(pipe, dev_frames)}
     log(name, frames=N_FRAMES, frame_hw=FRAME_HW, warmup_s=warm_s,
         coarse_dets=n_coarse, stage2_dets_device=n_dev,
         stage2_dets_host=n_host,
         device_batch_s=times_dev, host_batch_s=times_host, **out)
     return out
+
+
+def check_no_sync(pipe, dev_frames) -> dict:
+    """One run_device_batch with every call of coarse_packed and
+    stage2_packed under torch.cuda.set_sync_debug_mode("error"): an op
+    inside a stage that waits for the card raises.  The transfers between
+    the stages (the coarse read-back, the upload of idx and the rows, the
+    results' read-back) sync by design and stay outside.  Returns the
+    number of calls checked."""
+    calls = {"coarse_packed": 0, "stage2_packed": 0}
+
+    def strict(name, fn):
+        def call(*args, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            calls[name] += 1
+            return out
+        return call
+
+    for name in calls:
+        setattr(pipe, name, strict(name, getattr(pipe, name)))
+    try:
+        check_results(pipe.run_device_batch(dev_frames), N_FRAMES)
+        torch.cuda.synchronize()
+    finally:
+        for name in calls:
+            delattr(pipe, name)
+    if min(calls.values()) < 1:
+        raise AssertionError(f"no-sync check saw no stage call: {calls}")
+    return calls
 
 
 def phase_profile(pipe, dev_frames, name="profile") -> None:
@@ -1064,6 +1231,7 @@ def main() -> None:
     phase_card()
     phase_build()
     phase_nms()
+    phase_nms_ladder()
     gn = phase_gn()
     bottleneck = phase_bottleneck()
     phase_int8_conv()
@@ -1071,6 +1239,7 @@ def main() -> None:
     frames = [rs.randint(0, 255, (*FRAME_HW, 3), np.uint8)
               for _ in range(N_FRAMES)]
     dev_frames = torch.from_numpy(np.stack(frames)).to(DEVICE)
+    phase_coarse_resize(dev_frames)
     pipe, cpu_refs = build_pipeline()
     try:
         phase_models(pipe, cpu_refs)

@@ -7,19 +7,33 @@ sets ``dict(boxes (B,K,4), scores (B,K), labels (B,K), valid (B,K))``.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from glsdet_tpu_torch.models.yolox_head import (decode_boxes,
                                                 flatten_head_outputs)
 from glsdet_tpu_torch.ops.integral import distance2bbox, integral_decode
 from glsdet_tpu_torch.ops.nms import multiclass_nms_batched, topk_stable
-from glsdet_tpu_torch.ops.priors import grid_points
+from glsdet_tpu_torch.ops.priors import featmap_sizes, grid_points
+
+_priors: Dict[tuple, Tuple[torch.Tensor, ...]] = {}
 
 
 def _dets(ob, osc, ol, ov) -> dict:
     return {"boxes": ob, "scores": osc, "labels": ol, "valid": ov}
+
+
+def _on_device(key: tuple, make: Callable[[], Tuple[np.ndarray, ...]],
+               device) -> Tuple[torch.Tensor, ...]:
+    """Host-built priors, copied to ``device`` once per (key, device) and
+    kept: a decode then copies nothing to the card, a copy that would
+    wait for it (the serving stages make no host sync)."""
+    k = (key, torch.device(device))
+    if k not in _priors:
+        _priors[k] = tuple(torch.from_numpy(a).to(device) for a in make())
+    return _priors[k]
 
 
 def yolox_postprocess(cls_out: Sequence[torch.Tensor],
@@ -32,10 +46,12 @@ def yolox_postprocess(cls_out: Sequence[torch.Tensor],
     """YOLOX decode with the reference's single-label semantics: score =
     sigmoid(obj) * max-class sigmoid(cls), one candidate per anchor,
     then class-wise NMS."""
-    dev = cls_out[0].device
-    centers, strides_np, _ = grid_points(img_hw, strides, offset=0.5)
-    grids = torch.from_numpy(centers / strides_np[:, None] - 0.5).to(dev)
-    stride_v = torch.from_numpy(strides_np).to(dev)
+    def make():
+        centers, strides_np, _ = grid_points(img_hw, strides, offset=0.5)
+        return centers / strides_np[:, None] - 0.5, strides_np
+
+    grids, stride_v = _on_device(("yolox", tuple(img_hw), tuple(strides)),
+                                 make, cls_out[0].device)
 
     cls_f, reg_f, obj_f = flatten_head_outputs(cls_out, reg_out, obj_out)
     boxes = decode_boxes(reg_f.float(), grids, stride_v)
@@ -60,14 +76,17 @@ def gfl_postprocess(cls_scores: Sequence[torch.Tensor],
     """GFL/MPHead decode: per level the top ``nms_pre`` anchors by max
     class logit, Integral decode, sigmoid scores, multiclass NMS."""
     dev = cls_scores[0].device
-    centers_np, _, counts = grid_points(img_hw, strides, offset=0.0)
+    centers, = _on_device(
+        ("gfl", tuple(img_hw), tuple(strides)),
+        lambda: grid_points(img_hw, strides, offset=0.0)[:1], dev)
+    counts = [h * w for h, w in featmap_sizes(img_hw, strides)]
     b = cls_scores[0].shape[0]
     cls_l, reg_l, ctr_l, str_l = [], [], [], []
     off = 0
     for c, p, n, s in zip(cls_scores, bbox_preds, counts, strides):
         cf = c.reshape(b, n, c.shape[-1])
         pf = p.reshape(b, n, p.shape[-1])
-        ctr = torch.from_numpy(centers_np[off:off + n]).to(dev)
+        ctr = centers[off:off + n]
         off += n
         k = min(nms_pre, n) if nms_pre and nms_pre > 0 else n
         if k < n:

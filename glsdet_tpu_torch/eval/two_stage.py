@@ -3,8 +3,9 @@
 
 Per frame: coarse YOLOX on the resized frame -> decode + NMS -> UFP
 packing on the host (C++, bucket-fit, a thread pool across frames) ->
-mosaic painting (CUDA kernel) -> MP-Det on the mosaic canvas -> GFL
-decode + NMS -> chip unmap + IoF gate + class-wise NMS.
+mosaic painting and normalizing (one CUDA kernel launch per bucket group)
+-> MP-Det on the mosaic -> GFL decode + NMS -> chip unmap + IoF gate +
+class-wise NMS.  The preprocessing chains are ``eval/preprocess.py``.
 
 On the card the models run in bfloat16 with cuDNN convolutions, and both
 stages run in ``torch.inference_mode()``.  On the CPU (the parity tests)
@@ -34,10 +35,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from glsdet_tpu_torch.eval.postprocess import (gfl_postprocess,
                                                yolox_postprocess)
+from glsdet_tpu_torch.eval.preprocess import coarse_inputs, norm_constants
 from glsdet_tpu_torch.native import unified_foreground_packing_rows_fit
 from glsdet_tpu_torch.ops.fused_infer import FusedBottleneck
 from glsdet_tpu_torch.ops.nms import NEG_INF, batched_nms, topk_stable
@@ -46,12 +47,10 @@ from glsdet_tpu_torch.ops.quant_static import (calibrate_scales,
                                                quantize_static)
 from glsdet_tpu_torch.ufp.assembly import (regions_to_array,
                                            unmap_chip_detections_argmax)
-from glsdet_tpu_torch.ufp.paint_kernel import assemble_mosaic_cuda_batch
+from glsdet_tpu_torch.ufp.paint_kernel import paint_mosaic_inputs_cuda
 
 # Model-canvas buckets (multiples of 128, the coarsest pyramid stride).
 DEFAULT_BUCKETS = (768, 1024, 1152, 1280, 1536, 1792, 2688)
-PIXEL_MEAN = (123.675, 116.28, 103.53)
-PIXEL_STD = (58.395, 57.12, 57.375)
 
 
 def pick_bucket(h: float, w: float, buckets: Sequence[int]) -> int:
@@ -61,19 +60,6 @@ def pick_bucket(h: float, w: float, buckets: Sequence[int]) -> int:
         if need <= b:
             return b
     return buckets[-1]
-
-
-def paint_tile(out_hw: int) -> int:
-    """The JAX painter's tile size for a canvas bucket."""
-    return min(256, out_hw) // 4 * 4
-
-
-def paint_hw_for(hw: int) -> int:
-    """Painting canvas for model bucket ``hw``: the next ``paint_tile``
-    multiple, cropped back to ``hw`` before MP-Det, as in the JAX
-    package (the CUDA painter itself needs no alignment)."""
-    t = paint_tile(hw)
-    return -(-hw // t) * t
 
 
 def pack_detections(boxes, scores, labels, valid) -> torch.Tensor:
@@ -197,9 +183,8 @@ class TwoStagePipeline:
         self.max_coarse = max_coarse_dets
         self.max_chip = max_chip_dets
         self.max_batch = max(1, int(max_batch))
-        self._mean = torch.tensor(PIXEL_MEAN).to(self.device, self.dtype)
-        self._inv_std = (1.0 / torch.tensor(PIXEL_STD)).to(self.device,
-                                                           self.dtype)
+        # made here, so that the stages copy nothing to the card
+        self._mean, self._inv_std = norm_constants(self.dtype, self.device)
         # host UFP packing pool: frames pack independently and the C++
         # packer releases the GIL; None = min(8, cpus), <= 1 = inline
         if pack_threads is None:
@@ -220,13 +205,7 @@ class TwoStagePipeline:
     def coarse_packed(self, imgs: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) uint8 device frames -> (B, max_coarse_dets, 7)
         packed coarse detections in coarse-input coordinates."""
-        # antialiased bilinear, as jax.image.resize when downsampling;
-        # in float32 (torch has no bfloat16 antialias on the CPU)
-        x = F.interpolate(imgs.permute(0, 3, 1, 2).float(),
-                          size=self.coarse_hw, mode="bilinear",
-                          antialias=True, align_corners=False)
-        x = ((x.to(self.dtype) - self._mean[:, None, None])
-             * self._inv_std[:, None, None])
+        x = coarse_inputs(imgs, self.coarse_hw, self.dtype)
         if self._capture is not None:
             self._capture[0].append(x)
         cls, reg, obj = self.coarse_net(x)
@@ -244,10 +223,10 @@ class TwoStagePipeline:
         imgs (N, H, W, 3) uint8 frames; idx (b,) int64 frame of each
         mosaic; regions (b, R, 7) float32 rows.  Returns (b,
         max_chip_dets, 7) packed detections in frame coordinates."""
-        ph = paint_hw_for(hw)
-        canvas = assemble_mosaic_cuda_batch(imgs, idx, regions, ph, ph,
-                                            self.dtype)[:, :hw, :hw]
-        x = ((canvas - self._mean) * self._inv_std).permute(0, 3, 1, 2)
+        # one painter launch writes the normalized NHWC input (on the
+        # CPU: mosaic_inputs_plain); MP-Det reads it as channels-last NCHW
+        x = paint_mosaic_inputs_cuda(imgs, idx, regions, hw, self._mean,
+                                     self._inv_std).permute(0, 3, 1, 2)
         if self._capture is not None:
             self._capture[1].append(x)
         cls, reg = self.mp_net(x)

@@ -42,6 +42,10 @@ _SIGNATURES = {
     # out_w, out_bf16, stream
     "glsdet_paint_mosaic": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I, _I,
                             _P],
+    # src, n_src, src_h, src_w, idx, rows, batch, n_rows, mean, inv_std,
+    # out, hw, stream
+    "glsdet_paint_mosaic_inputs": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _P,
+                                   _P, _I, _P],
     # y, gamma, beta, s_out, eps, batch, hw, c, groups, chunk, work,
     # counter, out, stream
     "glsdet_gn_relu_quant": [_P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _P, _P,

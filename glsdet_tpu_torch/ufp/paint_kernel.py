@@ -1,5 +1,5 @@
-"""The UFP mosaic painter: CUDA kernel wrapper (``csrc/paint.cu``) and its
-plain PyTorch version.
+"""The UFP mosaic painter: CUDA kernel wrappers (``csrc/paint.cu``) and
+their plain PyTorch versions.
 
 Replaces ``glsdet_tpu/ufp/pallas_paint.py: assemble_mosaic_pallas_batch``.
 Canvas pixel (X, Y) of slot s is painted by the last region row of
@@ -9,11 +9,21 @@ the real neighbouring source pixels and 0 beyond the frame border; every
 other pixel is 0.  Tap weights are all k/8, so the float32 canvas is
 exact and the kernel equals the plain version bit for bit.
 
+Two entries share the kernel body:
+
+- :func:`assemble_mosaic_cuda_batch`, the Pallas kernel's own function:
+  the (b, out_h, out_w, 3) canvas in bfloat16 or float32;
+- :func:`paint_mosaic_inputs_cuda`, the serving path's: MP-Det's
+  normalized (b, hw, hw, 3) bfloat16 input, painted at ``hw`` and
+  normalized in the same pass (plain version:
+  ``eval/preprocess.py: mosaic_inputs_plain``).
+
 Unlike the Pallas kernel, the CUDA kernel needs no per-tile tables: each
-32x8 block bins the region rows itself in shared memory, without a cap,
-so there is no table overflow and no fallback painter.
-``build_tile_tables`` and ``tile_max_count`` are the JAX package's table
-binning, carried over and pinned by tests/test_torch_paint.py.
+block keeps the region rows that meet its band of canvas rows in shared
+memory, without a cap, so there is no table overflow and no fallback
+painter.  ``build_tile_tables`` and ``tile_max_count`` are the JAX
+package's table binning, carried over and pinned by
+tests/test_torch_paint.py.
 """
 
 from __future__ import annotations
@@ -23,9 +33,11 @@ import torch
 
 from glsdet_tpu_torch.native import kernels
 
-MAX_ROWS = 1024       # region rows per slot held in a block's shared memory
+MAX_ROWS = 1024       # region rows per slot (csrc/paint.cu: kMaxRows)
+MAX_WIDTH = 8192      # canvas width (csrc/paint.cu: kMaxWidth)
 
-launches = 0          # kernel launches since the last reset
+launches = 0          # kernel launches since the last reset, both entries
+inputs_launches = 0   # of them, the path entry's
 
 
 def _axis_taps(d: torch.Tensor, f: torch.Tensor):
@@ -91,17 +103,11 @@ def assemble_mosaic_plain_batch(images: torch.Tensor, idx: torch.Tensor,
     return torch.where(covered[..., None], out, 0.0).to(dtype)
 
 
-def assemble_mosaic_cuda_batch(images: torch.Tensor, idx: torch.Tensor,
-                               rows: torch.Tensor, out_h: int, out_w: int,
-                               dtype: torch.dtype = torch.bfloat16
-                               ) -> torch.Tensor:
-    """Paint (b, out_h, out_w, 3) canvases; arguments as
-    :func:`assemble_mosaic_plain_batch`.  On the CPU this is the plain
-    version; on a CUDA tensor it launches the kernel or raises."""
-    global launches
-    if images.device.type == "cpu":
-        return assemble_mosaic_plain_batch(images, idx, rows, out_h, out_w,
-                                           dtype)
+def _check(images: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
+           out_w: int) -> int:
+    """Raises on what the kernel cannot take; returns the batch b."""
+    if out_w > MAX_WIDTH:
+        raise ValueError(f"canvas width {out_w} > {MAX_WIDTH}")
     if images.device.type != "cuda":
         raise ValueError(f"no painter for device {images.device}")
     if images.dtype != torch.uint8 or images.dim() != 4 \
@@ -115,12 +121,27 @@ def assemble_mosaic_cuda_batch(images: torch.Tensor, idx: torch.Tensor,
         raise ValueError("rows: expected (b, R, 7) float32")
     if rows.shape[1] > MAX_ROWS:
         raise ValueError(f"{rows.shape[1]} region rows > {MAX_ROWS}")
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"canvas dtype {dtype}: bfloat16 or float32")
     if not all(t.device == images.device for t in (idx, rows)):
         raise ValueError("images, idx and rows must share a device")
     if not all(t.is_contiguous() for t in (images, idx, rows)):
         raise ValueError("images, idx and rows must be contiguous")
+    return b
+
+
+def assemble_mosaic_cuda_batch(images: torch.Tensor, idx: torch.Tensor,
+                               rows: torch.Tensor, out_h: int, out_w: int,
+                               dtype: torch.dtype = torch.bfloat16
+                               ) -> torch.Tensor:
+    """Paint (b, out_h, out_w, 3) canvases; arguments as
+    :func:`assemble_mosaic_plain_batch`.  On the CPU this is the plain
+    version; on a CUDA tensor it launches the kernel or raises."""
+    global launches
+    if images.device.type == "cpu":
+        return assemble_mosaic_plain_batch(images, idx, rows, out_h, out_w,
+                                           dtype)
+    b = _check(images, idx, rows, out_w)
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"canvas dtype {dtype}: bfloat16 or float32")
     out = torch.empty((b, out_h, out_w, 3), dtype=dtype,
                       device=images.device)
     if b == 0 or out_h == 0 or out_w == 0:
@@ -133,6 +154,47 @@ def assemble_mosaic_cuda_batch(images: torch.Tensor, idx: torch.Tensor,
         rows.data_ptr(), b, rows.shape[1], out.data_ptr(), out_h, out_w,
         int(dtype == torch.bfloat16), stream), "glsdet_paint_mosaic")
     launches += 1
+    return out
+
+
+def paint_mosaic_inputs_cuda(images: torch.Tensor, idx: torch.Tensor,
+                             rows: torch.Tensor, hw: int, mean: torch.Tensor,
+                             inv_std: torch.Tensor) -> torch.Tensor:
+    """MP-Det's normalized input: the (b, hw, hw, 3) canvas, per channel
+    ``(canvas - mean) * inv_std`` in the dtype of ``mean`` (3,) and
+    ``inv_std`` (3,), each op rounding once.  Uncovered pixels hold the
+    normalized 0.  Other arguments as :func:`assemble_mosaic_plain_batch`.
+
+    On the CPU this is ``eval/preprocess.py: mosaic_inputs_plain`` (which
+    paints at the JAX package's aligned canvas and crops: the same
+    values).  On a CUDA tensor it launches the kernel once, painting at
+    ``hw``, or raises; the card serves bfloat16 only."""
+    global launches, inputs_launches
+    if images.device.type == "cpu":
+        from glsdet_tpu_torch.eval.preprocess import mosaic_inputs_plain
+
+        return mosaic_inputs_plain(images, idx, rows, hw, mean.dtype, mean,
+                                   inv_std)
+    b = _check(images, idx, rows, hw)
+    for name, t in (("mean", mean), ("inv_std", inv_std)):
+        if t.dtype != torch.bfloat16 or tuple(t.shape) != (3,) \
+                or t.device != images.device or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous (3,) bfloat16 "
+                             "tensor on the images' device")
+    out = torch.empty((b, hw, hw, 3), dtype=torch.bfloat16,
+                      device=images.device)
+    if b == 0 or hw == 0:
+        return out
+    lib = kernels.load_kernels()
+    stream = torch.cuda.current_stream(images.device).cuda_stream
+    n_src, src_h, src_w = images.shape[:3]
+    kernels.check(lib.glsdet_paint_mosaic_inputs(
+        images.data_ptr(), n_src, src_h, src_w, idx.data_ptr(),
+        rows.data_ptr(), b, rows.shape[1], mean.data_ptr(),
+        inv_std.data_ptr(), out.data_ptr(), hw, stream),
+        "glsdet_paint_mosaic_inputs")
+    launches += 1
+    inputs_launches += 1
     return out
 
 

@@ -11,10 +11,14 @@ run it there with
 (``--noconftest``: ``tests/conftest.py`` imports jax).  The shapes are
 the edges the serving path does not reach in ``chip_smoke.py``: K not a
 multiple of 64, K = 1 and the 2048 maximum, a single image, identical
-boxes, canvases that are no multiple of the 32x8 block, zero region rows
-and chips overhanging the canvas and the frame.  Keep masks and the
-float32 canvas must be equal; the tap weights are k/8, so the canvas is
-exact in any summation order.
+boxes, canvases that are no multiple of the 8-row band or of 8 pixels,
+zero and 1024 region rows, batch 1, and chips overhanging the canvas and
+the frame.  Keep masks and the float32 canvas must be equal; the tap
+weights are k/8, so the canvas is exact in any summation order.  The
+painter's path entry (MP-Det's normalized bf16 input) must equal
+``eval/preprocess.py: mosaic_inputs_plain``, the normalized 0 where no
+chip paints.  The serving stages of a small pipeline (bf16, static int8,
+fused) must run under ``torch.cuda.set_sync_debug_mode("error")``.
 
 The GN kernel (GroupNorm -> ReLU -> int8 requant) is held against its
 plain version with the slack of the f32 order of its statistics: codes
@@ -51,6 +55,8 @@ from glsdet_tpu_torch.ops.fused_infer import FusedBottleneck, wrap_model_fused
 from glsdet_tpu_torch.ops import nms as tnms
 from glsdet_tpu_torch.ops import nms_kernel
 from glsdet_tpu_torch.ops.int8_conv import Int8Conv2d
+from glsdet_tpu_torch.eval.preprocess import (mosaic_inputs_plain,
+                                              norm_constants)
 from glsdet_tpu_torch.ufp import paint_kernel
 
 pytestmark = pytest.mark.cuda
@@ -196,6 +202,85 @@ def test_paint_kernel_matches_plain(card, out_hw, r, dtype):
     assert paint_kernel.launches == before + 1
     assert got.shape == (4, *out_hw, 3) and got.dtype == dtype
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,r", [(1, 32), (4, 1024)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paint_kernel_many_rows_and_one_image(card, b, r, dtype):
+    rs = np.random.RandomState(r + b)
+    frames = torch.from_numpy(
+        rs.randint(0, 256, (2, 90, 120, 3), np.uint8)).to(card)
+    rows = torch.from_numpy(_rows(rs, b, r, (90, 120), (200, 136))).to(card)
+    idx = torch.from_numpy(rs.randint(0, 2, b)).to(card)
+    got = paint_kernel.assemble_mosaic_cuda_batch(frames, idx, rows, 200,
+                                                  136, dtype)
+    want = paint_kernel.assemble_mosaic_plain_batch(frames, idx, rows, 200,
+                                                    136, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _mosaic_inputs(card, b, r, hw, seed):
+    """Frames, slots and region rows (chips over the frame and the canvas)
+    on the card, and the bf16 normalize constants."""
+    rs = np.random.RandomState(seed)
+    frames = torch.from_numpy(
+        rs.randint(0, 256, (3, 90, 120, 3), np.uint8)).to(card)
+    rows = torch.from_numpy(_rows(rs, b, r, (90, 120), (hw, hw))).to(card)
+    idx = torch.from_numpy(rs.randint(0, 3, b)).to(card)
+    return frames, idx, rows, norm_constants(torch.bfloat16, card)
+
+
+@pytest.mark.parametrize("hw", [100, 130, 256])
+@pytest.mark.parametrize("b,r", [(1, 7), (4, 0), (4, 32), (2, 1024)])
+def test_paint_inputs_kernel_equals_the_plain_chain(card, hw, b, r):
+    """The path entry paints at hw (no multiple of 8 or of the 8-row band
+    at 100 and 130) and must equal mosaic_inputs_plain, which paints at
+    paint_hw_for(hw), crops and normalizes in three bf16 ops."""
+    frames, idx, rows, (mean, inv_std) = _mosaic_inputs(card, b, r, hw,
+                                                        hw + b + r)
+    before = paint_kernel.launches
+    got = paint_kernel.paint_mosaic_inputs_cuda(frames, idx, rows, hw, mean,
+                                                inv_std)
+    want = mosaic_inputs_plain(frames, idx, rows, hw, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert paint_kernel.launches == before + 1
+    assert got.shape == (b, hw, hw, 3) and got.dtype == torch.bfloat16
+    assert got.is_contiguous()
+    assert torch.equal(got, want)
+
+
+def test_paint_inputs_kernel_uncovered_is_the_normalized_zero(card):
+    frames, idx, rows, (mean, inv_std) = _mosaic_inputs(card, 2, 4, 64, 5)
+    rows[1] = 0                                # slot 1: no rows
+    rows[0, :, 4:6] = 40                       # slot 0: chips from (40, 40)
+    got = paint_kernel.paint_mosaic_inputs_cuda(frames, idx, rows, 64, mean,
+                                                inv_std)
+    zero = (torch.zeros(3, dtype=torch.bfloat16, device=card) - mean) \
+        * inv_std
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], zero.expand(64, 64, 3))
+    assert torch.equal(got[0, :40, :], zero.expand(40, 64, 3))
+    assert torch.equal(got[0, :, :40], zero.expand(64, 40, 3))
+    assert torch.equal(got, mosaic_inputs_plain(frames, idx, rows, 64,
+                                                torch.bfloat16))
+
+
+def test_paint_inputs_kernel_rejects_what_it_cannot_take(card):
+    frames, idx, rows, (mean, inv_std) = _mosaic_inputs(card, 2, 4, 64, 6)
+    with pytest.raises(ValueError, match="mean"):
+        paint_kernel.paint_mosaic_inputs_cuda(frames, idx, rows, 64,
+                                              mean.float(), inv_std)
+    with pytest.raises(ValueError, match="inv_std"):
+        paint_kernel.paint_mosaic_inputs_cuda(frames, idx, rows, 64, mean,
+                                              inv_std.cpu())
+    with pytest.raises(ValueError, match="region rows"):
+        paint_kernel.paint_mosaic_inputs_cuda(
+            frames, idx, torch.zeros(2, 1025, 7, device=card), 64, mean,
+            inv_std)
+    with pytest.raises(ValueError, match="contiguous"):
+        paint_kernel.paint_mosaic_inputs_cuda(frames[:, ::2], idx, rows, 64,
+                                              mean, inv_std)
 
 
 def _gn_inputs(card, b, hw, c, seed, offset=0.5, scale=1.5):
@@ -632,3 +717,71 @@ def test_fused_resnet_launches_once_per_eligible_block(card, fused_resnet):
         rel = float((g.float() - w.float()).abs().max()
                     / w.float().abs().max())
         assert rel < 0.15, rel
+
+
+def _small_pipeline(card, mode):
+    """A small two-stage pipeline on the card: YOLOX-nano at 64x64,
+    MP-Det ResNet-18, buckets 128/256, seeded weights; bf16, static int8
+    (calibrated by a bf16 pipeline) or fused."""
+    from glsdet_tpu_torch.eval.two_stage import TwoStagePipeline
+    from glsdet_tpu_torch.models import YOLOXDetector
+
+    def models():
+        g = torch.Generator().manual_seed(0)
+        return YOLOXDetector(10, "nano", generator=g), MPDet(10, 18,
+                                                             generator=g)
+
+    kw = dict(coarse_score_thr=1e-6, mosaic_buckets=(128, 256), max_batch=4,
+              pack_threads=1, device=card)
+    if mode == "fused":
+        coarse, mp = models()
+        return TwoStagePipeline(coarse, wrap_model_fused(mp), (64, 64), **kw)
+    pipe = TwoStagePipeline(*models(), (64, 64), **kw)
+    if mode == "bf16":
+        return pipe
+    rs = np.random.RandomState(1)
+    scales = pipe.calibrate_int8(
+        [rs.randint(0, 256, (96, 160, 3), np.uint8) for _ in range(2)])
+    pipe.close()
+    return TwoStagePipeline(*models(), (64, 64), quant8="static",
+                            act_scales=scales, **kw)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "static_int8", "fused"])
+def test_serving_stages_do_not_sync_with_the_host(card, mode):
+    """coarse_packed and stage2_packed under set_sync_debug_mode("error"):
+    no op inside them may wait for the card.  The transfers between the
+    stages (the coarse read-back, the upload of the rows) sync by design
+    and stay outside."""
+    from glsdet_tpu_torch.eval.two_stage import unpack_detections
+
+    pipe = _small_pipeline(card, mode)
+    rs = np.random.RandomState(0)
+    frames = torch.from_numpy(
+        rs.randint(0, 256, (4, 96, 160, 3), np.uint8)).to(card)
+    try:
+        pipe.run_device_batch(frames)           # builds, plans, caches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            packed = pipe.coarse_packed(frames)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        dets = unpack_detections(packed.cpu().numpy())
+        jobs = pipe._pack_chunk([(96, 160)] * 4, list(range(4)), dets)
+        assert jobs
+        for bucket, job_list in jobs.items():
+            idx = torch.tensor([j[1] for j in job_list]).to(card)
+            regs = torch.from_numpy(
+                np.stack([j[2] for j in job_list])).to(card)
+            before = paint_kernel.launches
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = pipe.stage2_packed(frames, idx, regs, bucket)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert paint_kernel.launches == before + 1
+            assert out.shape == (len(job_list), pipe.max_chip, 7)
+            assert torch.isfinite(out).all()
+    finally:
+        pipe.close()

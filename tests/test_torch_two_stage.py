@@ -131,6 +131,32 @@ def test_stage2_agrees_on_the_same_region_rows(pipes, frames):
     assert n_dets > 0
 
 
+def test_stage2_agrees_at_a_bucket_that_crops(pipes, frames):
+    """Bucket 384, which the JAX package paints at paint_hw_for(384) = 512
+    and crops; the port paints at 384 (on the CPU through
+    mosaic_inputs_plain, which crops as the JAX package does)."""
+    jpipe, tpipe = pipes
+    stack = np.stack(frames)
+    coarse = np.asarray(jpipe._coarse_full_batch(jnp.asarray(stack.copy())))
+    sx, sy = FRAME[1] / COARSE_HW[1], FRAME[0] / COARSE_HW[0]
+    rows = []
+    for i in range(len(frames)):
+        boxes = (coarse[i, :, :4] * np.array([sx, sy, sx, sy], np.float32))[
+            coarse[i, :, 6] > 0.5]
+        rows.append(jnative.unified_foreground_packing_rows_fit(
+            boxes, 1.5, (FRAME[1], FRAME[0]), 32, BUCKETS)[0])
+    idx = np.arange(len(frames), dtype=np.int32)
+    regs = np.stack(rows)
+    want = jpipe._mosaic_stage_batch(
+        jnp.asarray(stack.copy()), jnp.asarray(idx), jnp.asarray(regs.copy()),
+        jnp.asarray(regs.copy()), 384)
+    got = tpipe.stage2_packed(torch.from_numpy(stack.copy()),
+                              torch.from_numpy(idx.astype(np.int64)),
+                              torch.from_numpy(regs.copy()), 384)
+    # stage-2 scores at 5e-6, as test_stage2_agrees_on_the_same_region_rows
+    assert _agree(got, want, score_atol=5e-6) > 0
+
+
 def _matched(a, b):
     """Share of a's detections with a partner in b: same label, IoU >
     0.99 and |score difference| < 1e-4."""
