@@ -5,7 +5,7 @@
 Phases, in the order they run, each printing one line:
   1. the card (nvidia-smi name and power limit); fails without CUDA;
   2. build the CUDA kernels from glsdet_tpu_torch/csrc (seconds taken);
-  3. NMS kernel vs nms_sorted_plain: B=8, K in {500, 512, 800, 2000},
+  3. NMS kernel vs nms_sorted_plain: B=8, K in {500, 512, 700, 800, 2000},
      offsets 0/1, thresholds 0.6/0.65, class-shifted detection-like
      boxes; keep masks must be equal; the kernel's time, each of its two
      passes alone, and the plain version's; then the candidate ladder's
@@ -88,7 +88,49 @@ Phases, in the order they run, each printing one line:
      tests/test_pallas_bottleneck.py); then as phases 9 and 10, with the
      bottleneck kernel launched 12 times per stage-2 group; fused img/s and
      peak memory beside bf16's;
- 13. dynamic int8 (quant8=True): one run_device_batch, results well formed.
+ 13. dynamic int8 (quant8=True): one run_device_batch, results well formed;
+ 14. the serving facade: the seeded models as state-dict files, then
+     apis.TwoStageDetector("coarse_det", ..., "mp_det_res50", ...) with its
+     defaults (global-local fusion, square packing, the config's bucket
+     ladder 768-2688, max_batch 8) but the coarse threshold at 1e-4;
+     warmup, then one detect_batch of the 16 frames through the streaming
+     protocol: stage 2 on every frame, the buckets square packing chose,
+     B1 once and B2 four times per stage-2 group (one coarse launch per
+     chunk of 8, three per group: the chips' decode, the unmapped chips,
+     the fusion); every fusion equal to _fuse_packed on the CPU and each
+     fused row a row of its frame's coarse or local set; the stages
+     without a host sync (fusion included); B1 at every bucket used equal
+     to mosaic_inputs_plain and timed, B2 at the fusion's launches
+     (K = 700, 0.65, offset 0) equal to its plain version and timed; the
+     stage breakdown of one chunk of 8 (phase 10's, with the fusion timed
+     alone); a captured group's local sets fused with an overlapping
+     coarse set (their own rows, jittered): rows suppressed, B2's keep
+     mask equal to the plain version's, the output equal to the CPU's.
+     Then make_server with an AsyncDetector (max_batch 8, pipeline depth
+     2), the clients in a process of their own (its own interpreter, so
+     no lock shared with the server), 8 threads, JSON raw-array bodies,
+     each request's id in its pixel (0, 0): a burst of 16 requests (smoke
+     readings only), then two sustained windows of 256 requests cycling
+     the 16 frames (requests/s and latency p50/p90/p99 per window, the
+     batches the batcher formed); every answer 200 and well formed;
+     /ping, /models, /metrics (528 requests, 0 errors); every batch the
+     batcher formed run again through detect_batch with the same requests
+     in the same order, each answer equal to its slot's direct result;
+     the host time to decode one request body; img/s of detect_batch
+     with fusion on and off, peak memory.  Then the facade with its
+     ladder cut to (768, 2688), so that square packing takes other
+     buckets than 1152: the same checks of one detect_batch, B1 at those
+     buckets equal to mosaic_inputs_plain and timed, img/s;
+ 15. the facade in static int8 with a scales path that does not exist:
+     the first batch calibrates and saves, a second facade loads the file
+     and detects the same; the GN kernel 40 times per stage-2 group, and
+     against its plain version at the levels of the buckets used; int8
+     img/s; then on the same scales with the ladder cut to (768, 2688):
+     the GN kernel 40 times per group, and on the inputs the path gave it
+     (the first launch at each level, captured) within +-1 code of its
+     plain version, timed;
+ 16. apis.Detector("coarse_det", score_thr=1e-4) on 4 frames: B2
+     launched, detections well formed, img/s.
 Then one JSON line of per-kernel results (each with its bound: the bytes
 it must move at 3.35 TB/s or its operations at the card's peak for their
 type, whichever is longer) and, last, the device line.  A kernel's ``ms``
@@ -104,6 +146,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -116,7 +159,7 @@ COARSE_HW = (640, 640)
 BUCKETS = (1024, 1152)
 PAINT_HW = (1024, 1280)      # paint canvases of the two buckets
 PHI, DEPTH = "s", 50
-NMS_K = (500, 512, 800, 2000)
+NMS_K = (500, 512, 700, 800, 2000)
 # MP-Det head levels (strides 8..128) of the two buckets
 LEVELS = {1024: (128, 64, 32, 16, 8), 1152: (144, 72, 36, 18, 9)}
 GN_C, GN_GROUPS, GN_S_OUT = 256, 32, 0.03
@@ -398,7 +441,7 @@ def make_pipeline(models, **kw):
 
     return TwoStagePipeline(*models, COARSE_HW, mosaic_buckets=BUCKETS,
                             coarse_score_thr=1e-4, max_batch=N_FRAMES,
-                            device=DEVICE, **kw)
+                            pack_mode="bucket-fit", device=DEVICE, **kw)
 
 
 def build_pipeline():
@@ -680,7 +723,8 @@ def phase_profile(pipe, dev_frames, name="profile") -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from glsdet_tpu_torch.eval.two_stage import unpack_detections
+    from glsdet_tpu_torch.eval.two_stage import (_fuse_packed, _scale_packed,
+                                                 unpack_detections)
 
     b = dev_frames.shape[0]
     stages = {"coarse_stage": cuda_ms(
@@ -689,15 +733,31 @@ def phase_profile(pipe, dev_frames, name="profile") -> None:
     with torch.inference_mode():
         stages["coarse_model"] = cuda_ms(
             lambda: pipe.coarse_net(x.permute(0, 3, 1, 2)), 3)
-    dets = unpack_detections(pipe.coarse_packed(dev_frames).cpu().numpy())
+    packed = pipe.coarse_packed(dev_frames).cpu().numpy()
+    dets = unpack_detections(packed)
     t0 = time.perf_counter()
     jobs = pipe._pack_chunk([tuple(FRAME_HW)] * b, list(range(b)), dets)
     stages["host_pack"] = 1e3 * (time.perf_counter() - t0)
     for bucket, job_list in jobs.items():
-        idx = torch.tensor([j[1] for j in job_list]).to(DEVICE)
+        rows = [j[1] for j in job_list]
+        idx = torch.tensor(rows).to(DEVICE)
         regs = torch.from_numpy(np.stack([j[2] for j in job_list])).to(DEVICE)
+        gdets = None
+        if pipe.fuse_global:
+            gdets = torch.from_numpy(_scale_packed(
+                packed[rows], FRAME_HW[1] / COARSE_HW[1],
+                FRAME_HW[0] / COARSE_HW[0])).to(DEVICE)
+            # the group's unfused result is the fusion's local set
+            loc = pipe.stage2_packed(dev_frames, idx, regs, bucket)
+            local = (loc[..., :4].contiguous(), loc[..., 4].contiguous(),
+                     loc[..., 5].long(), loc[..., 6] > 0.5)
+            stages[f"fusion_{bucket}x{len(job_list)}"] = cuda_ms(
+                lambda: _fuse_packed(gdets, *local,
+                                     iou_thr=pipe.fusion_nms_thr,
+                                     max_out=pipe.max_chip))
         stages[f"stage2_{bucket}x{len(job_list)}"] = cuda_ms(
-            lambda: pipe.stage2_packed(dev_frames, idx, regs, bucket), 3)
+            lambda: pipe.stage2_packed(dev_frames, idx, regs, bucket, gdets),
+            3)
         m = torch.randn(len(job_list), bucket, bucket, 3,
                         device=DEVICE).to(pipe.dtype)
         with torch.inference_mode():
@@ -1224,6 +1284,718 @@ def phase_dynamic(dev_frames) -> None:
         pipe.close()
 
 
+# -- the serving facades (phases 14-16) ------------------------------------
+
+SERVE_MAX_BATCH = 8          # TwoStageDetector's default
+FUSION_K = 700               # the fusion's NMS rows: 200 coarse + 500 local
+# a ladder cut so that square packing takes other buckets than 1152
+LADDER = (768, 2688)
+
+
+def write_seeded_models(root: str):
+    """seeded_models() as the state-dict files the facades load."""
+    paths = (os.path.join(root, "coarse_det.pt"),
+             os.path.join(root, "mp_det_res50.pt"))
+    for model, path in zip(seeded_models(), paths):
+        torch.save(model.state_dict(), path)
+    return paths
+
+
+def make_facade(paths, buckets=None, **kw):
+    """TwoStageDetector with its defaults (fusion on, square packing, the
+    config's bucket ladder, max_batch 8) on the seeded weights; only the
+    coarse threshold is lowered, so that stage 2 fires on random weights
+    as in the bench fixture, and ``buckets`` replaces the ladder."""
+    from glsdet_tpu_torch.apis import TwoStageDetector
+
+    opts = {"eval.coarse_score_thr": 1e-4}
+    if buckets:
+        opts["eval.mosaic_buckets"] = tuple(buckets)
+    return TwoStageDetector("coarse_det", paths[0], "mp_det_res50",
+                            paths[1], coarse_options=opts, device=DEVICE,
+                            **kw)
+
+
+def reset_launches() -> None:
+    from glsdet_tpu_torch.ops import bottleneck_kernel, gn_kernel, nms_kernel
+    from glsdet_tpu_torch.ufp import paint_kernel
+
+    nms_kernel.launches = paint_kernel.launches = 0
+    paint_kernel.inputs_launches = gn_kernel.launches = 0
+    bottleneck_kernel.launches = 0
+
+
+def read_launches() -> dict:
+    from glsdet_tpu_torch.ops import bottleneck_kernel, gn_kernel, nms_kernel
+    from glsdet_tpu_torch.ufp import paint_kernel
+
+    return {"nms": nms_kernel.launches, "paint": paint_kernel.launches,
+            "paint_inputs": paint_kernel.inputs_launches,
+            "gn": gn_kernel.launches,
+            "bottleneck": bottleneck_kernel.launches}
+
+
+def capture_serving(facade, frames):
+    """One detect_batch of the facade with the inputs of every stage-2
+    group, every NMS launch and every fusion captured (clones on the
+    card), and the kernels' launch counts of that run alone.  Also checks
+    that stage 2 ran for every frame (no coarse fallback)."""
+    from glsdet_tpu_torch.eval import two_stage
+    from glsdet_tpu_torch.ops import nms as nms_mod
+
+    pipe = facade.pipeline
+    groups, nms_calls, fusions = [], [], []
+    inner = (pipe.stage2_packed, nms_mod.nms_sorted_cuda,
+             two_stage._fuse_packed)
+
+    def stage2(imgs, idx, regs, hw, gdets=None):
+        groups.append((imgs, idx.clone(), regs.clone(), hw))
+        return inner[0](imgs, idx, regs, hw, gdets)
+
+    def nms(bx, vd, thr, offset=0.0):
+        nms_calls.append((bx.clone(), vd.clone(), float(thr), float(offset)))
+        return inner[1](bx, vd, thr, offset)
+
+    def fuse(gdets, *local, **kw):
+        out = inner[2](gdets, *local, **kw)
+        fusions.append((gdets.clone(), [t.clone() for t in local],
+                        [t.clone() for t in out], kw))
+        return out
+
+    pipe.stage2_packed = stage2
+    nms_mod.nms_sorted_cuda = nms
+    two_stage._fuse_packed = fuse
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        h = facade.submit_batch(frames)
+        facade.advance_batch(h)
+        res = facade.collect_batch(h)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        del pipe.stage2_packed
+        nms_mod.nms_sorted_cuda, two_stage._fuse_packed = inner[1:]
+    if len(h.pending) != len(frames) or h.fallbacks:
+        raise AssertionError(f"stage 2 ran for {len(h.pending)} of "
+                             f"{len(frames)} frames")
+    return res, launches, len(h.chunks), groups, nms_calls, fusions
+
+
+def check_served(results, n_frames, score_thr) -> int:
+    """check_results, and every score at least the facade's threshold."""
+    n = check_results(results, n_frames)
+    low = [i for i, r in enumerate(results)
+           if len(r["scores"]) and r["scores"].min() < score_thr]
+    if low:
+        raise AssertionError(f"frames {low}: scores below {score_thr}")
+    return n
+
+
+def check_fusions(fusions) -> dict:
+    """Each captured fusion: the card's output equals _fuse_packed on the
+    CPU on the same sets, and every valid output row (box, score, label)
+    is a valid row of the frame's coarse set or of its local set."""
+    from glsdet_tpu_torch.eval.two_stage import _fuse_packed
+
+    rows = 0
+    for gdets, local, out, kw in fusions:
+        want = _fuse_packed(gdets.cpu(), *(t.cpu() for t in local), **kw)
+        for name, a, b in zip(("boxes", "scores", "labels", "valid"), out,
+                              want):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"fusion {name}: the card's differs "
+                                     f"from the CPU's")
+        lb, ls, ll, lv = (t.cpu() for t in local)
+        cand = torch.cat([
+            gdets[..., :6].cpu(),
+            torch.cat([lb, ls[..., None], ll[..., None].float()], -1)], 1)
+        cand_valid = torch.cat([gdets[..., 6].cpu() > 0.5, lv], 1)
+        ob, os_, ol, ov = (t.cpu() for t in out)
+        got = torch.cat([ob, os_[..., None], ol[..., None].float()], -1)
+        hit = ((got[:, :, None] == cand[:, None]).all(-1)
+               & cand_valid[:, None]).any(-1)
+        if not bool(hit[ov].all()):
+            raise AssertionError(f"{int((~hit & ov).sum())} fused rows are "
+                                 f"in neither input set")
+        rows += int(ov.sum())
+    return {"fusions": len(fusions), "fused_rows_checked": rows}
+
+
+def phase_serve_kernels(groups, nms_calls) -> dict:
+    """B1 at every bucket the facade's run used, torch.equal to
+    mosaic_inputs_plain and timed; B2 at the fusion's launches (K = 700,
+    offset 0, 0.65), keep masks equal to the plain version, timed."""
+    from glsdet_tpu_torch.eval.preprocess import (mosaic_inputs_plain,
+                                                  norm_constants)
+    from glsdet_tpu_torch.ufp.paint_kernel import (assemble_mosaic_cuda_batch,
+                                                   paint_mosaic_inputs_cuda)
+
+    mean, inv_std = norm_constants(torch.bfloat16, DEVICE)
+    paints = []
+    for imgs, idx, regs, hw in groups:
+        run = lambda: paint_mosaic_inputs_cuda(  # noqa: E731
+            imgs, idx, regs, hw, mean, inv_std)
+        got = run()
+        if not torch.equal(got, mosaic_inputs_plain(imgs, idx, regs, hw,
+                                                    torch.bfloat16)):
+            raise AssertionError(f"paint inputs at {hw}: differs from "
+                                 f"mosaic_inputs_plain")
+        painted = float((assemble_mosaic_cuda_batch(
+            imgs, idx, regs, hw, hw).float().abs().sum(-1) > 0).sum() * 3)
+        t = {"hw": hw, "batch": int(idx.shape[0]), "ms": cuda_ms(run),
+             "graph_ms": graph_ms(run),
+             "plain_ms": cuda_ms(lambda: mosaic_inputs_plain(
+                 imgs, idx, regs, hw, torch.bfloat16), 3),
+             **paint_bound(got, regs, painted, got.numel())}
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        paints.append(t)
+    fusion = [c for c in nms_calls if c[0].shape[1] == FUSION_K]
+    if len(fusion) != len(groups):
+        raise AssertionError(f"{len(fusion)} fusion NMS launches for "
+                             f"{len(groups)} stage-2 groups")
+    nms = []
+    for bx, vd, thr, off in fusion:
+        if (thr, off) != (0.65, 0.0):
+            raise AssertionError(f"fusion NMS at thr {thr}, offset {off}")
+        keep = check_nms(bx, vd, thr, off, f"fusion {tuple(bx.shape)}")
+        t = nms_times(bx, vd, thr, off)
+        b = nms_bound(bx, vd, keep)
+        nms.append({"batch": bx.shape[0], "k": bx.shape[1],
+                    "valid": int(vd.sum()), "kept": int(keep.sum()), **t,
+                    **b, "share_of_bound": b["bound_ms"] / t["ms"]})
+    return {"paint": paints, "fusion_nms": nms}
+
+
+# the HTTP clients, run in a process of their own so that they share no
+# interpreter lock with the server: argv = url, frames .npy, threads, first
+# request id, requests.  Request r sends frame r % len(frames) with r in
+# its pixel (0, 0) (3 bytes, big-endian), so that the server side can tell
+# every request apart; base64 codes 3 bytes at a time, so the id's
+# characters are prepended to the frame's precomputed code.
+HTTP_CLIENT = r"""
+import base64, json, sys, time, urllib.error, urllib.request
+from concurrent.futures import ThreadPoolExecutor
+import numpy as np
+
+url, path = sys.argv[1], sys.argv[2]
+clients, first, n = (int(a) for a in sys.argv[3:6])
+frames = np.load(path)
+codes = [base64.b64encode(f.tobytes()[3:]) for f in frames]
+tail = ('", "shape": %s, "dtype": "uint8"}'
+        % json.dumps(list(frames.shape[1:]))).encode()
+
+
+def post(rid):
+    body = (b'{"image": "' + base64.b64encode(rid.to_bytes(3, "big"))
+            + codes[rid % len(frames)] + tail)
+    req = urllib.request.Request(url, data=body, method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status, text = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, text = e.code, e.read()
+    return rid, status, json.loads(text), time.perf_counter() - t0
+
+
+t0 = time.perf_counter()
+with ThreadPoolExecutor(clients) as pool:
+    out = list(pool.map(post, range(first, first + n)))
+wall = time.perf_counter() - t0
+print(json.dumps({"answers": [[r, s, a] for r, s, a, _ in out],
+                  "latency_s": [t for *_, t in out], "wall_s": wall}))
+"""
+HTTP_CLIENTS = 8
+HTTP_WINDOW = 256            # requests per sustained window
+HTTP_WINDOWS = 2
+
+
+def request_id(image) -> int:
+    """The id a client wrote into a request's pixel (0, 0)."""
+    return int.from_bytes(np.ascontiguousarray(image[0, 0]).tobytes(), "big")
+
+
+def tagged(frames, rid: int) -> np.ndarray:
+    """The image request ``rid`` sends."""
+    im = frames[rid % len(frames)].copy()
+    im[0, 0] = np.frombuffer(rid.to_bytes(3, "big"), np.uint8)
+    return im
+
+
+def http_runs(service, name, frames, tmp, runs):
+    """make_server on 127.0.0.1 (a free port) in a thread; for each
+    (first id, requests) of ``runs`` one client process posting that many
+    concurrent POST /predictions/<name> with JSON raw-array bodies from
+    HTTP_CLIENTS threads (bodies' codes made before the clock starts); then
+    /ping, /models and /metrics.  Returns each run's output (``answers``
+    as [id, status, answer], ``latency_s``, ``wall_s``) and the metrics
+    text; the server is shut down before it returns."""
+    import threading
+    import urllib.request
+
+    from glsdet_tpu_torch.serve import make_server
+
+    path = os.path.join(tmp, "http_frames.npy")
+    np.save(path, np.stack(frames))
+    server = make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def get(route):
+        with urllib.request.urlopen(base + route, timeout=60) as r:
+            return r.status, r.read().decode()
+
+    outs = []
+    try:
+        for first, n in runs:
+            proc = subprocess.run(
+                [sys.executable, "-c", HTTP_CLIENT,
+                 base + f"/predictions/{name}", path, str(HTTP_CLIENTS),
+                 str(first), str(n)], capture_output=True, text=True,
+                timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"HTTP clients failed: "
+                                     f"{proc.stderr[-2000:]}")
+            outs.append(json.loads(proc.stdout.splitlines()[-1]))
+        ping, models, metrics = get("/ping"), get("/models"), get("/metrics")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError("the HTTP server did not stop")
+    if (ping[0] != 200 or json.loads(ping[1]) != {"status": "Healthy"}
+            or models[0] != 200 or name not in json.loads(models[1])
+            ["models"] or metrics[0] != 200):
+        raise AssertionError(f"GET answers: {ping} {models} {metrics[0]}")
+    return outs, metrics[1]
+
+
+def served_dets(items) -> dict:
+    return {"boxes": np.array([d["bbox"] for d in items],
+                              np.float32).reshape(-1, 4),
+            "scores": np.array([d["score"] for d in items], np.float32),
+            "labels": np.array([d["class_label"] for d in items], np.int64)}
+
+
+def same_as_served(served, direct) -> bool:
+    """A response equals the direct result up to the JSON's rounding
+    (boxes to 2 decimals, scores to 6): the same detections in the same
+    order."""
+    return (len(served["scores"]) == len(direct["scores"])
+            and np.array_equal(served["labels"], direct["labels"])
+            and np.allclose(served["boxes"], direct["boxes"], rtol=0,
+                            atol=0.0051)
+            and np.allclose(served["scores"], direct["scores"], rtol=0,
+                            atol=6e-7))
+
+
+def check_answers(out, first, n, score_thr) -> dict:
+    """One client run: ids first..first+n-1 each answered 200, well
+    formed (check_served); returns id -> detections and the run's
+    requests/s and latency quantiles (ms)."""
+    ids = [a[0] for a in out["answers"]]
+    if sorted(ids) != list(range(first, first + n)):
+        raise AssertionError(f"answers for ids {ids[:8]}...")
+    bad = [(r, code) for r, code, _ in out["answers"] if code != 200]
+    if bad:
+        raise AssertionError(f"requests answered otherwise than 200: {bad}")
+    served = {r: served_dets(items) for r, _, items in out["answers"]}
+    check_served(list(served.values()), n, score_thr)
+    lat_ms = np.sort(1e3 * np.asarray(out["latency_s"]))
+    q = lambda p: float(lat_ms[min(int(p * len(lat_ms)),  # noqa: E731
+                                   len(lat_ms) - 1)])
+    return served, {"requests": n, "wall_s": out["wall_s"],
+                    "requests_per_s": n / out["wall_s"],
+                    "latency_ms_p50": q(0.5), "latency_ms_p90": q(0.9),
+                    "latency_ms_p99": q(0.99)}
+
+
+def replay_batches(facade, frames, batches, served) -> dict:
+    """Every batch the batcher formed, run again through detect_batch with
+    the same requests in the same order: each HTTP answer must equal its
+    slot's direct result, so no answer went to another request."""
+    ids = sorted(r for b in batches for r in b)
+    if ids != sorted(served):
+        raise AssertionError(f"the batches held {len(ids)} requests, "
+                             f"{len(served)} were answered")
+    for batch in batches:
+        direct = facade.detect_batch([tagged(frames, r) for r in batch])
+        for r, d in zip(batch, direct):
+            if not same_as_served(served[r], d):
+                raise AssertionError(f"request {r}: its answer differs from "
+                                     f"its batch's direct result")
+    return {"batches_replayed": len(batches), "requests_replayed": len(ids)}
+
+
+def phase_http(facade, frames, tmp) -> dict:
+    """The HTTP path (module docstring, phase 14): a burst of N_FRAMES
+    requests, then HTTP_WINDOWS sustained windows of HTTP_WINDOW."""
+    from glsdet_tpu_torch.serve import AsyncDetector, DetectionService
+
+    service = DetectionService()
+    adet = AsyncDetector(facade, max_batch=SERVE_MAX_BATCH, pipeline_depth=2)
+    service.register("glsdet", adet)
+    # the requests of each batch the batcher forms, by id
+    batches = []
+    submit = facade.submit_batch
+    facade.submit_batch = lambda images: (
+        batches.append([request_id(im) for im in images]), submit(images))[1]
+    runs = [(0, N_FRAMES)] + [(N_FRAMES + w * HTTP_WINDOW, HTTP_WINDOW)
+                              for w in range(HTTP_WINDOWS)]
+    try:
+        outs, metrics = http_runs(service, "glsdet", frames,
+                                     tmp, runs)
+    finally:
+        adet.close()
+        del facade.submit_batch
+    total = sum(n for _, n in runs)
+    for want in (f'glsdet_requests_total{{model="glsdet"}} {total}',
+                 'glsdet_errors_total{model="glsdet"} 0'):
+        if want not in metrics:
+            raise AssertionError(f"/metrics lacks {want!r}")
+    served, windows = {}, []
+    for (first, n), out in zip(runs, outs):
+        got, stats = check_answers(out, first, n, facade.score_thr)
+        served.update(got)
+        in_run = [len(b) for b in batches if first <= b[0] < first + n]
+        stats.update(batches=len(in_run),
+                     mean_batch=float(np.mean(in_run)) if in_run else 0.0)
+        windows.append(stats)
+    replay = replay_batches(facade, frames, batches, served)
+    # the burst beside one detect_batch of its 16 requests, for information
+    # (batches of another composition may differ in bf16's last bit)
+    burst = facade.detect_batch([tagged(frames, r) for r in range(N_FRAMES)])
+    equal = sum(same_as_served(served[r], d) for r, d in enumerate(burst))
+    # what the service spends on one request body before the batcher
+    # sees it (JSON parse, base64, copy), under the interpreter lock
+    import base64
+
+    from glsdet_tpu_torch.serve import _decode_image
+
+    body = json.dumps({"image": base64.b64encode(
+        frames[0].tobytes()).decode(), "shape": list(frames[0].shape),
+        "dtype": "uint8"}).encode()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        _decode_image(body)
+    decode_ms = 1e3 * (time.perf_counter() - t0) / 5
+    first = windows[0]
+    return {"http_requests": total, "http_errors": 0,
+            # smoke readings of the 16-request burst: not metrics
+            "burst_requests_per_s": first["requests_per_s"],
+            "burst_batch_sizes": [len(b) for b in batches
+                                  if b[0] < N_FRAMES],
+            "burst_equal_to_detect_batch": equal / N_FRAMES,
+            # the metrics: HTTP_WINDOWS sustained windows
+            "windows": windows[1:], **replay,
+            "request_bytes": len(body), "decode_ms_per_request": decode_ms}
+
+
+def batch_img_per_s(facade, frames, reps=3) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        facade.detect_batch(frames)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return len(frames) / float(np.median(times))
+
+
+def serve_run(facade, frames):
+    """One captured detect_batch of the facade (capture_serving), checked:
+    well formed, B1 once and B2 four times per stage-2 group (one coarse
+    launch per chunk; the chips' decode, the unmapped chips and the
+    fusion per group), every fusion equal to the CPU's and made of input
+    rows.  Returns its summary and the captured groups, NMS launches and
+    fusions."""
+    res, launches, chunks, groups, nms_calls, fusions = capture_serving(
+        facade, frames)
+    n_dets = check_served(res, len(frames), facade.score_thr)
+    buckets = {}
+    for _, idx, _, hw in groups:
+        buckets[hw] = buckets.get(hw, 0) + int(idx.shape[0])
+    n_groups = len(groups)
+    if launches["paint"] != n_groups or launches["paint_inputs"] != n_groups:
+        raise AssertionError(f"{launches} for {n_groups} stage-2 groups")
+    if launches["nms"] != chunks + 3 * n_groups:
+        raise AssertionError(f"{launches['nms']} NMS launches for "
+                             f"{chunks} chunks, {n_groups} groups")
+    out = {"launches": launches, "chunks": chunks, "groups": n_groups,
+           "buckets": {str(k): v for k, v in sorted(buckets.items())},
+           "detections": n_dets, **check_fusions(fusions)}
+    return out, groups, nms_calls, fusions
+
+
+def check_fusion_suppresses(fusions) -> dict:
+    """The served sets overlap little, so their fusion keeps every valid
+    row.  Here a captured group's local sets are fused on the card with a
+    coarse set that overlaps them: their first rows, each coordinate moved
+    by at most a quarter of a pixel, the same labels, 0.9 of the scores.  The fusion's
+    one B2 launch must suppress rows, its keep mask equal the plain
+    version's, and the output equal _fuse_packed on the CPU."""
+    from glsdet_tpu_torch.eval.two_stage import _fuse_packed
+    from glsdet_tpu_torch.ops import nms as nms_mod
+
+    gdets, local, _, kw = fusions[0]
+    lb, ls, ll, lv = local
+    k = gdets.shape[1]
+    g = torch.Generator(DEVICE).manual_seed(7)
+    jitter = (torch.rand(lb[:, :k].shape, device=DEVICE, generator=g)
+              - 0.5) * 0.5
+    over = torch.cat([lb[:, :k] + jitter, 0.9 * ls[:, :k, None],
+                      ll[:, :k, None].to(gdets.dtype),
+                      lv[:, :k, None].to(gdets.dtype)], -1).to(gdets.dtype)
+    calls, inner = [], nms_mod.nms_sorted_cuda
+
+    def nms(bx, vd, thr, offset=0.0):
+        keep = inner(bx, vd, thr, offset)
+        calls.append((bx.clone(), vd.clone(), float(thr), float(offset),
+                      keep.clone()))
+        return keep
+
+    nms_mod.nms_sorted_cuda = nms
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        out = _fuse_packed(over, *local, **kw)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        nms_mod.nms_sorted_cuda = inner
+    if launches["nms"] != 1 or len(calls) != 1:
+        raise AssertionError(f"the fusion launched B2 {launches['nms']} "
+                             f"times")
+    bx, vd, thr, off, keep = calls[0]
+    if not torch.equal(keep, check_nms(bx, vd, thr, off, "overlapped "
+                                       "fusion")):
+        raise AssertionError("overlapped fusion: the path's keep mask "
+                             "differs from the plain version's")
+    want = _fuse_packed(over.cpu(), *(t.cpu() for t in local), **kw)
+    for name, a, b in zip(("boxes", "scores", "labels", "valid"), out, want):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"overlapped fusion {name}: the card's "
+                                 f"differs from the CPU's")
+    per_frame = (vd & ~keep).sum(1)
+    if not bool((per_frame[lv.any(1)] > 0).all()):
+        raise AssertionError(f"overlapped fusion: suppressed per frame "
+                             f"{per_frame.tolist()}")
+    return {"valid": int(vd.sum()), "kept": int(keep.sum()),
+            "suppressed": int(per_frame.sum()),
+            "fused_rows": int(out[3].sum())}
+
+
+def phase_serve(frames, dev_frames, paths) -> dict:
+    """TwoStageDetector with its defaults, behind the HTTP service
+    (module docstring, phase 14)."""
+    t0 = time.perf_counter()
+    facade = make_facade(paths)
+    build_s = time.perf_counter() - t0
+    try:
+        pipe = facade.pipeline
+        if not (pipe.fuse_global and pipe.pack_mode == "square"
+                and pipe.max_batch == SERVE_MAX_BATCH):
+            raise AssertionError("the facade's defaults changed")
+        t0 = time.perf_counter()
+        facade.warmup(FRAME_HW)
+        warm_s = time.perf_counter() - t0
+        run, groups, nms_calls, fusions = serve_run(facade, frames)
+        no_sync = check_no_sync(pipe, dev_frames)
+        kern = phase_serve_kernels(groups, nms_calls)
+        log("serve_kernels", **kern)
+        phase_profile(pipe, dev_frames[:SERVE_MAX_BATCH], "profile_serve")
+        overlap = check_fusion_suppresses(fusions)
+        del groups, nms_calls, fusions
+        # HTTP: the async batcher in front of the facade
+        http = phase_http(facade, frames, os.path.dirname(paths[0]))
+        # throughput of detect_batch, fusion on and off, and memory
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_ips = batch_img_per_s(facade, frames)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        facade.close()
+    plain = make_facade(paths, fuse_global=False)
+    try:
+        plain.warmup(FRAME_HW)
+        plain_ips = batch_img_per_s(plain, frames)
+    finally:
+        plain.close()
+    out = {**run, "fusion_overlap": overlap, "no_sync_calls": no_sync,
+           "build_s": build_s, "warmup_s": warm_s, **http,
+           "img_per_s_fuse_global": fused_ips,
+           "img_per_s_no_fusion": plain_ips, "peak_mem_bytes": peak}
+    log("serve", frames=N_FRAMES, frame_hw=FRAME_HW, **out)
+    out["kernels"] = kern
+    return out
+
+
+def phase_serve_ladder(frames, paths) -> dict:
+    """The facade with its ladder cut to LADDER, so that its own path
+    paints and (phase 15) normalizes at other buckets than the default
+    ladder's 1152 (module docstring, phase 14)."""
+    facade = make_facade(paths, buckets=LADDER)
+    try:
+        run, groups, nms_calls, _ = serve_run(facade, frames)
+        if not set(int(k) for k in run["buckets"]) <= set(LADDER):
+            raise AssertionError(f"buckets {run['buckets']} outside {LADDER}")
+        kern = phase_serve_kernels(groups, nms_calls)
+        del groups, nms_calls
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ips = batch_img_per_s(facade, frames)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        facade.close()
+    out = {**run, "ladder": LADDER, "img_per_s": ips, "peak_mem_bytes": peak}
+    log("serve_ladder", **out, **kern)
+    out["kernels"] = kern
+    return out
+
+
+def phase_serve_int8(frames, paths, bf16) -> dict:
+    """TwoStageDetector(quant8="static") calibrating lazily (module
+    docstring, phase 15)."""
+    from glsdet_tpu_torch.native.build import BUILD_DIR
+    from glsdet_tpu_torch.ops.gn_kernel import (gn_relu_quant_acc,
+                                                gn_relu_quant_acc_plain)
+    from glsdet_tpu_torch.ops.quant_static import load_scales
+
+    path = os.path.join(BUILD_DIR, "serve_int8_scales.json")
+    if os.path.exists(path):
+        os.remove(path)
+    kw = dict(quant8="static", int8_scales=path)
+    first = make_facade(paths, **kw)
+    try:
+        t0 = time.perf_counter()
+        got = first.detect_batch(frames)
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - t0
+        if not os.path.exists(path) or first._needs_calibration:
+            raise AssertionError("the first batch did not calibrate")
+        saved = load_scales(path)
+    finally:
+        first.close()
+    second = make_facade(paths, **kw)
+    try:
+        if second._needs_calibration or second.pipeline.quant8 != "static":
+            raise AssertionError("the second facade did not load the scales")
+        second.warmup(FRAME_HW)
+        res, launches, chunks, groups, _, _ = capture_serving(second,
+                                                              frames)
+        check_served(res, N_FRAMES, second.score_thr)
+        same = all(np.array_equal(a[k], b[k]) for a, b in zip(res, got)
+                   for k in ("boxes", "scores", "labels"))
+        if not same:
+            raise AssertionError("the facade that loaded the scales "
+                                 "detects otherwise than the one that "
+                                 "saved them")
+        if launches["gn"] != 40 * len(groups):
+            raise AssertionError(f"GN kernel launched {launches['gn']} "
+                                 f"times for {len(groups)} groups")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ips = batch_img_per_s(second, frames)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        second.close()
+    # B3 at the head levels (strides 8..128) of the buckets used, at the
+    # group's batch
+    _, gamma, beta = gn_affine()
+    levels = []
+    for hw, b in sorted({(g[3], int(g[1].shape[0])) for g in groups}):
+        for lv in (hw // 8, hw // 16, hw // 32, hw // 64, hw // 128):
+            acc, deq = gn_acc_inputs(b, lv, lv + 3)
+            c = check_codes(gn_relu_quant_acc(acc, deq, gamma, beta,
+                                              GN_S_OUT),
+                            gn_relu_quant_acc_plain(acc, deq, gamma, beta,
+                                                    GN_S_OUT),
+                            f"serve level {lv} of {hw}")
+            levels.append({"bucket": hw, "batch": b, "hw": lv, **c})
+            del acc
+    ladder = serve_int8_ladder(frames, paths, path)
+    out = {"launches": launches, "groups": len(groups),
+           "buckets": sorted({g[3] for g in groups}),
+           "scales": [len(s) for s in saved], "calibrate_batch_s": calib_s,
+           "same_detections_after_reload": same, "gn_levels": levels,
+           "img_per_s_int8": ips,
+           "img_per_s_bf16_fuse_global": bf16["img_per_s_fuse_global"],
+           "peak_mem_bytes": peak, "ladder": ladder}
+    log("serve_int8", **out)
+    return out
+
+
+def serve_int8_ladder(frames, paths, scales) -> dict:
+    """The static-int8 facade on the saved scales with its ladder cut to
+    LADDER: serve_run's checks, B3 launched 40 times per stage-2 group,
+    and B3 on the inputs the path gave it (the first launch at each
+    level, captured) within +-1 code of its plain version, timed with
+    phase 4's bound (the int32 read and the int8 write)."""
+    from glsdet_tpu_torch.ops import quant_static
+    from glsdet_tpu_torch.ops.gn_kernel import gn_relu_quant_acc_plain
+
+    facade = make_facade(paths, buckets=LADDER, quant8="static",
+                         int8_scales=scales)
+    captured, inner = {}, quant_static.gn_relu_quant_acc
+
+    def gn(acc, deq, gamma, beta, s_out, **kw):
+        if tuple(acc.shape) not in captured:
+            captured[tuple(acc.shape)] = (acc.clone(), deq, gamma, beta,
+                                          s_out, kw)
+        return inner(acc, deq, gamma, beta, s_out, **kw)
+
+    quant_static.gn_relu_quant_acc = gn
+    try:
+        if facade._needs_calibration:
+            raise AssertionError("the ladder facade did not load the scales")
+        run, groups, _, _ = serve_run(facade, frames)
+    finally:
+        quant_static.gn_relu_quant_acc = inner
+        facade.close()
+    if run["launches"]["gn"] != 40 * run["groups"]:
+        raise AssertionError(f"GN kernel launched {run['launches']['gn']} "
+                             f"times for {run['groups']} groups")
+    del groups
+    levels = []
+    for shape, (acc, deq, gamma, beta, s_out, kw) in sorted(
+            captured.items()):
+        args = (acc, deq, gamma, beta, s_out)
+        c = check_codes(inner(*args, **kw),
+                        gn_relu_quant_acc_plain(*args, kw["groups"],
+                                                kw["eps"], kw["dtype"]),
+                        f"ladder input {shape}")
+        t = {"shape": list(shape), **c,
+             "ms": cuda_ms(lambda: inner(*args, **kw)),
+             **bound(5 * acc.numel(), 12 * acc.numel(), PEAK_F32)}
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        levels.append(t)
+    del captured
+    return {**run, "ladder": LADDER, "gn_path_inputs": levels}
+
+
+def phase_detector(frames, paths) -> None:
+    """Detector("coarse_det") on 4 frames: B2 launches, detections well
+    formed (module docstring, phase 16)."""
+    from glsdet_tpu_torch.apis import Detector
+
+    det = Detector("coarse_det", paths[0], score_thr=1e-4, device=DEVICE)
+    det.detect_batch(frames[:4])
+    torch.cuda.synchronize()
+    reset_launches()
+    res = det.detect_batch(frames[:4])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches["nms"] < 1:
+        raise AssertionError(f"Detector: no NMS launch: {launches}")
+    n = check_served(res, 4, det.score_thr)
+    if n == 0:
+        raise AssertionError("Detector: no detections")
+    log("detector", frames=4, launches=launches, detections=n,
+        img_per_s=batch_img_per_s(det, frames[:4]))
+
+
 def main() -> None:
     # float32 products of the plain versions stay float32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1252,20 +2024,36 @@ def main() -> None:
     finally:
         pipe.close()
     phase_dynamic(dev_frames)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_seeded_models(tmp)
+        serve = phase_serve(frames, dev_frames, paths)
+        ladder = phase_serve_ladder(frames, paths)
+        serve8 = phase_serve_int8(frames, paths, serve)
+        phase_detector(frames, paths)
     launches = bf16["launches"]
+    sk = serve["kernels"]
     print(json.dumps({"kernels": [
         {"name": "nms_sorted", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/nms.cu",
          "replaces": "glsdet_tpu/ops/pallas_nms.py:91",
-         "launches": launches["nms"], **nms},
+         "launches": launches["nms"], **nms,
+         "serve_launches": serve["launches"]["nms"],
+         "serve_fusion_ms": sum(t["ms"] for t in sk["fusion_nms"]),
+         "serve_fusion_bound_ms": sum(t["bound_ms"]
+                                      for t in sk["fusion_nms"])},
         {"name": "paint_mosaic", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/paint.cu",
          "replaces": "glsdet_tpu/ufp/pallas_paint.py:368",
-         "launches": launches["paint"], **paint},
+         "launches": launches["paint"], **paint,
+         "serve_launches": serve["launches"]["paint"],
+         "serve_ms": {f"{t['hw']}x{t['batch']}": t["ms"]
+                      for t in sk["paint"] + ladder["kernels"]["paint"]}},
         {"name": "gn_relu_quant", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/gn_quant.cu",
          "replaces": "glsdet_tpu/ops/pallas_gn.py:173",
-         "launches": int8["launches"]["gn"], **gn},
+         "launches": int8["launches"]["gn"], **gn,
+         "serve_int8_launches": serve8["launches"]["gn"],
+         "serve_int8_ladder_launches": serve8["ladder"]["launches"]["gn"]},
         {"name": "fused_bottleneck", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/bottleneck.cu",
          "replaces": "glsdet_tpu/ops/pallas_bottleneck.py:212",

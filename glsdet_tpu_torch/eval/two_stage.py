@@ -2,10 +2,18 @@
 ``glsdet_tpu.eval.two_stage.TwoStagePipeline``.
 
 Per frame: coarse YOLOX on the resized frame -> decode + NMS -> UFP
-packing on the host (C++, bucket-fit, a thread pool across frames) ->
-mosaic painting and normalizing (one CUDA kernel launch per bucket group)
--> MP-Det on the mosaic -> GFL decode + NMS -> chip unmap + IoF gate +
-class-wise NMS.  The preprocessing chains are ``eval/preprocess.py``.
+packing on the host (C++, a thread pool across frames) -> mosaic painting
+and normalizing (one CUDA kernel launch per bucket group) -> MP-Det on
+the mosaic -> GFL decode + NMS -> chip unmap + IoF gate + class-wise NMS
+-> with ``fuse_global``, global-local fusion of each frame's mosaic set
+with its coarse set (one more class-wise NMS).  The preprocessing chains
+are ``eval/preprocess.py``.
+
+Packing, as in the JAX package: ``pack_mode="square"`` (the default: the
+reference's near-square layout, bucketed afterwards) or ``"bucket-fit"``
+(packed at the ladder's widths); ``bucket_policy="image"`` (each frame's
+smallest covering bucket) or ``"chunk-max"`` (a chunk's mosaics all at
+its largest bucket, one stage-2 group).
 
 On the card the models run in bfloat16 with cuDNN convolutions, and both
 stages run in ``torch.inference_mode()``.  On the CPU (the parity tests)
@@ -23,8 +31,8 @@ fused kernel (``csrc/bottleneck.cu``).  The pipeline's cast of the model
 to bfloat16 leaves the folded biases in float32.  Fused serving is float
 only: a wrapped MP-Det with ``quant8`` raises.
 
-Left out for now (see ROADMAP.md): global-local fusion, multi-device round
-robin, the scan-width grouping and the square packing mode.
+Left out for now (see ROADMAP.md): multi-device round robin, the
+scan-width grouping and ``cost_analysis``.
 """
 
 from __future__ import annotations
@@ -36,10 +44,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from glsdet_tpu_torch.eval.fusion import fuse_detections_batch
 from glsdet_tpu_torch.eval.postprocess import (gfl_postprocess,
                                                yolox_postprocess)
 from glsdet_tpu_torch.eval.preprocess import coarse_inputs, norm_constants
-from glsdet_tpu_torch.native import unified_foreground_packing_rows_fit
+from glsdet_tpu_torch.models.build import resolve_device
+from glsdet_tpu_torch.native import (unified_foreground_packing_rows,
+                                     unified_foreground_packing_rows_fit)
 from glsdet_tpu_torch.ops.fused_infer import FusedBottleneck
 from glsdet_tpu_torch.ops.nms import NEG_INF, batched_nms, topk_stable
 from glsdet_tpu_torch.ops.quant import quantize_dynamic
@@ -78,6 +89,51 @@ def unpack_detections(packed: np.ndarray) -> dict:
             "valid": packed[..., 6] > 0.5}
 
 
+def _scale_packed(packed: np.ndarray, sx: float, sy: float) -> np.ndarray:
+    """Packed detections (..., K, 7) with their box columns scaled from
+    the coarse input to frame coordinates (a copy, on the host)."""
+    out = np.array(packed, np.float32, copy=True)
+    out[..., :4] *= np.array([sx, sy, sx, sy], np.float32)
+    return out
+
+
+def _coarse_row_dets(row7: np.ndarray, sx: float, sy: float) -> dict:
+    """One frame's coarse detections as a result dict in frame
+    coordinates: what ``fuse_global`` serves for a frame whose UFP
+    packing found no foreground region."""
+    d = unpack_detections(_scale_packed(row7, sx, sy))
+    v = d["valid"]
+    return {"boxes": d["boxes"][v], "scores": d["scores"][v],
+            "labels": d["labels"][v]}
+
+
+def _fuse_packed(gdets, boxes, scores, labels, valid,
+                 iou_thr: float = 0.65, max_out: int = 500):
+    """Global-local fusion of a stage-2 group: ``gdets`` (b, Kg, 7), the
+    frames' packed coarse detections in frame coordinates, and the
+    group's unmapped detections (b, K, ...) -> one class-wise NMS (offset
+    0) over the Kg + K rows and the top ``max_out``."""
+    g = {"boxes": gdets[..., :4], "scores": gdets[..., 4],
+         "labels": gdets[..., 5].to(labels.dtype),
+         "valid": gdets[..., 6] > 0.5}
+    d = fuse_detections_batch(g, {"boxes": boxes, "scores": scores,
+                                  "labels": labels, "valid": valid},
+                              iou_thr, max_out)
+    return d["boxes"], d["scores"], d["labels"], d["valid"]
+
+
+def _collapse_jobs_to_max_bucket(jobs: Dict[int, list]) -> Dict[int, list]:
+    """``bucket_policy="chunk-max"``: every mosaic job of a chunk runs at
+    the chunk's largest bucket, as one stage-2 group.  Results are keyed
+    by frame index, so the order within the group is free."""
+    if len(jobs) <= 1:
+        return jobs
+    merged: List[tuple] = []
+    for bk in sorted(jobs):
+        merged.extend(jobs[bk])
+    return {max(jobs): merged}
+
+
 def _unmap_and_nms(det_boxes, det_scores, det_labels, det_valid, regions,
                    iou_thr: float = 0.6, max_out: int = 500):
     """Chip unmap + IoF gate + class-wise NMS, batched over (B, ...).
@@ -99,12 +155,13 @@ def _unmap_and_nms(det_boxes, det_scores, det_labels, det_valid, regions,
 class _BatchHandle:
     """In-flight batch of the submit / dispatch / collect protocol."""
 
-    __slots__ = ("shapes", "chunks", "pending", "dispatched")
+    __slots__ = ("shapes", "chunks", "pending", "fallbacks", "dispatched")
 
     def __init__(self, shapes, chunks):
         self.shapes = shapes        # per-frame (h0, w0)
         self.chunks = chunks        # (frame indices, device stack, coarse)
         self.pending = []           # (frame index, stage-2 result, slot)
+        self.fallbacks = []         # (frame index, coarse dets): no regions
         self.dispatched = False
 
 
@@ -125,6 +182,12 @@ class TwoStagePipeline:
     copies (``coarse_net``/``mp_net``) and their int8 weights are built
     once, here, from the float32 weights; the float models stay, in
     ``coarse``/``mp``, for calibration.
+
+    ``fuse_global``: fuse each frame's mosaic detections with its coarse
+    ones (class-wise NMS at ``fusion_nms_thr``, offset 0); a frame with
+    no foreground region then returns its coarse set.  ``pack_mode`` and
+    ``bucket_policy`` as in the module docstring; both raise the JAX
+    package's ``ValueError`` on other values.
     """
 
     def __init__(self, coarse_model: torch.nn.Module,
@@ -136,20 +199,24 @@ class TwoStagePipeline:
                  chip_score_thr: float = 0.01, final_nms_thr: float = 0.6,
                  max_coarse_dets: int = 200, max_chip_dets: int = 500,
                  max_batch: int = 4, pack_threads: Optional[int] = None,
-                 quant8=False, act_scales=None, device="cuda"):
-        self.device = torch.device(device)
+                 quant8=False, act_scales=None, fuse_global: bool = False,
+                 fusion_nms_thr: float = 0.65, bucket_policy: str = "image",
+                 pack_mode: str = "square", device="cuda"):
+        self.device = resolve_device(device)
         if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("device='cuda' but no GPU is available")
             # float32 math stays float32 (the proxy-score products and
             # the decode); the bfloat16 convolutions are unaffected
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
             self.dtype = torch.bfloat16
-        elif self.device.type == "cpu":
-            self.dtype = torch.float32
         else:
-            raise ValueError(f"device {device!r}: expected cuda or cpu")
+            self.dtype = torch.float32
+        if bucket_policy not in ("image", "chunk-max"):
+            raise ValueError(f"bucket_policy {bucket_policy!r}: expected "
+                             "'image' or 'chunk-max'")
+        if pack_mode not in ("square", "bucket-fit"):
+            raise ValueError(f"pack_mode {pack_mode!r}: expected "
+                             "'square' or 'bucket-fit'")
         if quant8 not in (False, True, "static"):
             raise ValueError(f"quant8 {quant8!r}: expected False, True or "
                              "'static'")
@@ -183,6 +250,10 @@ class TwoStagePipeline:
         self.max_coarse = max_coarse_dets
         self.max_chip = max_chip_dets
         self.max_batch = max(1, int(max_batch))
+        self.fuse_global = bool(fuse_global)
+        self.fusion_nms_thr = fusion_nms_thr
+        self.bucket_policy = bucket_policy
+        self.pack_mode = pack_mode
         # made here, so that the stages copy nothing to the card
         self._mean, self._inv_std = norm_constants(self.dtype, self.device)
         # host UFP packing pool: frames pack independently and the C++
@@ -217,12 +288,16 @@ class TwoStagePipeline:
 
     @torch.inference_mode()
     def stage2_packed(self, imgs: torch.Tensor, idx: torch.Tensor,
-                      regions: torch.Tensor, hw: int) -> torch.Tensor:
-        """Paint, MP-Det, decode + NMS, unmap + NMS for one bucket group.
+                      regions: torch.Tensor, hw: int,
+                      gdets: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Paint, MP-Det, decode + NMS, unmap + NMS for one bucket group,
+        then, given ``gdets``, global-local fusion.
 
         imgs (N, H, W, 3) uint8 frames; idx (b,) int64 frame of each
-        mosaic; regions (b, R, 7) float32 rows.  Returns (b,
-        max_chip_dets, 7) packed detections in frame coordinates."""
+        mosaic; regions (b, R, 7) float32 rows; gdets (b,
+        max_coarse_dets, 7) the mosaics' frames' packed coarse detections
+        in frame coordinates.  Returns (b, max_chip_dets, 7) packed
+        detections in frame coordinates."""
         # one painter launch writes the normalized NHWC input (on the
         # CPU: mosaic_inputs_plain); MP-Det reads it as channels-last NCHW
         x = paint_mosaic_inputs_cuda(imgs, idx, regions, hw, self._mean,
@@ -233,9 +308,13 @@ class TwoStagePipeline:
         d = gfl_postprocess(cls, reg, (hw, hw),
                             score_thr=self.chip_score_thr,
                             max_dets=self.max_chip)
-        return pack_detections(*_unmap_and_nms(
-            d["boxes"], d["scores"], d["labels"], d["valid"], regions,
-            iou_thr=self.final_nms_thr, max_out=self.max_chip))
+        out = _unmap_and_nms(d["boxes"], d["scores"], d["labels"],
+                             d["valid"], regions, iou_thr=self.final_nms_thr,
+                             max_out=self.max_chip)
+        if gdets is not None:
+            out = _fuse_packed(gdets, *out, iou_thr=self.fusion_nms_thr,
+                               max_out=self.max_chip)
+        return pack_detections(*out)
 
     def capture_inputs(self, images: Sequence[np.ndarray]):
         """One ``run_batch`` over ``images``, returning the model inputs
@@ -301,7 +380,9 @@ class TwoStagePipeline:
         return _BatchHandle([(h0, w0)] * b, [chunk])
 
     def _pack_chunk(self, shapes, part, dets) -> Dict[int, list]:
-        """UFP-pack a chunk's frames on the host; mosaic jobs by bucket."""
+        """UFP-pack a chunk's frames on the host; mosaic jobs
+        ``(frame index, chunk row, rows)`` by bucket.  A frame with no
+        foreground region has no job."""
         ch, cw = self.coarse_hw
 
         def pack_one(item):
@@ -311,9 +392,13 @@ class TwoStagePipeline:
             boxes = (dets["boxes"][row]
                      * np.array([sx, sy, sx, sy], np.float32))[
                          dets["valid"][row]]
-            return unified_foreground_packing_rows_fit(
-                boxes, self.ufp_scale, (w0, h0), self.max_regions,
-                self.buckets)
+            if self.pack_mode == "bucket-fit":
+                return unified_foreground_packing_rows_fit(
+                    boxes, self.ufp_scale, (w0, h0), self.max_regions,
+                    self.buckets)
+            return unified_foreground_packing_rows(
+                boxes, self.ufp_scale, (w0, h0),
+                self.max_regions) + (None,)
 
         items = list(enumerate(part))
         packs = (list(self._pack_pool.map(pack_one, items))
@@ -326,20 +411,40 @@ class TwoStagePipeline:
             if bucket is None:
                 bucket = pick_bucket(mh, mw, self.buckets)
             jobs.setdefault(bucket, []).append((i, row, rows))
+        if self.bucket_policy == "chunk-max":
+            jobs = _collapse_jobs_to_max_bucket(jobs)
         return jobs
 
     def dispatch_mosaics(self, h: _BatchHandle) -> None:
         """Phase 2: read each chunk's coarse detections (one transfer),
-        pack on the host, run the stage-2 group of every bucket."""
+        pack on the host, run the stage-2 group of every bucket.  With
+        ``fuse_global`` the group's coarse sets, scaled to frame
+        coordinates here, go up with its rows, and a frame without
+        regions takes its coarse set as its result."""
+        ch, cw = self.coarse_hw
         for part, dev, packed in h.chunks:
-            dets = unpack_detections(packed.cpu().numpy())
-            jobs = self._pack_chunk(h.shapes, part, dets)
+            packed_np = packed.cpu().numpy()
+            jobs = self._pack_chunk(h.shapes, part,
+                                    unpack_detections(packed_np))
+            if self.fuse_global:
+                in_jobs = {j[0] for job_list in jobs.values()
+                           for j in job_list}
+                for row, i in enumerate(part):
+                    if i not in in_jobs:
+                        h0, w0 = h.shapes[i]
+                        h.fallbacks.append((i, _coarse_row_dets(
+                            packed_np[row], w0 / cw, h0 / ch)))
             for bucket, job_list in jobs.items():
-                idx = torch.tensor([j[1] for j in job_list],
-                                   dtype=torch.int64).to(self.device)
+                rows = [j[1] for j in job_list]
+                idx = torch.tensor(rows, dtype=torch.int64).to(self.device)
                 regs = torch.from_numpy(
                     np.stack([j[2] for j in job_list])).to(self.device)
-                out = self.stage2_packed(dev, idx, regs, bucket)
+                gdets = None
+                if self.fuse_global:
+                    h0, w0 = h.shapes[part[0]]
+                    gdets = torch.from_numpy(_scale_packed(
+                        packed_np[rows], w0 / cw, h0 / ch)).to(self.device)
+                out = self.stage2_packed(dev, idx, regs, bucket, gdets)
                 h.pending.extend((j[0], out, slot)
                                  for slot, j in enumerate(job_list))
         h.dispatched = True
@@ -352,6 +457,8 @@ class TwoStagePipeline:
                  "scores": np.zeros((0,), np.float32),
                  "labels": np.zeros((0,), np.int64)}
         results: List[dict] = [empty] * len(h.shapes)
+        for i, det in h.fallbacks:
+            results[i] = det
         fetched: Dict[int, dict] = {}
         for i, out, slot in h.pending:
             if id(out) not in fetched:
@@ -379,10 +486,10 @@ class TwoStagePipeline:
     def warmup(self, image_hw: Tuple[int, int]) -> None:
         """Run both stages on blank inputs, per bucket, at batch 1 and
         ``max_batch`` (the batch sizes ``run_batch`` hits, as the JAX
-        package's warmup): loads the kernels library (building it on
-        first use), initialises cuDNN and the CUDA context, and grows the
-        caching allocator to a full batch, so the first served batch pays
-        none of it."""
+        package's warmup), the fusion included with ``fuse_global``:
+        loads the kernels library (building it on first use), initialises
+        cuDNN and the CUDA context, and grows the caching allocator to a
+        full batch, so the first served batch pays none of it."""
         regs = torch.from_numpy(regions_to_array([], self.max_regions))
         for b in sorted({1, self.max_batch}):
             frames = torch.zeros((b, *image_hw, 3), dtype=torch.uint8,
@@ -390,7 +497,9 @@ class TwoStagePipeline:
             self.coarse_packed(frames)
             idx = torch.zeros((b,), dtype=torch.int64, device=self.device)
             regs_b = regs.expand(b, -1, -1).contiguous().to(self.device)
+            gdets = (torch.zeros((b, self.max_coarse, 7), device=self.device)
+                     if self.fuse_global else None)
             for bucket in self.buckets:
-                self.stage2_packed(frames, idx, regs_b, bucket)
+                self.stage2_packed(frames, idx, regs_b, bucket, gdets)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -1,0 +1,81 @@
+"""``cv2.resize(img, (w, h))`` (INTER_LINEAR on uint8) in integer torch ops.
+
+``apis.Detector`` resizes every frame as the JAX package's does, with
+OpenCV; the GPU machine has no OpenCV, so this module repeats its
+fixed-point arithmetic on the frame's device:
+
+- per output column and row, OpenCV's float32 source coordinate
+  ``f = (d + 0.5) * scale - 0.5``, its floor ``s`` and the two tap
+  weights ``round((1 - (f - s)) * 2048)`` and ``round((f - s) * 2048)``
+  (columns clamp ``f`` to the edge pixel, rows only clamp the row index);
+- the horizontal pass in int32, ``S[s] * a0 + S[s + 1] * a1``;
+- the vertical pass as OpenCV's SIMD kernel computes it,
+  ``(((b0 * (H0 >> 4)) >> 16) + ((b1 * (H1 >> 4)) >> 16) + 2) >> 2``,
+  saturated to uint8;
+- an exact 2x reduction in both axes is OpenCV's area average
+  ``(a + b + c + d + 2) >> 2``, as ``cv2.resize`` switches to it.
+
+``tests/test_torch_apis.py`` holds it equal to ``cv2.resize`` value for
+value at downscales (765x1360 -> 640x640, 96x160 -> 64x64), an upscale,
+a mixed one, the 2x reduction and the identity.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+COEF_BITS = 11
+COEF_SCALE = 1 << COEF_BITS
+
+
+def _taps(src: int, dst: int, clamp_weights: bool):
+    """Source indices (s, s + 1), clamped into the image, and the
+    fixed-point weights of each output position along one axis."""
+    scale = 1.0 / (dst / src)             # OpenCV: 1 / inv_scale
+    f = ((np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5).astype(
+        np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = (f - s.astype(np.float32)).astype(np.float32)
+    if clamp_weights:
+        lo, hi = s < 0, s >= src - 1
+        f[lo | hi] = 0.0
+        s[lo] = 0
+        s[hi] = src - 1
+    w0 = np.rint((np.float32(1.0) - f) * np.float32(COEF_SCALE))
+    w1 = np.rint(f * np.float32(COEF_SCALE))
+    return (np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1),
+            w0.astype(np.int32), w1.astype(np.int32))
+
+
+def resize_linear_u8(img: torch.Tensor, out_hw: Tuple[int, int]
+                     ) -> torch.Tensor:
+    """(H, W, C) uint8 -> (h, w, C) uint8, as ``cv2.resize(img, (w, h))``
+    computes it (module docstring), on ``img``'s device."""
+    if img.dtype != torch.uint8 or img.dim() != 3:
+        raise ValueError(f"expected an (H, W, C) uint8 image, got "
+                         f"{img.dtype} {tuple(img.shape)}")
+    src_h, src_w = img.shape[:2]
+    h, w = int(out_hw[0]), int(out_hw[1])
+    x = img.to(torch.int32)
+    if src_h == 2 * h and src_w == 2 * w:
+        return ((x[0::2, 0::2] + x[0::2, 1::2] + x[1::2, 0::2]
+                 + x[1::2, 1::2] + 2) >> 2).to(torch.uint8)
+    dev = img.device
+
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+
+    x0, x1, a0, a1 = (put(a) for a in _taps(src_w, w, True))
+    y0, y1, b0, b1 = (put(a) for a in _taps(src_h, h, False))
+
+    def horizontal(rows):
+        return rows[:, x0] * a0[:, None] + rows[:, x1] * a1[:, None]
+
+    h0 = horizontal(x[y0]) >> 4
+    h1 = horizontal(x[y1]) >> 4
+    out = (((b0[:, None, None] * h0) >> 16)
+           + ((b1[:, None, None] * h1) >> 16) + 2) >> 2
+    return out.clamp(0, 255).to(torch.uint8)

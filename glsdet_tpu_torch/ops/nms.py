@@ -81,6 +81,35 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
     return keep, order
 
 
+def soft_nms(boxes: torch.Tensor, scores: torch.Tensor,
+             iou_threshold: float = 0.3, sigma: float = 0.5,
+             score_threshold: float = 0.001,
+             method: str = "gaussian") -> torch.Tensor:
+    """Soft-NMS over one image's (K, 4) boxes and (K,) scores, gaussian
+    or linear decay: walking the score order, every later box's score is
+    multiplied by its decay against box i, while box i's (already
+    decayed) score is at least ``score_threshold``.  Returns the
+    re-weighted scores in the input order; the caller filters them.
+    A plain function: no kernel stands behind it (the JAX package's is an
+    XLA loop too)."""
+    if method not in ("gaussian", "linear"):
+        raise ValueError(f"method {method!r}: expected 'gaussian' or "
+                         "'linear'")
+    k = scores.shape[0]
+    s, order = torch.sort(scores, descending=True, stable=True)
+    iou_mat = pairwise_iou(boxes[order], boxes[order])
+    if method == "gaussian":
+        decay = torch.exp(-(iou_mat ** 2) / sigma)
+    else:
+        decay = torch.where(iou_mat > iou_threshold, 1.0 - iou_mat, 1.0)
+    later = torch.ones(k, k, dtype=torch.bool,
+                       device=scores.device).triu(diagonal=1)
+    decay = torch.where(later, decay, 1.0)
+    for i in range(k):
+        s = s * torch.where(s[i] >= score_threshold, decay[i], 1.0)
+    return torch.zeros_like(scores).scatter(0, order, s)
+
+
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x[b, idx[b]] for (B, N, ...) x and (B, k) idx."""
     idx = idx.reshape(*idx.shape, *([1] * (x.dim() - 2)))

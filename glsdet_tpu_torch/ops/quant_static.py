@@ -265,7 +265,8 @@ class QConvNormAct(Int8Module):
         super().__init__()
         conv = m.conv
         bias = (conv.bias.float() if conv.bias is not None
-                else torch.zeros(conv.out_channels))
+                else torch.zeros(conv.out_channels,
+                                 device=conv.weight.device))
         self.norm = "bn" if isinstance(m, ResNetConv) else m.norm
         if self.norm == "bn":
             w, bias = _fold_bn(conv, m.bn, bias, per_module=True)

@@ -36,6 +36,11 @@ grid whose block count is no multiple of the cluster size, H and W off
 the tile, images with fewer tiles than a cluster, batch 1 at the four
 ResNet-50 stage shapes of the 1152 bucket, and two launches that must
 agree bit for bit.
+
+The serving facades' shapes: B2 at the global-local fusion's (16, 700),
+offset 0, 0.65; the painter's path entry at the ladder's ends, 768² and
+2688²; the GN kernel at every head level of the 1280-2688 buckets that
+square packing can pick; and the no-sync test with ``fuse_global``.
 """
 
 import functools
@@ -115,12 +120,13 @@ def test_nms_kernel_none_suppressed_and_all_invalid(card, k):
     assert not nms_kernel.nms_sorted_cuda(boxes, valid & False, 0.1).any()
 
 
-# (B, K, offset, threshold) of the three launches of one bf16 and one
+# (B, K, offset, threshold) of the launches of one bf16 and one
 # static-int8 run_device_batch at the smoke's fixture (chip_smoke.py's
 # nms_path phases log them: the coarse YOLOX NMS, the chip GFL NMS and the
-# unmapped class-wise NMS)
+# unmapped class-wise NMS), and the global-local fusion's class-wise NMS
+# over 200 coarse + 500 local rows (the serve phase)
 PATH_NMS_SHAPES = [(16, 800, 0.0, 0.65), (16, 2000, 0.0, 0.6),
-                   (16, 500, 1.0, 0.6)]
+                   (16, 500, 1.0, 0.6), (16, 700, 0.0, 0.65)]
 
 
 @pytest.mark.parametrize("b,k,offset,thr", PATH_NMS_SHAPES)
@@ -247,6 +253,36 @@ def test_paint_inputs_kernel_equals_the_plain_chain(card, hw, b, r):
     assert paint_kernel.launches == before + 1
     assert got.shape == (b, hw, hw, 3) and got.dtype == torch.bfloat16
     assert got.is_contiguous()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("hw", [768, 2688])
+def test_paint_inputs_kernel_at_the_ladder_ends(card, hw):
+    """The path entry at the smallest and the largest bucket of the
+    serving ladder (square packing picks any of them), on 765x1360 frames
+    with 64 chips per mosaic of up to 300 source pixels upscaled x1, x2
+    or x4, over the canvas and the frame."""
+    rs = np.random.RandomState(hw)
+    frames = torch.from_numpy(
+        rs.randint(0, 256, (3, 765, 1360, 3), np.uint8)).to(card)
+    rows = np.zeros((4, 64, 7), np.float32)
+    for s in range(4):
+        for i in range(64):
+            f = rs.choice([1, 2, 4])
+            w, h = rs.randint(1, 300 // f + 1, 2)
+            rows[s, i] = [rs.randint(-2, 1360 - w + 3),
+                          rs.randint(-2, 765 - h + 3), w, h,
+                          rs.randint(-8, hw), rs.randint(-8, hw), f]
+    rows = torch.from_numpy(rows).to(card)
+    idx = torch.tensor([2, 0, 1, 2], device=card)
+    mean, inv_std = norm_constants(torch.bfloat16, card)
+    before = paint_kernel.launches
+    got = paint_kernel.paint_mosaic_inputs_cuda(frames, idx, rows, hw, mean,
+                                                inv_std)
+    want = mosaic_inputs_plain(frames, idx, rows, hw, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert paint_kernel.launches == before + 1
+    assert got.shape == (4, hw, hw, 3)
     assert torch.equal(got, want)
 
 
@@ -391,6 +427,23 @@ def test_gn_acc_kernel_matches_plain_at_every_level(card, hw):
         assert plan["regime"] == "resident" and plan["cluster"] <= 8
     elif plan["regime"] == "resident":
         assert plan["cluster"] == 16
+
+
+# the head levels (strides 8-128) of the buckets square packing picks
+# beyond 1024/1152: 1280, 1536, 1792 and 2688
+SQUARE_LEVELS = [160, 80, 40, 20, 10, 192, 96, 48, 24, 12, 224, 112, 56, 28,
+                 14, 336, 168, 84, 42, 21]
+
+
+@pytest.mark.parametrize("hw", SQUARE_LEVELS)
+def test_gn_acc_kernel_at_the_larger_buckets_levels(card, hw):
+    """Every level of the larger buckets at the serving batch of 8, in the
+    regime the card grants it; levels above 144 are streamed."""
+    acc, deq, gamma, beta = _acc_inputs(card, 8, hw, hw, 256, hw + 7)
+    _acc_check(acc, deq, gamma, beta, 0.03)
+    plan = gn_kernel.plan(torch.int32, 8, hw, hw, 256)
+    if hw > 144:
+        assert plan["regime"] == "streaming"
 
 
 @pytest.mark.parametrize("c", [8, 64, 256, 2048])
@@ -722,7 +775,8 @@ def test_fused_resnet_launches_once_per_eligible_block(card, fused_resnet):
 def _small_pipeline(card, mode):
     """A small two-stage pipeline on the card: YOLOX-nano at 64x64,
     MP-Det ResNet-18, buckets 128/256, seeded weights; bf16, static int8
-    (calibrated by a bf16 pipeline) or fused."""
+    (calibrated by a bf16 pipeline), fused, or bf16 with global-local
+    fusion."""
     from glsdet_tpu_torch.eval.two_stage import TwoStagePipeline
     from glsdet_tpu_torch.models import YOLOXDetector
 
@@ -736,6 +790,8 @@ def _small_pipeline(card, mode):
     if mode == "fused":
         coarse, mp = models()
         return TwoStagePipeline(coarse, wrap_model_fused(mp), (64, 64), **kw)
+    if mode == "fuse_global":
+        return TwoStagePipeline(*models(), (64, 64), fuse_global=True, **kw)
     pipe = TwoStagePipeline(*models(), (64, 64), **kw)
     if mode == "bf16":
         return pipe
@@ -747,13 +803,16 @@ def _small_pipeline(card, mode):
                             act_scales=scales, **kw)
 
 
-@pytest.mark.parametrize("mode", ["bf16", "static_int8", "fused"])
+@pytest.mark.parametrize("mode", ["bf16", "static_int8", "fused",
+                                  "fuse_global"])
 def test_serving_stages_do_not_sync_with_the_host(card, mode):
-    """coarse_packed and stage2_packed under set_sync_debug_mode("error"):
-    no op inside them may wait for the card.  The transfers between the
-    stages (the coarse read-back, the upload of the rows) sync by design
-    and stay outside."""
-    from glsdet_tpu_torch.eval.two_stage import unpack_detections
+    """coarse_packed and stage2_packed (with the fusion's coarse sets under
+    fuse_global) under set_sync_debug_mode("error"): no op inside them may
+    wait for the card.  The transfers between the stages (the coarse
+    read-back, the upload of the rows and coarse sets) sync by design and
+    stay outside."""
+    from glsdet_tpu_torch.eval.two_stage import (_scale_packed,
+                                                 unpack_detections)
 
     pipe = _small_pipeline(card, mode)
     rs = np.random.RandomState(0)
@@ -767,20 +826,27 @@ def test_serving_stages_do_not_sync_with_the_host(card, mode):
             packed = pipe.coarse_packed(frames)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        dets = unpack_detections(packed.cpu().numpy())
+        packed_np = packed.cpu().numpy()
+        dets = unpack_detections(packed_np)
         jobs = pipe._pack_chunk([(96, 160)] * 4, list(range(4)), dets)
         assert jobs
         for bucket, job_list in jobs.items():
-            idx = torch.tensor([j[1] for j in job_list]).to(card)
+            rows = [j[1] for j in job_list]
+            idx = torch.tensor(rows).to(card)
             regs = torch.from_numpy(
                 np.stack([j[2] for j in job_list])).to(card)
-            before = paint_kernel.launches
+            gdets = (torch.from_numpy(_scale_packed(
+                packed_np[rows], 160 / 64, 96 / 64)).to(card)
+                if pipe.fuse_global else None)
+            before = (paint_kernel.launches, nms_kernel.launches)
             torch.cuda.set_sync_debug_mode("error")
             try:
-                out = pipe.stage2_packed(frames, idx, regs, bucket)
+                out = pipe.stage2_packed(frames, idx, regs, bucket, gdets)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
-            assert paint_kernel.launches == before + 1
+            # B2: the chips' decode, the unmapped chips and the fusion
+            assert (paint_kernel.launches, nms_kernel.launches) == (
+                before[0] + 1, before[1] + 2 + pipe.fuse_global)
             assert out.shape == (len(job_list), pipe.max_chip, 7)
             assert torch.isfinite(out).all()
     finally:

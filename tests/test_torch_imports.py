@@ -1,0 +1,47 @@
+"""The port imports neither JAX nor the JAX package.
+
+Every module of ``glsdet_tpu_torch`` is imported in a fresh interpreter
+where ``sys.modules["jax"]`` and ``sys.modules["glsdet_tpu"]`` are None,
+so any import of either (a jax-free module of the JAX package included)
+raises there."""
+
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+
+import glsdet_tpu_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = """
+import importlib, json, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["glsdet_tpu"] = None
+import glsdet_tpu_torch
+names = sorted(m.name for m in pkgutil.walk_packages(
+    glsdet_tpu_torch.__path__, "glsdet_tpu_torch."))
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and m.split(".")[0] in ("jax", "flax", "glsdet_tpu"))
+print(json.dumps([len(names), bad]))
+"""
+
+
+def test_every_port_module_imports_without_jax():
+    modules = [m.name for m in pkgutil.walk_packages(
+        glsdet_tpu_torch.__path__, "glsdet_tpu_torch.")]
+    # the serving facades and the carried-over host modules are among them
+    for name in ("glsdet_tpu_torch.apis", "glsdet_tpu_torch.serve",
+                 "glsdet_tpu_torch.config.core",
+                 "glsdet_tpu_torch.eval.fusion",
+                 "glsdet_tpu_torch.models.build"):
+        assert name in modules
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    n, bad = json.loads(out.stdout.splitlines()[-1])
+    assert bad == [] and n == len(modules), (n, bad)

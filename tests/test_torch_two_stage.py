@@ -56,7 +56,7 @@ def pipes():
     tpipe = TwoStagePipeline(
         load_flax(YOLOXDetector(10, "nano", generator=g), cvars),
         load_flax(MPDet(10, 18, generator=g), mvars), COARSE_HW,
-        pack_threads=1, device="cpu", **kw)
+        pack_mode="bucket-fit", pack_threads=1, device="cpu", **kw)
     yield jpipe, tpipe
     tpipe.close()
 

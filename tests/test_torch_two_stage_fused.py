@@ -63,7 +63,8 @@ def pipes():
     mp = wrap_model_fused(load_flax(MPDet(10, 50, generator=g), mvars))
     tpipe = TwoStagePipeline(
         load_flax(YOLOXDetector(10, "nano", generator=g), cvars), mp,
-        COARSE_HW, pack_threads=1, device="cpu", **kw)
+        COARSE_HW, pack_mode="bucket-fit", pack_threads=1, device="cpu",
+        **kw)
     yield jpipe, tpipe
     tpipe.close()
 

@@ -75,7 +75,8 @@ def setup():
         return TwoStagePipeline(
             load_flax(YOLOXDetector(10, "nano", generator=g), cvars),
             load_flax(MPDet(10, 18, generator=g), mvars), COARSE_HW,
-            pack_threads=1, device="cpu", **KW, **kw)
+            pack_mode="bucket-fit", pack_threads=1, device="cpu", **KW,
+            **kw)
 
     scales = jpipe().calibrate_int8([f.copy() for f in frames])
     return jpipe, tpipe, frames, scales

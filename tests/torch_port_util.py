@@ -9,12 +9,69 @@ and reach torch through ``utils/flax_import.py``.
 
 from __future__ import annotations
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from glsdet_tpu_torch.utils.flax_import import state_dict_from_flax
+
+
+def _share_cores() -> None:
+    """Under pytest-xdist every worker imports this module while it
+    collects, so this sets each worker's torch intra-op pool to its share
+    of the cores (at least 2).  By default each worker starts one thread
+    per core, and the oversubscribed, spinning pools made the port's CPU
+    runs several times slower (the heavy port test files took 488 s at 6
+    workers on 8 cores, 219 s with 2 threads each).  A run without
+    workers keeps torch's default."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    if workers > 1:
+        torch.set_num_threads(max(2, (os.cpu_count() or 1) // workers))
+
+
+_share_cores()
+
+
+# The facades' test configs: YOLOX-nano (``coarse_det``) at 64x64 and
+# MP-Det depth 18 (``mp_det_res50``), in float32 (the JAX default is
+# bfloat16), buckets (128, 256), coarse threshold 1e-4.
+COARSE_OPTS = {"model.phi": "nano", "model.dtype": "float32",
+               "data.img_hw": (64, 64), "eval.coarse_score_thr": 1e-4,
+               "eval.mosaic_buckets": (128, 256)}
+MP_OPTS = {"model.depth": 18, "model.dtype": "float32"}
+
+
+def jax_two_stage_facade(variables=None):
+    """The JAX package's ``TwoStageDetector`` at COARSE_OPTS / MP_OPTS
+    with its other defaults, its ``init_detector`` given ``variables``
+    (config name -> flax variables; none where the test only reads the
+    facade's ``_pipe_kwargs`` and ``_filter``)."""
+    import glsdet_tpu.apis as japis
+    from glsdet_tpu.config import apply_overrides, get_config
+    from glsdet_tpu.train.loop import build_model
+
+    def init_detector(config_name, checkpoint=None, use_ema=True,
+                      options=None):
+        cfg = apply_overrides(get_config(config_name), dict(options or {}))
+        return cfg, build_model(cfg), (variables or {}).get(config_name)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(japis, "init_detector", init_detector)
+        return japis.TwoStageDetector(
+            "coarse_det", None, "mp_det_res50", None,
+            coarse_options=COARSE_OPTS, mp_options=MP_OPTS)
+
+
+def pipe_kwargs(jdet) -> dict:
+    """The JAX facade's pipeline arguments without its weights and
+    devices, as the port takes them."""
+    return {k: (tuple(v) if isinstance(v, list) else v)
+            for k, v in jdet._pipe_kwargs.items()
+            if k not in ("coarse_vars", "mp_vars", "devices")}
 
 
 def flax_vars(module, x_nhwc: np.ndarray, seed: int = 0,
