@@ -130,7 +130,28 @@ Phases, in the order they run, each printing one line:
      (the first launch at each level, captured) within +-1 code of its
      plain version, timed;
  16. apis.Detector("coarse_det", score_thr=1e-4) on 4 frames: B2
-     launched, detections well formed, img/s.
+     launched, detections well formed, img/s;
+ 17. MP-Det training (train/steps.py; no kernel of its own: none of the
+     JAX package's Pallas kernels is on its path).  A small MP-Det (depth
+     18, 128x128, batch 2, feat_channels 64, 16 words) from one seeded
+     state, one step on the card and on the CPU, in float32 and float64:
+     the six losses within 1e-4 relative, parameters, BN statistics, EMA
+     and dictionary within 1e-5 of each leaf's max, the momentum buffers
+     too in float64 (reported in float32, where this fixture's backbone
+     gradients are ill-conditioned).  Then mp_det_res50 at full width
+     (1024x1024, batch 4, max_gt 300, bf16 autocast, remat on, seeded
+     weights, scripts/bench_train.py _mk_batch's recipe, beta on before
+     step 0): 2 warm-up and 10 timed steps (ms/step, img/s, peak memory,
+     the six losses of the first and last step), update_ot once after
+     step 5, timed alone: finite losses, the dictionary's pointers moved,
+     each class's marginals summing to 1, the EMA equal to the
+     ema_momentum formula on one leaf; one profiled step (device busy
+     time, idle share, launches, top ops) and the ATSS targets alone; one
+     step under torch.cuda.set_sync_debug_mode("error"); one step each
+     with remat on and off from one state (losses within 1e-3 relative,
+     BN statistics within 1e-3 of each leaf's max, both peak memories),
+     and in float32 (the total loss within 5e-2 relative of bf16's).
+     Printed as one {"train": ...} line.
 Then one JSON line of per-kernel results (each with its bound: the bytes
 it must move at 3.35 TB/s or its operations at the card's peak for their
 type, whichever is longer) and, last, the device line.  A kernel's ``ms``
@@ -1996,11 +2017,340 @@ def phase_detector(frames, paths) -> None:
         img_per_s=batch_img_per_s(det, frames[:4]))
 
 
+# ---------------------------------------------------------------------------
+# 17. MP-Det training
+
+
+TRAIN_PROXIES = (2, 3, 2, 5, 4, 8, 8, 4, 3, 3)
+TRAIN_HW, TRAIN_B, TRAIN_MAX_GT = (1024, 1024), 4, 300
+TRAIN_SPE = 1000             # steps per epoch of the 1x schedule
+LOSS_NAMES = ("loss", "loss_cls", "loss_bbox", "loss_dfl", "loss_emb",
+              "loss_op")
+
+
+def train_batch(rs, b, hw, max_gt, device):
+    """scripts/bench_train.py _mk_batch's recipe: uint8 frames, 5-19
+    boxes of 8-64 px per image (labels 0-9) drawn as for 20 slots, padded
+    to ``max_gt``."""
+    h, w = hw
+    images = rs.randint(0, 255, (b, h, w, 3)).astype(np.uint8)
+    n = rs.randint(5, 20, b)
+    boxes = np.zeros((b, max_gt, 4), np.float32)
+    labels = np.zeros((b, max_gt), np.int64)
+    labels[:, :20] = rs.randint(0, 10, (b, 20))
+    valid = np.zeros((b, max_gt), bool)
+    for i in range(b):
+        x1 = rs.uniform(0, w - 80, 20)
+        y1 = rs.uniform(0, h - 80, 20)
+        bw, bh = rs.uniform(8, 64, 20), rs.uniform(8, 64, 20)
+        boxes[i, :20] = np.stack([x1, y1, x1 + bw, y1 + bh], 1)
+        valid[i, :n[i]] = True
+    batch = {"images": images, "gt_boxes": boxes, "gt_labels": labels,
+             "gt_valid": valid}
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def train_state(cfg, device, seed=0):
+    """A seeded train state of ``cfg`` on ``device`` (the JAX package's
+    initializers, the mp_sgd recipe, beta switched on as at
+    emd_start_epoch) and its step.  The dictionary is drawn on the CPU,
+    so that every device starts from the same state."""
+    from glsdet_tpu_torch.models.build import build_model
+    from glsdet_tpu_torch.train.boiw import BoIWState, enable_emd_training
+    from glsdet_tpu_torch.train.loop import (build_optimizer,
+                                             make_state_template)
+
+    model = build_model(cfg, device=device,
+                        generator=torch.Generator().manual_seed(seed))
+    opt = build_optimizer(cfg, TRAIN_SPE, model)
+    state = make_state_template(cfg, model, opt,
+                                torch.Generator().manual_seed(seed))
+    state.boiw = BoIWState(*(t.to(device) for t in
+                             enable_emd_training(state.boiw)))
+    state.generator = torch.Generator(device=device).manual_seed(seed)
+    return state
+
+
+def train_step_fn(cfg, state, dtype):
+    from glsdet_tpu_torch.train.steps import make_mpdet_train_step
+
+    return make_mpdet_train_step(state.model, cfg.data.img_hw,
+                                 cfg.model.num_classes,
+                                 cfg.model.proxies_list, normalize=True,
+                                 dtype=dtype)
+
+
+def train_cfg(**over):
+    from glsdet_tpu_torch.config import apply_overrides, get_config
+
+    return apply_overrides(get_config("mp_det_res50"), over)
+
+
+def state_leaves(state) -> dict:
+    """Every leaf of a train state as float64 CPU tensors, by kind."""
+    named = dict(state.model.named_parameters())
+    sd = state.model.state_dict()
+    return {
+        "params": {n: sd[n] for n in named},
+        "bn_stats": {n: v for n, v in sd.items() if "running" in n},
+        "momentum": {n: state.optimizer.state[p]["momentum_buffer"]
+                     for n, p in named.items()},
+        "ema": state.ema_params,
+        "boiw": {"embedding": state.boiw.embedding},
+    }
+
+
+def leaf_errors(got, want) -> dict:
+    """Per kind, the largest |got - want| over a leaf's max |want|."""
+    out = {}
+    for kind, leaves in want.items():
+        worst, name = 0.0, None
+        for n, w in leaves.items():
+            w, g = w.detach().double().cpu(), got[kind][n].detach().double().cpu()
+            e = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            if e >= worst:
+                worst, name = e, n
+        out[kind] = {"max_rel": worst, "leaf": name}
+    return out
+
+
+def rel(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def jitter_bn(model, seed=1) -> None:
+    """Biases, BN scales and BN statistics off their constant inits (the
+    same numbers on every device), so that no leaf's max is the step's
+    own update."""
+    rs = np.random.RandomState(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            bias = getattr(m, "bias", None)
+            if isinstance(bias, torch.nn.Parameter):
+                bias.copy_(torch.from_numpy(0.1 * rs.randn(*bias.shape)))
+            if isinstance(m, torch.nn.BatchNorm2d):
+                c = m.num_features
+                for t, v in ((m.weight, 1.0 + 0.1 * rs.randn(c)),
+                             (m.running_mean, 0.1 * rs.randn(c)),
+                             (m.running_var, 0.5 + rs.rand(c))):
+                    t.copy_(torch.from_numpy(v))
+
+
+def train_parity() -> dict:
+    """One step of a small MP-Det on the card and on the CPU from one
+    seeded state (biases and BN statistics jittered off their inits; TF32
+    off, as main sets it), in float32 and in float64: the six losses
+    within 1e-4 relative; parameters, BN statistics, EMA and the
+    dictionary within 1e-5 of each leaf's max.  The momentum buffers (the
+    step's gradients) are held to 1e-5 in float64 and reported in
+    float32: there the backbone's BN gradients of this fixture are the
+    remainder of a cancellation and carry percent-level rounding on any
+    device (tests/test_torch_train_step.py)."""
+    small = {"model.depth": 18, "model.feat_channels": 64,
+             "model.num_words": 16, "data.img_hw": (128, 128)}
+    cfg = train_cfg(**small)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        runs = []
+        for dev in ("cpu", DEVICE):
+            state = train_state(cfg, dev, seed=1)
+            jitter_bn(state.model)
+            state.model.to(dtype)
+            state.ema_params = {n: p.detach().clone() for n, p in
+                                state.model.named_parameters()}
+            step = train_step_fn(cfg, state, torch.float32)
+            batch = train_batch(np.random.RandomState(0), 2, (128, 128),
+                                20, dev)
+            noise = torch.rand(11, 2 * 341,
+                               generator=torch.Generator().manual_seed(2))
+            state, m = step(state, batch, noise=noise.to(dev))
+            runs.append(({k: float(v) for k, v in m.items()},
+                         state_leaves(state)))
+        (cm, cl), (gm, gl) = runs
+        name = "float32" if dtype == torch.float32 else "float64"
+        out[name] = {"loss_rel": max(rel(gm[k], cm[k]) for k in cm),
+                     "leaves": leaf_errors(gl, cl), "losses_card": gm}
+    log("train_parity", **out)
+    for name, res in out.items():
+        assert res["loss_rel"] <= 1e-4, (name, res)
+        for kind, err in res["leaves"].items():
+            if kind != "momentum" or name == "float64":
+                assert err["max_rel"] <= 1e-5, (name, kind, err)
+    return out
+
+
+def timed_train(state, step, batches, ot_after=5):
+    """2 warm-up steps, then 10 timed ones (CUDA events around each step,
+    the last loss read back once), ``update_ot`` after step ``ot_after``
+    timed on its own."""
+    from glsdet_tpu_torch.train.boiw import update_ot
+
+    for i in range(2):
+        state, _ = step(state, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ptr0 = state.boiw.ptr.clone()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(24)]
+    first = last = None
+    ema_check = None
+    for i in range(10):
+        if i == 9:
+            name = "head.gfl_reg.weight"
+            ema_check = (name, state.ema_params[name].clone(), state.step)
+        ev[2 * i].record()
+        state, m = step(state, batches[i % len(batches)])
+        ev[2 * i + 1].record()
+        if i == 0:
+            first = m
+        last = m
+        if i == ot_after:
+            ev[20].record()
+            state.boiw = update_ot(state.boiw, state.generator,
+                                   TRAIN_PROXIES)
+            ev[21].record()
+    loss_last = float(last["loss"])             # the one readback
+    torch.cuda.synchronize()
+    step_ms = [ev[2 * i].elapsed_time(ev[2 * i + 1]) for i in range(10)]
+    name, e_prev, s_prev = ema_check
+    from glsdet_tpu_torch.train.schedules import ema_momentum
+
+    m = ema_momentum(s_prev)
+    p_new = dict(state.model.named_parameters())[name].detach()
+    want = e_prev * (1 - m) + p_new * m
+    ema_err = float((state.ema_params[name] - want).abs().max()
+                    / want.abs().max())
+    return state, {
+        "ms_per_step": sum(step_ms) / 10, "step_ms": step_ms,
+        "img_per_s": TRAIN_B * 1e3 / (sum(step_ms) / 10),
+        "update_ot_ms": ev[20].elapsed_time(ev[21]),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "first": {k: float(v) for k, v in first.items()},
+        "last": {k: float(v) for k, v in last.items()},
+        "loss_last_readback": loss_last,
+        "ptr_advanced": int((state.boiw.ptr != ptr0).sum()),
+        "ema_rel_err": ema_err}
+
+
+def train_profile(state, step, batch):
+    """Where one full-width step's time goes: torch.profiler over one step
+    (wall time, device busy time, idle share, kernel launches, the ops
+    that take most of the device), and the ATSS targets timed alone."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from glsdet_tpu_torch.ops.priors import grid_anchors
+    from glsdet_tpu_torch.train.gfl_loss import gfl_targets
+    from glsdet_tpu_torch.train.steps import GFL_STRIDES
+
+    anchors_np, counts = grid_anchors(TRAIN_HW, GFL_STRIDES)
+    anchors = torch.from_numpy(anchors_np).to(DEVICE)
+    targets_ms = cuda_ms(lambda: gfl_targets(
+        anchors, counts, batch["gt_boxes"], batch["gt_labels"],
+        batch["gt_valid"], 10), 5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    ops = sorted((e for e in events if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    return state, {
+        "profiled_wall_ms": wall_ms, "device_busy_ms": device_ms,
+        "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+        "kernel_launches": sum(e.count for e in kernels),
+        "atss_targets_ms": targets_ms,
+        "top_ops_ms": [(e.key, e.self_device_time_total / 1e3, e.count)
+                       for e in ops[:12]]}
+
+
+def one_step(cfg, dtype, batch, noise, seed=3):
+    """One step from a seeded full-width state: losses, BN statistics and
+    the step's peak memory."""
+    state = train_state(cfg, DEVICE, seed=seed)
+    step = train_step_fn(cfg, state, dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, m = step(state, batch, noise=noise)
+    torch.cuda.synchronize()
+    bn = {k: v.clone() for k, v in state.model.state_dict().items()
+          if "running" in k}
+    out = ({k: float(v) for k, v in m.items()}, bn,
+           torch.cuda.max_memory_allocated() / 2 ** 30)
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(smi: str) -> dict:
+    """MP-Det training: card-vs-CPU parity at a small size, then
+    mp_det_res50 at full width (1024x1024, batch 4, bf16 autocast, remat
+    on): timed steps with the OT hook, a profiled step, one step under
+    the sync debug mode, remat on vs off, bf16 vs float32."""
+    t0 = time.perf_counter()
+    out = {"card": smi, "parity": train_parity()}
+    cfg = train_cfg()
+    assert cfg.model.remat and cfg.data.img_hw == TRAIN_HW
+    rs = np.random.RandomState(0)
+    batches = [train_batch(rs, TRAIN_B, TRAIN_HW, TRAIN_MAX_GT, DEVICE)
+               for _ in range(2)]
+    state = train_state(cfg, DEVICE)
+    step = train_step_fn(cfg, state, torch.bfloat16)
+    state, timed = timed_train(state, step, batches)
+    out["full_width"] = timed
+    for k in LOSS_NAMES:
+        assert np.isfinite(timed["first"][k]) and np.isfinite(
+            timed["last"][k]), timed
+    assert timed["ptr_advanced"] > 0, timed
+    probs = torch.split(state.boiw.proxies_prob.cpu(), TRAIN_PROXIES)
+    out["proxies_prob_sums"] = [float(p.sum()) for p in probs]
+    assert all(abs(s - 1.0) < 1e-5 for s in out["proxies_prob_sums"])
+    assert timed["ema_rel_err"] < 1e-5, timed
+    state, out["profile"] = train_profile(state, step, batches[0])
+
+    # no host sync inside one full-width step
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = step(state, batches[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out["no_sync_step"] = True
+    del state, step
+    torch.cuda.empty_cache()
+
+    # remat on vs off, bf16 vs float32: one step each from one state
+    noise = torch.rand(11, TRAIN_B * 21824, device=DEVICE,
+                       generator=torch.Generator(DEVICE).manual_seed(4))
+    on = one_step(cfg, torch.bfloat16, batches[0], noise)
+    off = one_step(train_cfg(**{"model.remat": False}), torch.bfloat16,
+                   batches[0], noise)
+    bn_err = max(float((off[1][k] - on[1][k]).abs().max())
+                 / max(float(on[1][k].abs().max()), 1e-30) for k in on[1])
+    loss_err = max(rel(off[0][k], on[0][k]) for k in on[0])
+    out["remat"] = {"loss_rel": loss_err, "bn_rel": bn_err,
+                    "peak_mem_gib_on": on[2], "peak_mem_gib_off": off[2]}
+    assert loss_err <= 1e-3 and bn_err <= 1e-3, out["remat"]
+    f32 = one_step(cfg, torch.float32, batches[0], noise)
+    out["bf16_vs_f32"] = {
+        "rel": {k: rel(on[0][k], f32[0][k]) for k in on[0]},
+        "peak_mem_gib_f32": f32[2]}
+    assert out["bf16_vs_f32"]["rel"]["loss"] <= 5e-2, out["bf16_vs_f32"]
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"train": out}), flush=True)
+    return out
+
+
 def main() -> None:
     # float32 products of the plain versions stay float32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_card()
+    smi = phase_card()
     phase_build()
     phase_nms()
     phase_nms_ladder()
@@ -2030,6 +2380,7 @@ def main() -> None:
         ladder = phase_serve_ladder(frames, paths)
         serve8 = phase_serve_int8(frames, paths, serve)
         phase_detector(frames, paths)
+    phase_train(smi)
     launches = bf16["launches"]
     sk = serve["kernels"]
     print(json.dumps({"kernels": [

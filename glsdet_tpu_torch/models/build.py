@@ -2,10 +2,10 @@
 
 The port's models are float32 modules initialised with the JAX package's
 initializers from an explicit ``torch.Generator``; where they compute in
-bfloat16 is the serving code's choice (``TwoStagePipeline``,
-``apis.Detector``), so ``cfg.model.dtype`` and ``cfg.model.remat`` (the
-JAX package's compute dtype and training rematerialisation) select
-nothing here.
+bfloat16 is the caller's choice (``TwoStagePipeline``, ``apis.Detector``,
+the train step's autocast), so ``cfg.model.dtype`` selects nothing here.
+``cfg.model.remat`` checkpoints MP-Det's ResNet blocks and head towers
+in training.
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ def build_model(cfg: Config, device="cuda",
     elif m.family == "mpdet":
         model = MPDet(m.num_classes, m.depth, m.feat_channels,
                       proxies_list=m.proxies_list, gamma=m.gamma,
-                      generator=generator)
+                      remat=m.remat, generator=generator)
     elif m.family == "gfl":
         raise NotImplementedError(
             "family 'gfl': GFLHead and GFLDet are not ported yet "

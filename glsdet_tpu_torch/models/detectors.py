@@ -50,17 +50,22 @@ class YOLOXDetector(nn.Module):
 
 
 class MPDet(nn.Module):
-    """MP-Det: ResNet + FPN + MPHead (the mp_det_res50 configuration)."""
+    """MP-Det: ResNet + FPN + MPHead (the mp_det_res50 configuration).
+    In training mode the head returns raw class features; ``remat``
+    checkpoints the ResNet blocks and each level's head towers there, as
+    the JAX package's ``nn.remat`` does."""
 
     def __init__(self, num_classes: int = 10, depth: int = 50,
                  feat_channels: int = 256,
                  proxies_list: Sequence[int] = VISDRONE_PROXIES,
-                 gamma: float = 10.0, *, generator: torch.Generator):
+                 gamma: float = 10.0, remat: bool = False, *,
+                 generator: torch.Generator):
         super().__init__()
-        self.backbone = ResNet(depth)
+        self.backbone = ResNet(depth, remat=remat)
         self.neck = FPN(self.backbone.out_channels[1:], feat_channels, 5)
         self.head = MPHead(num_classes, feat_channels,
-                           proxies_list=tuple(proxies_list), gamma=gamma)
+                           proxies_list=tuple(proxies_list), gamma=gamma,
+                           remat=remat)
         flax_init_(self, generator)
 
     def forward(self, images):

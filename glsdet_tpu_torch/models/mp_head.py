@@ -1,10 +1,11 @@
-"""MPHead, the multi-proxy head, counterpart of ``glsdet_tpu.models.mp_head``
-(inference branch only).
+"""MPHead, the multi-proxy head, counterpart of ``glsdet_tpu.models.mp_head``.
 
 A GFL head whose class predictor is cosine classification against
 learnable per-class proxies: class score = gamma * sum_p softmax_p(gamma *
 sim) * sim over the class's proxies, computed as two matmuls with a
-proxy-to-class membership matrix.
+proxy-to-class membership matrix.  In training mode the head returns the
+raw class features instead: the MP-Det loss (``train/mp_loss.py``)
+scores them itself and also feeds them to the BoIW and OT losses.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from glsdet_tpu_torch.models.layers import Conv2d, ConvNormAct, Scale, to_nhwc
+from glsdet_tpu_torch.models.layers import (Conv2d, ConvNormAct, Scale, remat,
+                                             to_nhwc)
 
 VISDRONE_PROXIES = (2, 3, 2, 5, 4, 8, 8, 4, 3, 3)
 
@@ -46,14 +48,18 @@ def proxy_scores(feat, proxies, membership, gamma: float = 10.0):
 
 class MPHead(nn.Module):
     """GFL-structured head with the proxy classifier.  Towers are shared
-    across levels.  Returns per-level NHWC float32 maps: class scores and
-    the (4 * (reg_max + 1)) box distributions."""
+    across levels.  Returns per-level NHWC maps: class scores (float32;
+    in training mode the raw class features, in the compute dtype) and
+    the (4 * (reg_max + 1)) box distributions (float32).  With ``remat``
+    each level's towers are checkpointed in training."""
 
     def __init__(self, num_classes: int = 10, feat_channels: int = 256,
                  stacked_convs: int = 4, num_levels: int = 5,
                  reg_max: int = 16, gamma: float = 10.0,
-                 proxies_list: Sequence[int] = VISDRONE_PROXIES):
+                 proxies_list: Sequence[int] = VISDRONE_PROXIES,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         if num_classes != len(proxies_list):
             raise ValueError("num_classes must equal len(proxies_list)")
         fc = feat_channels
@@ -79,16 +85,25 @@ class MPHead(nn.Module):
     def flax_init(self, generator: torch.Generator) -> None:
         nn.init.normal_(self.proxies, 0.0, 0.01, generator=generator)
 
+    def _level(self, x, lvl: int):
+        cls_feat = reg_feat = x
+        for i in range(self.stacked_convs):
+            cls_feat = getattr(self, f"cls_conv{i}")(cls_feat)
+            reg_feat = getattr(self, f"reg_conv{i}")(reg_feat)
+        scale = getattr(self, f"scale{lvl}")
+        return (to_nhwc(self.gfl_cls_conv(cls_feat)),
+                to_nhwc(scale(self.gfl_reg(reg_feat))).float())
+
     def forward(self, feats):
+        ckpt = self.remat and self.training and torch.is_grad_enabled()
         cls_out, bbox_preds = [], []
         for lvl, x in enumerate(feats):
-            cls_feat = reg_feat = x
-            for i in range(self.stacked_convs):
-                cls_feat = getattr(self, f"cls_conv{i}")(cls_feat)
-                reg_feat = getattr(self, f"reg_conv{i}")(reg_feat)
-            cls_feat = to_nhwc(self.gfl_cls_conv(cls_feat))
-            scale = getattr(self, f"scale{lvl}")
-            bbox_preds.append(to_nhwc(scale(self.gfl_reg(reg_feat))).float())
+            cls_feat, bbox_pred = (remat(self._level, x, lvl) if ckpt
+                                   else self._level(x, lvl))
+            bbox_preds.append(bbox_pred)
+            if self.training:
+                cls_out.append(cls_feat)
+                continue
             b, h, w, c = cls_feat.shape
             scores = proxy_scores(cls_feat.reshape(-1, c).float(),
                                   self.proxies.float(),

@@ -1,13 +1,16 @@
 """ResNet backbone (MP-Det uses ResNet-50), the counterpart of
 ``glsdet_tpu.models.resnet``: 7x7 stem, 4 stages, stride on the 3x3
-conv of the bottleneck, BN eps 1e-3 as in the JAX package."""
+conv of the bottleneck, BN eps 1e-3 as in the JAX package.  With
+``remat`` each block is checkpointed in training (``layers.remat``)."""
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
-from glsdet_tpu_torch.models.layers import BN_EPS, BN_MOMENTUM, Conv2d
+from glsdet_tpu_torch.models.layers import (BN_EPS, BN_MOMENTUM, BatchNorm2d,
+                                             Conv2d, remat)
 
 STAGE_BLOCKS = {
     18: (2, 2, 2, 2),
@@ -27,8 +30,8 @@ class ResNetConv(nn.Module):
         self.conv = Conv2d(in_channels, out_channels, kernel_size, stride,
                            kernel_size // 2, bias=False,
                            kernel_init="he_fan_out")
-        self.bn = nn.BatchNorm2d(out_channels, eps=BN_EPS,
-                                 momentum=BN_MOMENTUM)
+        self.bn = BatchNorm2d(out_channels, eps=BN_EPS,
+                              momentum=BN_MOMENTUM)
         self.act = act
 
     def forward(self, x):
@@ -73,10 +76,12 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     """ResNet-{18,34,50,101,152}; returns the stage features C2..C5."""
 
-    def __init__(self, depth: int = 50, base_channels: int = 64):
+    def __init__(self, depth: int = 50, base_channels: int = 64,
+                 remat: bool = False):
         super().__init__()
         block = Bottleneck if depth >= 50 else BasicBlock
         self.depth = depth
+        self.remat = remat
         self.stem = ResNetConv(3, base_channels, 7, 2)
         self.names = []
         cin = base_channels
@@ -97,9 +102,11 @@ class ResNet(nn.Module):
         x = self.stem(x)
         # max_pool2d pads with -inf, as flax's max_pool does
         x = F.max_pool2d(x, 3, 2, 1)
+        ckpt = self.remat and self.training and torch.is_grad_enabled()
         outs = []
         for names in self.names:
             for name in names:
-                x = getattr(self, name)(x)
+                block = getattr(self, name)
+                x = remat(block, x) if ckpt else block(x)
             outs.append(x)
         return tuple(outs)

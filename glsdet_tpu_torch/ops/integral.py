@@ -29,3 +29,17 @@ def distance2bbox(points: torch.Tensor, distances: torch.Tensor,
         x1, x2 = x1.clamp(0, w), x2.clamp(0, w)
         y1, y2 = y1.clamp(0, h), y2.clamp(0, h)
     return torch.stack([x1, y1, x2, y2], dim=-1)
+
+
+def bbox2distance(points: torch.Tensor, bboxes: torch.Tensor,
+                  reg_max: float | None = None) -> torch.Tensor:
+    """xyxy boxes -> (l, t, r, b) distances from ``points``, clamped to
+    ``[0, reg_max - 0.1]`` when ``reg_max`` is given (the reference
+    coder's encode)."""
+    d = torch.stack([points[..., 0] - bboxes[..., 0],
+                     points[..., 1] - bboxes[..., 1],
+                     bboxes[..., 2] - points[..., 0],
+                     bboxes[..., 3] - points[..., 1]], dim=-1)
+    if reg_max is not None:
+        d = d.clamp(0, reg_max - 0.1)
+    return d

@@ -19,6 +19,7 @@ import copy
 import torch
 from torch import nn
 
+from glsdet_tpu_torch.models.build import resolve_device
 from glsdet_tpu_torch.ops.int8_conv import (Int8Conv2d, Int8Module,
                                             place_quantized, quantize_weight)
 
@@ -70,11 +71,13 @@ def _rewrite(module: nn.Module, min_channels: int,
 def quantize_dynamic(model: nn.Module, min_channels: int = 64,
                      min_kernel_area: int = 9,
                      dtype: torch.dtype = torch.float32,
-                     device="cpu") -> nn.Module:
-    """A dynamic-W8A8 copy of ``model`` (float32 weights) on ``device``,
-    computing in ``dtype`` outside the int8 convolutions.  The defaults
+                     device="cuda") -> nn.Module:
+    """A dynamic-W8A8 copy of ``model`` (float32 weights) on ``device``
+    (``"cuda"`` raises without a GPU), computing in ``dtype`` outside the
+    int8 convolutions.  The defaults
     quantize the 3x3+ convolutions with >= 64 channels, as the JAX
     package's.  ``model`` itself is left as it is."""
+    device = resolve_device(device)
     q = copy.deepcopy(model).float().eval()
     _rewrite(q, min_channels, min_kernel_area)
     return place_quantized(q, device, dtype)

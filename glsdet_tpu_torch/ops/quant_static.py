@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from glsdet_tpu_torch.models.build import resolve_device
 from glsdet_tpu_torch.models.layers import ConvNormAct
 from glsdet_tpu_torch.models.mp_head import MPHead, proxy_scores
 from glsdet_tpu_torch.models.resnet import (BasicBlock, Bottleneck, ResNet,
@@ -533,11 +534,13 @@ def _rewrite(module: nn.Module, prefix: str, scales, min_channels) -> None:
 def quantize_static(model: nn.Module, scales: Dict[str, float],
                     min_channels: int = 32,
                     dtype: torch.dtype = torch.float32,
-                    device="cpu") -> nn.Module:
+                    device="cuda") -> nn.Module:
     """A static-W8A8 copy of ``model`` (float32 weights, eval mode) on
-    ``device``, computing in ``dtype`` outside the int8 domain.  ``scales``
-    comes from :func:`calibrate_scales` over the same model (the paths
-    must match).  ``model`` itself is left as it is.  Inference only."""
+    ``device`` (``"cuda"`` raises without a GPU), computing in ``dtype``
+    outside the int8 domain.  ``scales`` comes from
+    :func:`calibrate_scales` over the same model (the paths must match).
+    ``model`` itself is left as it is.  Inference only."""
+    device = resolve_device(device)
     q = copy.deepcopy(model).float().eval()
     new = _quantized("", q, None, scales, min_channels)
     if new is None:

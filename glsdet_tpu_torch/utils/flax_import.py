@@ -10,6 +10,12 @@ walk: ``{"params": {"backbone": {"stem": {"conv": {"conv": {"kernel":
   plus the ``num_batches_tracked`` counter torch keeps;
 - ``Scale.scale`` and ``MPHead.proxies`` keep their names.
 
+:func:`train_state_from_flax` carries a whole JAX ``TrainState`` of the
+MP-Det recipe across: parameters and BN statistics, the EMA, the SGD
+momentum trace of optax's ``opt_state`` (into the torch optimizer's
+``momentum_buffer`` s), the schedule count, the step and the BoIW
+dictionary.
+
 Takes numpy arrays (``jax.device_get`` of the variables), so this module
 imports neither jax nor flax.
 """
@@ -20,6 +26,10 @@ from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch import nn
+
+from glsdet_tpu_torch.train.boiw import BoIWState
+from glsdet_tpu_torch.train.state import TrainState
 
 _NORMS = ("bn", "gn")
 
@@ -61,3 +71,61 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
             np.array(arr, np.float32))
         out[".".join(mods + ["num_batches_tracked"])] = torch.tensor(0)
     return out
+
+
+def optax_fields(node, name: str) -> list:
+    """Every value of field ``name`` in an optax state (nested tuples and
+    NamedTuples), in order."""
+    found = []
+    if hasattr(node, "_fields"):
+        for field in node._fields:
+            value = getattr(node, field)
+            if field == name:
+                found.append(value)
+            else:
+                found += optax_fields(value, name)
+    elif isinstance(node, (tuple, list)):
+        for item in node:
+            found += optax_fields(item, name)
+    return found
+
+
+def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``params`` tree (or one shaped like it: the EMA, optax's
+    momentum trace) as port parameter names -> tensors."""
+    return state_dict_from_flax({"params": params})
+
+
+def train_state_from_flax(state, model: nn.Module,
+                          optimizer: torch.optim.Optimizer,
+                          generator: torch.Generator) -> TrainState:
+    """A port :class:`TrainState` over ``model`` / ``optimizer`` (the
+    port's ``mp_det_sgd`` or ``yolox_sgd``) holding a JAX ``TrainState``
+    of numpy leaves: the weights and BN statistics are loaded into
+    ``model``; the momentum trace becomes each parameter's
+    ``momentum_buffer`` and the schedule count ``optimizer.count``.  The
+    JAX key is not carried: ``generator`` takes its place."""
+    dev = next(model.parameters()).device
+    model.load_state_dict(state_dict_from_flax(
+        {"params": state.params, "batch_stats": state.batch_stats}),
+        strict=True)
+    named = dict(model.named_parameters())
+    (trace,) = optax_fields(state.opt_state, "trace")
+    counts = optax_fields(state.opt_state, "count")
+    for name, buf in params_from_flax(trace).items():
+        optimizer.state[named[name]]["momentum_buffer"] = buf.to(named[name])
+    optimizer.count = int(counts[-1]) if counts else 0
+    ema = {n: t.to(named[n]) for n, t in params_from_flax(
+        state.ema_params).items()}
+    boiw = None
+    if state.boiw is not None:
+        b = state.boiw
+        boiw = BoIWState(
+            embedding=torch.from_numpy(np.array(b.embedding, np.float32)
+                                       ).to(dev),
+            ptr=torch.from_numpy(np.array(b.ptr, np.int64)).to(dev),
+            proxies_prob=torch.from_numpy(np.array(b.proxies_prob,
+                                                   np.float32)).to(dev),
+            beta=torch.tensor(float(b.beta), device=dev))
+    return TrainState(step=int(state.step), model=model, optimizer=optimizer,
+                      ema_params=ema, generator=generator, boiw=boiw)

@@ -41,6 +41,13 @@ The serving facades' shapes: B2 at the global-local fusion's (16, 700),
 offset 0, 0.65; the painter's path entry at the ladder's ends, 768² and
 2688²; the GN kernel at every head level of the 1280-2688 buckets that
 square packing can pick; and the no-sync test with ``fuse_global``.
+
+MP-Det training (``train/steps.py``) at depth 18, feat_channels 64,
+128x128, B = 2: one step makes no host sync; one step on the card
+matches the CPU's (losses within 1e-4 relative, every leaf of the state
+within 1e-5 of its max, TF32 off; the momentum buffers in float64 only);
+remat on and off give the same losses and BN statistics; an image
+without valid GTs gives finite losses.
 """
 
 import functools
@@ -851,3 +858,165 @@ def test_serving_stages_do_not_sync_with_the_host(card, mode):
             assert torch.isfinite(out).all()
     finally:
         pipe.close()
+
+
+# MP-Det training at a small size
+
+
+def _train_setup(device, remat=False, seed=0):
+    """A seeded depth-18 MP-Det train state (beta 1) and its step; the
+    dictionary is drawn on the CPU so every device starts from it."""
+    from glsdet_tpu_torch.train import schedules
+    from glsdet_tpu_torch.train.boiw import enable_emd_training, init_boiw
+    from glsdet_tpu_torch.train.state import TrainState
+    from glsdet_tpu_torch.train.steps import make_mpdet_train_step
+
+    proxies = (2, 3, 2, 5, 4, 8, 8, 4, 3, 3)
+    model = MPDet(10, 18, 64, proxies, remat=remat,
+                  generator=torch.Generator().manual_seed(seed)).to(device)
+    opt = schedules.mp_det_sgd(model.parameters(),
+                               schedules.schedule_1x(0.01, 100))
+    boiw = enable_emd_training(init_boiw(
+        torch.Generator().manual_seed(seed), 10, 16, 64, proxies,
+        device="cpu"))
+    boiw = type(boiw)(*(t.to(device) for t in boiw))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state = TrainState.create(model, opt, gen, boiw=boiw)
+    step = make_mpdet_train_step(model, (128, 128), 10, proxies,
+                                 normalize=True)
+    return state, step
+
+
+def _train_batch(device, seed=0, b=2, g=4, empty_image=None):
+    rs = np.random.RandomState(seed)
+    x1, y1 = rs.uniform(0, 80, (b, g)), rs.uniform(0, 80, (b, g))
+    wh = rs.uniform(8, 40, (b, g, 2))
+    boxes = np.stack([x1, y1, x1 + wh[..., 0], y1 + wh[..., 1]], -1)
+    valid = np.ones((b, g), bool)
+    valid[:, -1] = False
+    if empty_image is not None:
+        valid[empty_image] = False
+    batch = {"images": rs.randint(0, 255, (b, 128, 128, 3)).astype(np.uint8),
+             "gt_boxes": boxes.astype(np.float32),
+             "gt_labels": rs.randint(0, 10, (b, g)).astype(np.int64),
+             "gt_valid": valid}
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _noise(b=2):
+    n = b * (16 * 16 + 8 * 8 + 4 * 4 + 2 * 2 + 1)
+    return torch.rand(11, n, generator=torch.Generator().manual_seed(9))
+
+
+def test_train_step_does_not_sync_with_the_host(card):
+    state, step = _train_setup(card)
+    batch = _train_batch(card)
+    state, _ = step(state, batch)                # warm: plans, buffers
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+def _jitter_bn(model, seed=1) -> None:
+    """Biases, BN scales and BN statistics off their constant inits (the
+    same numbers on every device), so that no leaf's max is the step's
+    own update."""
+    rs = np.random.RandomState(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            bias = getattr(m, "bias", None)
+            if isinstance(bias, torch.nn.Parameter):
+                bias.copy_(torch.from_numpy(0.1 * rs.randn(*bias.shape)))
+            if isinstance(m, torch.nn.BatchNorm2d):
+                c = m.num_features
+                for t, v in ((m.weight, 1.0 + 0.1 * rs.randn(c)),
+                             (m.running_mean, 0.1 * rs.randn(c)),
+                             (m.running_var, 0.5 + rs.rand(c))):
+                    t.copy_(torch.from_numpy(v))
+
+
+def _train_leaves(state):
+    named = dict(state.model.named_parameters())
+    return {"state": state.model.state_dict(),
+            "momentum": {n: state.optimizer.state[p]["momentum_buffer"]
+                         for n, p in named.items()},
+            "ema": state.ema_params,
+            "boiw": {"embedding": state.boiw.embedding}}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_train_step_on_the_card_matches_the_cpu(card, dtype):
+    """One step of the same seeded state on the CPU and on the card (TF32
+    off): losses within 1e-4 relative, every leaf within 1e-5 of its max.
+    In float32 the momentum buffers (the gradients) are left out: the
+    backbone's BN gradients of this fixture are the remainder of a
+    cancellation and carry percent-level rounding on any device
+    (tests/test_torch_train_step.py); float64 holds them."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = []
+        for dev in (torch.device("cpu"), card):
+            state, _ = _train_setup(dev)
+            _jitter_bn(state.model)
+            state.model.to(dtype)
+            state.ema_params = {n: p.detach().clone() for n, p in
+                                state.model.named_parameters()}
+            from glsdet_tpu_torch.train.steps import make_mpdet_train_step
+            step = make_mpdet_train_step(
+                state.model, (128, 128), 10, (2, 3, 2, 5, 4, 8, 8, 4, 3, 3),
+                normalize=True)
+            state, metrics = step(state, _train_batch(dev),
+                                  noise=_noise().to(dev))
+            runs.append((_train_leaves(state), metrics))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    (cl, cm), (gl, gm) = runs
+    for k in cm:
+        torch.testing.assert_close(gm[k].cpu(), cm[k], rtol=1e-4, atol=0)
+    for kind, leaves in cl.items():
+        if kind == "momentum" and dtype == torch.float32:
+            continue
+        for name, want in leaves.items():
+            want, got = want.double(), gl[kind][name].cpu().double()
+            err = float((got - want).abs().max())
+            scale = max(float(want.abs().max()), 1e-30)
+            assert err <= 1e-5 * scale, (kind, name, err, scale)
+
+
+def test_train_step_remat_on_and_off(card):
+    runs = []
+    for remat in (False, True):
+        state, step = _train_setup(card, remat=remat)
+        state, metrics = step(state, _train_batch(card))
+        bn = {k: v for k, v in state.model.state_dict().items()
+              if "running" in k}
+        runs.append((metrics, bn))
+    (m0, bn0), (m1, bn1) = runs
+    for k in m0:
+        torch.testing.assert_close(m1[k], m0[k], rtol=1e-4, atol=1e-6)
+    for k in bn0:
+        scale = float(bn0[k].abs().max())
+        assert float((bn1[k] - bn0[k]).abs().max()) <= 1e-5 * scale, k
+
+
+def test_train_step_with_an_image_without_gts(card):
+    """One image has no valid GT: finite losses, and the other image's
+    positives still train (the avg_factor floor only guards 0/0)."""
+    state, step = _train_setup(card)
+    state, metrics = step(state, _train_batch(card, empty_image=0))
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert float(metrics["loss_bbox"]) > 0
+    state, step = _train_setup(card)
+    batch = _train_batch(card, empty_image=0)
+    batch["gt_valid"][:] = False
+    state, metrics = step(state, batch)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert float(metrics["loss_bbox"]) == 0.0

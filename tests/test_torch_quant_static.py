@@ -78,7 +78,7 @@ def test_same_scales_same_codes(case):
     name, fn, v, tm, x, scales, min_ch = case
     with jq.static_quant_inference(scales, min_channels=min_ch):
         want = _leaves(fn(v, jnp.asarray(x.copy())))
-    qm = tq.quantize_static(tm, scales, min_channels=min_ch)
+    qm = tq.quantize_static(tm, scales, min_channels=min_ch, device="cpu")
     with torch.inference_mode():
         got = _leaves(qm(nchw(x)))
     assert len(got) == len(want)
@@ -97,7 +97,7 @@ def test_same_scales_same_codes(case):
 
 def test_missing_scales_leave_the_model_unchanged(case):
     _, _, _, tm, x, _, min_ch = case
-    qm = tq.quantize_static(tm, {}, min_channels=min_ch)
+    qm = tq.quantize_static(tm, {}, min_channels=min_ch, device="cpu")
     with torch.inference_mode():
         want = _leaves(tm(nchw(x)))
         got = _leaves(qm(nchw(x)))
@@ -123,7 +123,7 @@ def test_conv_norm_act_module(norm, act, stride):
         want = np.asarray(fn(v, jnp.asarray(x.copy())))
     tm = load_flax(ConvNormAct(cin, cout, 3, stride, norm=norm, act=act), v)
     assert tq.calibrate_scales(tm, [nchw(x)]).keys() == scales.keys()
-    qm = tq.quantize_static(tm, scales)
+    qm = tq.quantize_static(tm, scales, device="cpu")
     assert type(qm) is tq.QConvNormAct
     with torch.inference_mode():
         got = to_np(qm(nchw(x))).transpose(0, 2, 3, 1)
@@ -145,3 +145,18 @@ def test_scales_json_loads_in_both_packages(tmp_path):
     bad.write_text('{"format": "other", "scales": {}}')
     with pytest.raises(ValueError):
         tq.load_scales(str(bad))
+
+
+@pytest.mark.parametrize("which", ["static", "dynamic"])
+def test_quantizers_default_to_the_card(monkeypatch, which):
+    """Without ``device`` both quantizers place their copy on the card,
+    and without one they raise rather than return a CPU model."""
+    from glsdet_tpu_torch.ops import quant
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tm = ConvNormAct(8, 8, 3)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        if which == "static":
+            tq.quantize_static(tm, {})
+        else:
+            quant.quantize_dynamic(tm)
