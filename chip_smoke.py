@@ -152,6 +152,36 @@ Phases, in the order they run, each printing one line:
      BN statistics within 1e-3 of each leaf's max, both peak memories),
      and in float32 (the total loss within 5e-2 relative of bf16's).
      Printed as one {"train": ...} line.
+ 18. the coarse detector's trainer (make_yolox_train_step: SimOTA, the
+     YOLOX loss; no kernel of its own) at coarse_det's full width: YOLOX-s,
+     10 classes, 640x640, batch 8, max_gt 300, bf16 autocast, yolox_sgd
+     with its warm-cos schedule, seeded weights, VisDrone-like batches
+     (5-60 boxes of 4-64 px).  First a small YOLOX-nano (128x128, batch
+     2) from one seeded state, one float64 step on the card and on the
+     CPU: metrics within 1e-5 relative, parameters, BN statistics, EMA
+     and momentum within 1e-5 of each leaf's max.  Then 2 warm-up and 10
+     timed steps (ms/step, img/s, peak memory), one profiled step (device
+     busy time, idle share, launches, top ops), one step under
+     set_sync_debug_mode("error"), one use_l1 step and one resize_from
+     step each way (640 -> 608, 640 -> 672): every loss finite and
+     num_fg > 0.  Printed as one {"train_yolox": ...} line;
+ 19. the GFL trainer (make_gfl_train_step) at gfl_res50's full width:
+     ResNet-50 + FPN + GFLHead, 1024x1024, batch 4, bf16 autocast, remat
+     as configured, mp_sgd, _mk_batch's batches: the same card-vs-CPU
+     check on a GFLDet-18 at 64 channels, 128x128; then timed steps, a
+     profiled step and a step under the sync debug mode.  Printed as one
+     {"train_gfl": ...} line;
+ 20. gfl_int8: apis.Detector("gfl_res50") on 4 frames from a state-dict
+     file, in bf16 and in static int8 (the first batch calibrates and
+     saves the scales): the int8 model within 0.3 relative of bf16 on one
+     input, B3 launched 40 times per int8 batch (8 per level) and, on the
+     accumulators this path gives it, within +-1 code of its plain
+     version (timed per level, with its bound), B2 launched in each run
+     and, on the NMS inputs each run gives it ((4, 400): budget 4 *
+     max_dets), its keep mask equal to nms_sorted_plain's (the int8
+     run's launches timed, with their bound), the top 10 bf16 detections
+     of each frame matched by int8 ones (same label, IoU > 0.5, score
+     within 0.3) at least half the time, img/s of both.
 Then one JSON line of per-kernel results (each with its bound: the bytes
 it must move at 3.35 TB/s or its operations at the card's peak for their
 type, whichever is longer) and, last, the device line.  A kernel's ``ms``
@@ -2028,33 +2058,43 @@ LOSS_NAMES = ("loss", "loss_cls", "loss_bbox", "loss_dfl", "loss_emb",
               "loss_op")
 
 
-def train_batch(rs, b, hw, max_gt, device):
-    """scripts/bench_train.py _mk_batch's recipe: uint8 frames, 5-19
-    boxes of 8-64 px per image (labels 0-9) drawn as for 20 slots, padded
-    to ``max_gt``."""
+def train_batch(rs, b, hw, max_gt, device, visdrone=False):
+    """uint8 frames and their GTs (labels 0-9), padded to ``max_gt``: by
+    default scripts/bench_train.py _mk_batch's recipe (5-19 boxes of 8-64
+    px per image, drawn as for 20 slots); ``visdrone=True`` a VisDrone-like
+    one (5-60 boxes of 4-64 px per image, inside the frame)."""
     h, w = hw
     images = rs.randint(0, 255, (b, h, w, 3)).astype(np.uint8)
-    n = rs.randint(5, 20, b)
     boxes = np.zeros((b, max_gt, 4), np.float32)
     labels = np.zeros((b, max_gt), np.int64)
-    labels[:, :20] = rs.randint(0, 10, (b, 20))
     valid = np.zeros((b, max_gt), bool)
+    if not visdrone:
+        n = rs.randint(5, 20, b)
+        labels[:, :20] = rs.randint(0, 10, (b, 20))
     for i in range(b):
-        x1 = rs.uniform(0, w - 80, 20)
-        y1 = rs.uniform(0, h - 80, 20)
-        bw, bh = rs.uniform(8, 64, 20), rs.uniform(8, 64, 20)
-        boxes[i, :20] = np.stack([x1, y1, x1 + bw, y1 + bh], 1)
-        valid[i, :n[i]] = True
+        if visdrone:
+            n_i = rs.randint(5, 61)
+            bw, bh = rs.uniform(4, 64, n_i), rs.uniform(4, 64, n_i)
+            x1, y1 = rs.uniform(0, w - bw), rs.uniform(0, h - bh)
+            labels[i, :n_i] = rs.randint(0, 10, n_i)
+        else:
+            n_i = n[i]
+            x1, y1 = rs.uniform(0, w - 80, 20), rs.uniform(0, h - 80, 20)
+            bw, bh = rs.uniform(8, 64, 20), rs.uniform(8, 64, 20)
+        boxes[i, :len(x1)] = np.stack([x1, y1, x1 + bw, y1 + bh], 1)
+        valid[i, :n_i] = True
     batch = {"images": images, "gt_boxes": boxes, "gt_labels": labels,
              "gt_valid": valid}
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
 def train_state(cfg, device, seed=0):
-    """A seeded train state of ``cfg`` on ``device`` (the JAX package's
-    initializers, the mp_sgd recipe, beta switched on as at
-    emd_start_epoch) and its step.  The dictionary is drawn on the CPU,
-    so that every device starts from the same state."""
+    """A seeded train state of ``cfg`` on ``device``: the model built on
+    the CPU from ``seed`` (the JAX package's initializers), the config's
+    optimizer and schedule.  An mpdet state carries the BoIW dictionary,
+    drawn on the CPU so that every device starts from the same state,
+    with beta switched on as at emd_start_epoch; yolox and gfl have
+    none."""
     from glsdet_tpu_torch.models.build import build_model
     from glsdet_tpu_torch.train.boiw import BoIWState, enable_emd_training
     from glsdet_tpu_torch.train.loop import (build_optimizer,
@@ -2065,8 +2105,9 @@ def train_state(cfg, device, seed=0):
     opt = build_optimizer(cfg, TRAIN_SPE, model)
     state = make_state_template(cfg, model, opt,
                                 torch.Generator().manual_seed(seed))
-    state.boiw = BoIWState(*(t.to(device) for t in
-                             enable_emd_training(state.boiw)))
+    if cfg.model.family == "mpdet":
+        state.boiw = BoIWState(*(t.to(device) for t in
+                                 enable_emd_training(state.boiw)))
     state.generator = torch.Generator(device=device).manual_seed(seed)
     return state
 
@@ -2232,12 +2273,8 @@ def timed_train(state, step, batches, ot_after=5):
 
 
 def train_profile(state, step, batch):
-    """Where one full-width step's time goes: torch.profiler over one step
-    (wall time, device busy time, idle share, kernel launches, the ops
-    that take most of the device), and the ATSS targets timed alone."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Where one full-width step's time goes (profile_step), and the ATSS
+    targets timed alone."""
     from glsdet_tpu_torch.ops.priors import grid_anchors
     from glsdet_tpu_torch.train.gfl_loss import gfl_targets
     from glsdet_tpu_torch.train.steps import GFL_STRIDES
@@ -2247,26 +2284,8 @@ def train_profile(state, step, batch):
     targets_ms = cuda_ms(lambda: gfl_targets(
         anchors, counts, batch["gt_boxes"], batch["gt_labels"],
         batch["gt_valid"], 10), 5)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, _ = step(state, batch)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    ops = sorted((e for e in events if e.device_type == DeviceType.CPU
-                  and e.self_device_time_total > 0),
-                 key=lambda e: -e.self_device_time_total)
-    return state, {
-        "profiled_wall_ms": wall_ms, "device_busy_ms": device_ms,
-        "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
-        "kernel_launches": sum(e.count for e in kernels),
-        "atss_targets_ms": targets_ms,
-        "top_ops_ms": [(e.key, e.self_device_time_total / 1e3, e.count)
-                       for e in ops[:12]]}
+    prof = profile_step(lambda: step(state, batch))
+    return state, {**prof, "atss_targets_ms": targets_ms}
 
 
 def one_step(cfg, dtype, batch, noise, seed=3):
@@ -2346,6 +2365,414 @@ def phase_train(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 18-20. the coarse YOLOX trainer, the GFL trainer, GFL in static int8
+
+
+YOLOX_B, YOLOX_MAX_GT = 8, 300           # coarse_det's batch, max_gt
+GFL_B = 4                                # gfl_res50's batch
+YOLOX_NAMES = ("loss", "loss_cls", "loss_bbox", "loss_obj", "loss_l1",
+               "num_fg")
+
+
+def floats(metrics) -> dict:
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def time_steps(state, step, batches, b):
+    """2 warm-up steps, then 10 timed ones (CUDA events around each, the
+    metrics read back once at the end)."""
+    for i in range(2):
+        state, _ = step(state, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(20)]
+    ms = []
+    for i in range(10):
+        ev[2 * i].record()
+        state, m = step(state, batches[i % len(batches)])
+        ev[2 * i + 1].record()
+        ms.append(m)
+    torch.cuda.synchronize()
+    step_ms = [ev[2 * i].elapsed_time(ev[2 * i + 1]) for i in range(10)]
+    mean = sum(step_ms) / 10
+    return state, {"ms_per_step": mean, "step_ms": step_ms,
+                   "img_per_s": b * 1e3 / mean,
+                   "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "first": floats(ms[0]), "last": floats(ms[-1])}
+
+
+def profile_step(run) -> dict:
+    """torch.profiler over one ``run()`` (one train step): wall time,
+    device busy time, idle share, kernel launches, the ops that take most
+    of the device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    ops = sorted((e for e in events if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": device_ms,
+            "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_ops_ms": [(e.key, e.self_device_time_total / 1e3, e.count)
+                           for e in ops[:12]]}
+
+
+def no_sync_step(state, step, batch):
+    """One step under torch.cuda.set_sync_debug_mode("error"): any op that
+    waits for the card raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return state, floats(m)
+
+
+def check_finite(what, metrics, positive=()) -> None:
+    bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+    bad += [k for k in positive if not metrics[k] > 0]
+    if bad:
+        raise AssertionError(f"{what}: {bad} not finite / not positive: "
+                             f"{metrics}")
+
+
+def family_parity(family) -> dict:
+    """One float64 step of a small model of ``family`` from one seeded
+    state (biases and BN statistics jittered, the schedule past its first
+    steps) on the CPU and on the card (TF32 off, as main sets it): the
+    metrics within 1e-5 relative; parameters, BN statistics, EMA and
+    momentum within 1e-5 of each leaf's max."""
+    from glsdet_tpu_torch.config import apply_overrides, get_config
+    from glsdet_tpu_torch.train.steps import (make_gfl_train_step,
+                                              make_yolox_train_step)
+
+    if family == "yolox":
+        cfg = apply_overrides(get_config("coarse_det"),
+                              {"model.phi": "nano",
+                               "data.img_hw": (128, 128)})
+    else:
+        cfg = apply_overrides(get_config("gfl_res50"),
+                              {"model.depth": 18, "model.feat_channels": 64,
+                               "data.img_hw": (128, 128)})
+    runs = []
+    for dev in ("cpu", DEVICE):
+        state = train_state(cfg, dev, seed=1)
+        jitter_bn(state.model)
+        state.model.to(torch.float64)
+        state.ema_params = {n: p.detach().clone() for n, p in
+                            state.model.named_parameters()}
+        state.optimizer.count = 500
+        if family == "yolox":
+            step = make_yolox_train_step(state.model, (128, 128),
+                                         normalize=True)
+            batch = train_batch(np.random.RandomState(0), 2, (128, 128),
+                                60, dev, visdrone=True)
+        else:
+            step = make_gfl_train_step(state.model, (128, 128), 10,
+                                       normalize=True)
+            batch = train_batch(np.random.RandomState(0), 2, (128, 128),
+                                20, dev)
+        state, m = step(state, batch)
+        named = dict(state.model.named_parameters())
+        sd = state.model.state_dict()
+        leaves = {"params": {n: sd[n] for n in named},
+                  "bn_stats": {n: v for n, v in sd.items() if "running" in n},
+                  "momentum": {n: state.optimizer.state[p]["momentum_buffer"]
+                               for n, p in named.items()},
+                  "ema": state.ema_params}
+        runs.append((floats(m), leaves))
+    (cm, cl), (gm, gl) = runs
+    out = {"loss_rel": max(rel(gm[k], cm[k]) for k in cm),
+           "leaves": leaf_errors(gl, cl), "metrics_card": gm}
+    if out["loss_rel"] > 1e-5 or any(e["max_rel"] > 1e-5
+                                     for e in out["leaves"].values()):
+        raise AssertionError(f"{family} card vs CPU: {out}")
+    return out
+
+
+def phase_train_yolox(smi: str) -> dict:
+    """coarse_det's trainer at full width (YOLOX-s, 10 classes, 640x640,
+    batch 8, max_gt 300, bf16 autocast, yolox_sgd with its warm-cos
+    schedule, seeded weights, VisDrone-like batches): card-vs-CPU parity
+    at a small size, 10 timed steps, a profiled step, a step under the
+    sync debug mode, a use_l1 step and one resize_from step each way
+    (640 -> 608 and 640 -> 672)."""
+    from glsdet_tpu_torch.config import get_config
+    from glsdet_tpu_torch.train.loop import family_strides
+    from glsdet_tpu_torch.train.steps import make_yolox_train_step
+
+    t0 = time.perf_counter()
+    out = {"card": smi, "parity": family_parity("yolox")}
+    cfg = get_config("coarse_det")
+    hw = tuple(cfg.data.img_hw)
+    assert (hw, cfg.data.batch_size, cfg.data.max_gt) == (
+        COARSE_HW, YOLOX_B, YOLOX_MAX_GT), cfg
+    rs = np.random.RandomState(0)
+    batches = [train_batch(rs, YOLOX_B, hw, YOLOX_MAX_GT, DEVICE,
+                           visdrone=True) for _ in range(2)]
+    out["gts_per_image"] = [int(v) for b in batches
+                            for v in b["gt_valid"].sum(1).cpu()]
+    state = train_state(cfg, DEVICE)
+
+    def make(**kw):
+        return make_yolox_train_step(
+            state.model, kw.pop("img_hw", hw),
+            strides=family_strides(cfg.model.family), normalize=True,
+            dtype=torch.bfloat16, **kw)
+
+    step = make()
+    state, out["timed"] = time_steps(state, step, batches, YOLOX_B)
+    for k in ("first", "last"):
+        check_finite("train_yolox", out["timed"][k], ("num_fg",))
+    out["profile"] = profile_step(lambda: step(state, batches[0]))
+    state, out["no_sync_step"] = no_sync_step(state, step, batches[0])
+    check_finite("no-sync step", out["no_sync_step"], ("num_fg",))
+    state, m = make(use_l1=True)(state, batches[1])
+    out["use_l1"] = floats(m)
+    check_finite("use_l1 step", out["use_l1"], ("num_fg", "loss_l1"))
+    out["resize_from"] = {}
+    for side in (608, 672):
+        rstep = make(img_hw=(side, side), resize_from=hw)
+        state, m = rstep(state, batches[0])             # warm
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = rstep(state, batches[1])
+        m = floats(m)
+        torch.cuda.synchronize()
+        check_finite(f"resize_from {hw} -> {side}", m, ("num_fg",))
+        out["resize_from"][f"640->{side}"] = {
+            **m, "step_ms_host": 1e3 * (time.perf_counter() - t1)}
+    out["seconds"] = time.perf_counter() - t0
+    del state, step
+    torch.cuda.empty_cache()
+    print(json.dumps({"train_yolox": out}), flush=True)
+    return out
+
+
+def phase_train_gfl(smi: str) -> dict:
+    """gfl_res50's trainer at full width (ResNet-50 + FPN + GFLHead,
+    1024x1024, batch 4, bf16 autocast, remat as configured, mp_sgd,
+    seeded weights, _mk_batch's recipe): card-vs-CPU parity at a small
+    size, 10 timed steps, a profiled step, a step under the sync debug
+    mode."""
+    from glsdet_tpu_torch.config import get_config
+    from glsdet_tpu_torch.train.steps import make_gfl_train_step
+
+    t0 = time.perf_counter()
+    out = {"card": smi, "parity": family_parity("gfl")}
+    cfg = get_config("gfl_res50")
+    hw = tuple(cfg.data.img_hw)
+    assert (hw, cfg.data.batch_size) == (TRAIN_HW, GFL_B), cfg
+    out["remat"] = cfg.model.remat
+    rs = np.random.RandomState(0)
+    batches = [train_batch(rs, GFL_B, hw, TRAIN_MAX_GT, DEVICE)
+               for _ in range(2)]
+    state = train_state(cfg, DEVICE)
+    step = make_gfl_train_step(state.model, hw, cfg.model.num_classes,
+                               normalize=True, dtype=torch.bfloat16)
+    state, out["timed"] = time_steps(state, step, batches, GFL_B)
+    for k in ("first", "last"):
+        check_finite("train_gfl", out["timed"][k], ("loss_bbox",))
+    out["profile"] = profile_step(lambda: step(state, batches[0]))
+    state, out["no_sync_step"] = no_sync_step(state, step, batches[0])
+    check_finite("no-sync step", out["no_sync_step"])
+    out["seconds"] = time.perf_counter() - t0
+    del state, step
+    torch.cuda.empty_cache()
+    print(json.dumps({"train_gfl": out}), flush=True)
+    return out
+
+
+def matched_share(ref, got, top=10) -> float:
+    """Share of each frame's ``top`` highest-scoring ``ref`` detections
+    with a ``got`` detection of the same label, IoU > 0.5 and a score
+    within 0.3."""
+    hits = n = 0
+    for r, g in zip(ref, got):
+        order = np.argsort(-r["scores"])[:top]
+        for i in order:
+            box = r["boxes"][i]
+            cand = ((g["labels"] == r["labels"][i])
+                    & (np.abs(g["scores"] - r["scores"][i]) < 0.3))
+            o = g["boxes"][cand]
+            lt = np.maximum(o[:, :2], box[:2])
+            rb = np.minimum(o[:, 2:], box[2:])
+            inter = np.prod(np.clip(rb - lt, 0, None), axis=1)
+            area = lambda x: np.prod(x[..., 2:] - x[..., :2], axis=-1)  # noqa
+            iou = inter / np.maximum(area(o) + area(box) - inter, 1e-9)
+            hits += int((iou > 0.5).any())
+            n += 1
+    return hits / max(n, 1)
+
+
+def gfl_nms(nms_calls) -> dict:
+    """B2 at the inputs the GFL Detector gave it in each run: the keep
+    mask the path got equal to nms_sorted_plain's on the same sorted
+    boxes, valid flags, threshold and offset; each launch of the int8 run
+    timed with its plain version and bound, summed per batch."""
+    from glsdet_tpu_torch.ops.nms import nms_sorted_plain
+
+    for run, captured in nms_calls.items():
+        for bx, vd, thr, off, keep in captured:
+            if not torch.equal(keep, nms_sorted_plain(bx, vd, thr, off)):
+                raise AssertionError(
+                    f"gfl {run} NMS {tuple(bx.shape)}: keep mask differs "
+                    "from nms_sorted_plain")
+    launches = []
+    total = dict.fromkeys(("ms", "graph_ms", "plain_ms", "bound_ms"), 0.0)
+    share = {"bytes": 0.0, "operations": 0.0}
+    for bx, vd, thr, off, keep in nms_calls["int8"]:
+        t, b = nms_times(bx, vd, thr, off), nms_bound(bx, vd, keep)
+        launches.append({"batch": bx.shape[0], "k": bx.shape[1],
+                         "offset": off, "threshold": thr,
+                         "valid": int(vd.sum()), "kept": int(keep.sum()),
+                         **t, **b})
+        for key in total:
+            total[key] += t[key] if key in t else b[key]
+        share[b["bound_by"]] += b["bound_ms"]
+    return {"launches": launches, "per_batch": total,
+            "bound_by": max(share, key=share.get),
+            "bf16_launches": len(nms_calls["bf16"]), "masks_equal": True,
+            "max_abs_err": 0.0}
+
+
+def phase_gfl_int8(frames) -> dict:
+    """Detector("gfl_res50") on the card from a state-dict file, in bf16
+    and in static int8 (lazy calibration on the first batch, the scales
+    saved): the int8 model vs bf16 on one input (relative max error <
+    0.3), B3 launched 40 times per int8 batch (5 levels x 8) and, on the
+    accumulators this path gives it, within +-1 code of
+    gn_relu_quant_acc_plain, timed; B2 (gfl_postprocess's NMS) on the
+    inputs each run gives it, its keep mask equal to nms_sorted_plain's,
+    timed beside its bound; the int8 detections vs bf16's (the top 10 per
+    frame matched at IoU > 0.5, scores within 0.3); img/s."""
+    from glsdet_tpu_torch.apis import Detector
+    from glsdet_tpu_torch.config import get_config
+    from glsdet_tpu_torch.models.build import build_model
+    from glsdet_tpu_torch.ops import gn_kernel
+    from glsdet_tpu_torch.ops import nms as nms_mod
+    from glsdet_tpu_torch.ops import quant_static as tq
+
+    t0 = time.perf_counter()
+    imgs = frames[:4]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "gfl_res50.pt")
+        torch.save(build_model(get_config("gfl_res50"), "cpu").state_dict(),
+                   path)
+        scales_path = os.path.join(tmp, "gfl_int8_scales.json")
+        bf = Detector("gfl_res50", path, device=DEVICE)
+        q8 = Detector("gfl_res50", path, quant8="static",
+                      int8_scales=scales_path, device=DEVICE)
+        bf.detect_batch(imgs)
+        q8.detect_batch(imgs)                   # calibrates, saves
+        saved = os.path.exists(scales_path)
+    if not saved or type(q8._net.head) is not tq.Int8GFLHead:
+        raise AssertionError("gfl int8: scales not saved or head not int8")
+    x = bf._inputs(imgs)
+    with torch.inference_mode():
+        errs = rel_errors(q8._net(x), bf._net(x))
+    if max(errs) >= 0.3:
+        raise AssertionError(f"gfl int8 vs bf16 rel err {errs}")
+    calls, nms_calls = [], {"int8": [], "bf16": []}
+    real, real_nms = tq.gn_relu_quant_acc, nms_mod.nms_sorted_cuda
+
+    def spy(acc, deq, gamma, beta, s_out, **kw):
+        out = real(acc, deq, gamma, beta, s_out, **kw)
+        calls.append((acc, deq, gamma, beta, s_out, kw, out))
+        return out
+
+    def nms_spy(run):
+        def nms(bx, vd, thr, offset=0.0):
+            keep = real_nms(bx, vd, thr, offset)
+            nms_calls[run].append((bx.clone(), vd.clone(), float(thr),
+                                   float(offset), keep.clone()))
+            return keep
+        return nms
+
+    torch.cuda.synchronize()
+    reset_launches()
+    tq.gn_relu_quant_acc, nms_mod.nms_sorted_cuda = spy, nms_spy("int8")
+    try:
+        res8 = q8.detect_batch(imgs)
+        torch.cuda.synchronize()
+    finally:
+        tq.gn_relu_quant_acc, nms_mod.nms_sorted_cuda = real, real_nms
+    launches = read_launches()
+    nms_mod.nms_sorted_cuda = nms_spy("bf16")
+    try:
+        res16 = bf.detect_batch(imgs)
+        torch.cuda.synchronize()
+    finally:
+        nms_mod.nms_sorted_cuda = real_nms
+    if launches["gn"] != 40 or len(calls) != 40 or launches["nms"] < 1 \
+            or len(nms_calls["int8"]) != launches["nms"] \
+            or not nms_calls["bf16"]:
+        n_nms = {run: len(v) for run, v in nms_calls.items()}
+        raise AssertionError(f"gfl int8 launches {launches}, {len(calls)} "
+                             f"tower calls, NMS calls {n_nms} (want 40 GN, "
+                             ">= 1 NMS in each run)")
+    nms = gfl_nms(nms_calls)
+    n8, n16 = check_results(res8, 4), check_results(res16, 4)
+    share = matched_share(res16, res8)
+    if n16 == 0 or share < 0.5:
+        raise AssertionError(f"gfl int8 detections vs bf16: {n8} / {n16}, "
+                             f"matched {share}")
+    # B3 on this path's own accumulators, against its plain version
+    worst, share_diff = 0.0, 0.0
+    ms = plain_ms = bound_ms = 0.0
+    levels = []
+    for acc, deq, gamma, beta, s_out, kw, got in calls:
+        want = gn_kernel.gn_relu_quant_acc_plain(
+            acc, deq, gamma, beta, s_out, kw["groups"], kw["eps"],
+            kw["dtype"])
+        c = check_codes(got, want, f"gfl int8 {tuple(acc.shape)}")
+        worst = max(worst, c["max_abs_err"])
+        share_diff = max(share_diff, c["share_differing"])
+    seen = set()
+    for acc, deq, gamma, beta, s_out, kw, _ in calls:
+        shape = tuple(acc.shape)
+        if shape in seen:
+            continue
+        seen.add(shape)
+        k = cuda_ms(lambda: real(acc, deq, gamma, beta, s_out, **kw))
+        p = cuda_ms(lambda: gn_kernel.gn_relu_quant_acc_plain(
+            acc, deq, gamma, beta, s_out, kw["groups"], kw["eps"],
+            kw["dtype"]))
+        bd = bound(acc.numel() * 5, 0.0, PEAK_F32)   # int32 in, int8 out
+        n = sum(1 for c in calls if tuple(c[0].shape) == shape)
+        levels.append({"shape": list(shape), "calls": n, "ms": k,
+                       "plain_ms": p, **bd,
+                       "plan": gn_kernel.plan(torch.int32, *shape)})
+        ms += n * k
+        plain_ms += n * p
+        bound_ms += n * bd["bound_ms"]
+    out = {"launches": launches, "max_rel_err_vs_bf16": max(errs),
+           "gn_max_abs_err": worst, "gn_share_differing": share_diff,
+           "levels": levels, "gn_ms_40": ms, "gn_plain_ms_40": plain_ms,
+           "gn_bound_ms_40": bound_ms, "nms": nms, "detections_int8": n8,
+           "detections_bf16": n16, "top10_matched_share": share,
+           "img_per_s_bf16": batch_img_per_s(bf, imgs),
+           "img_per_s_int8": batch_img_per_s(q8, imgs),
+           "seconds": time.perf_counter() - t0}
+    log("gfl_int8", **out)
+    del bf, q8
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     # float32 products of the plain versions stay float32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2381,6 +2808,9 @@ def main() -> None:
         serve8 = phase_serve_int8(frames, paths, serve)
         phase_detector(frames, paths)
     phase_train(smi)
+    phase_train_yolox(smi)
+    phase_train_gfl(smi)
+    gfl8 = phase_gfl_int8(frames)
     launches = bf16["launches"]
     sk = serve["kernels"]
     print(json.dumps({"kernels": [
@@ -2391,7 +2821,15 @@ def main() -> None:
          "serve_launches": serve["launches"]["nms"],
          "serve_fusion_ms": sum(t["ms"] for t in sk["fusion_nms"]),
          "serve_fusion_bound_ms": sum(t["bound_ms"]
-                                      for t in sk["fusion_nms"])},
+                                      for t in sk["fusion_nms"]),
+         "gfl_int8_launches": gfl8["launches"]["nms"],
+         "gfl_int8_shapes": [[t["batch"], t["k"]]
+                             for t in gfl8["nms"]["launches"]],
+         "gfl_int8_ms": gfl8["nms"]["per_batch"]["ms"],
+         "gfl_int8_plain_ms": gfl8["nms"]["per_batch"]["plain_ms"],
+         "gfl_int8_bound_ms": gfl8["nms"]["per_batch"]["bound_ms"],
+         "gfl_int8_bound_by": gfl8["nms"]["bound_by"],
+         "gfl_int8_max_abs_err": gfl8["nms"]["max_abs_err"]},
         {"name": "paint_mosaic", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/paint.cu",
          "replaces": "glsdet_tpu/ufp/pallas_paint.py:368",
@@ -2404,7 +2842,12 @@ def main() -> None:
          "replaces": "glsdet_tpu/ops/pallas_gn.py:173",
          "launches": int8["launches"]["gn"], **gn,
          "serve_int8_launches": serve8["launches"]["gn"],
-         "serve_int8_ladder_launches": serve8["ladder"]["launches"]["gn"]},
+         "serve_int8_ladder_launches": serve8["ladder"]["launches"]["gn"],
+         "gfl_int8_launches": gfl8["launches"]["gn"],
+         "gfl_int8_ms_40": gfl8["gn_ms_40"],
+         "gfl_int8_plain_ms_40": gfl8["gn_plain_ms_40"],
+         "gfl_int8_bound_ms_40": gfl8["gn_bound_ms_40"],
+         "gfl_int8_max_abs_err": gfl8["gn_max_abs_err"]},
         {"name": "fused_bottleneck", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/bottleneck.cu",
          "replaces": "glsdet_tpu/ops/pallas_bottleneck.py:212",

@@ -42,10 +42,18 @@ def yolox_postprocess(cls_out: Sequence[torch.Tensor],
                       img_hw: Tuple[int, int],
                       strides: Sequence[int] = (8, 16, 32),
                       score_thr: float = 0.01, iou_thr: float = 0.65,
-                      max_dets: int = 100) -> dict:
+                      max_dets: int = 100,
+                      apply_sigmoid: str = "all") -> dict:
     """YOLOX decode with the reference's single-label semantics: score =
-    sigmoid(obj) * max-class sigmoid(cls), one candidate per anchor,
-    then class-wise NMS."""
+    obj * max-class cls, one candidate per anchor, then class-wise NMS.
+
+    ``apply_sigmoid`` serves the loss-ablation heads whose decode bakes
+    in (or leaves out) the activations: ``"all"`` (sigmoid on obj and
+    cls, the default), ``"cls"`` (cls only, the ``cls_sigmoid`` loss
+    variant), ``"obj"`` (obj only) or ``"none"`` (raw maps, the
+    ``no_sigmoid`` variant)."""
+    if apply_sigmoid not in ("all", "cls", "obj", "none"):
+        raise ValueError(f"apply_sigmoid {apply_sigmoid!r}")
     def make():
         centers, strides_np, _ = grid_points(img_hw, strides, offset=0.5)
         return centers / strides_np[:, None] - 0.5, strides_np
@@ -55,8 +63,12 @@ def yolox_postprocess(cls_out: Sequence[torch.Tensor],
 
     cls_f, reg_f, obj_f = flatten_head_outputs(cls_out, reg_out, obj_out)
     boxes = decode_boxes(reg_f.float(), grids, stride_v)
-    scores = torch.sigmoid(cls_f.float()) * torch.sigmoid(obj_f.float())[
-        ..., None]
+    cls_p, obj_p = cls_f.float(), obj_f.float()
+    if apply_sigmoid in ("all", "cls"):
+        cls_p = torch.sigmoid(cls_p)
+    if apply_sigmoid in ("all", "obj"):
+        obj_p = torch.sigmoid(obj_p)
+    scores = cls_p * obj_p[..., None]
     # keep only each anchor's max-class entry: zeroed entries never pass
     # score_thr's strict > test
     best = scores.argmax(dim=-1, keepdim=True)

@@ -4,8 +4,8 @@ The port's models are float32 modules initialised with the JAX package's
 initializers from an explicit ``torch.Generator``; where they compute in
 bfloat16 is the caller's choice (``TwoStagePipeline``, ``apis.Detector``,
 the train step's autocast), so ``cfg.model.dtype`` selects nothing here.
-``cfg.model.remat`` checkpoints MP-Det's ResNet blocks and head towers
-in training.
+``cfg.model.remat`` checkpoints MP-Det's and GFLDet's ResNet blocks and
+head towers in training.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 
 from glsdet_tpu_torch.config import Config
-from glsdet_tpu_torch.models.detectors import MPDet, YOLOXDetector
+from glsdet_tpu_torch.models.detectors import GFLDet, MPDet, YOLOXDetector
 
 
 def resolve_device(device) -> torch.device:
@@ -35,7 +35,8 @@ def build_model(cfg: Config, device="cuda",
     """The model ``cfg.model`` names, float32, in eval mode, on
     ``device``.  Weights come from ``generator`` (default:
     ``torch.Generator().manual_seed(0)``).  Families ``yolox`` (no
-    ``variant``) and ``mpdet``; the others are still to be ported."""
+    ``variant``), ``mpdet`` and ``gfl``; ``ffa`` and the YOLOX variants
+    are still to be ported."""
     dev = resolve_device(device)
     m = cfg.model
     if generator is None:
@@ -51,9 +52,8 @@ def build_model(cfg: Config, device="cuda",
                       proxies_list=m.proxies_list, gamma=m.gamma,
                       remat=m.remat, generator=generator)
     elif m.family == "gfl":
-        raise NotImplementedError(
-            "family 'gfl': GFLHead and GFLDet are not ported yet "
-            "(ROADMAP.md, queue A item 5)")
+        model = GFLDet(m.num_classes, m.depth, m.feat_channels,
+                       remat=m.remat, generator=generator)
     elif m.family == "ffa":
         raise NotImplementedError(
             "family 'ffa': the variant zoo is not ported yet (ROADMAP.md, "

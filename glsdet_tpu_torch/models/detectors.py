@@ -3,9 +3,11 @@
 - ``YOLOXDetector``: CSPDarknet -> PAFPN -> decoupled head (the coarse
   detector of the two-stage path; no attention variants yet).
 - ``MPDet``: ResNet -> FPN (5 levels) -> MPHead.
+- ``GFLDet``: ResNet -> FPN (5 levels) -> GFLHead (the plain GFL
+  single-stage detector, MP-Det's ablation baseline).
 
-Both take NCHW images and return the head's per-level NHWC maps, and
-both are initialised from an explicit ``torch.Generator`` with the JAX
+All take NCHW images and return the head's per-level NHWC maps, and
+all are initialised from an explicit ``torch.Generator`` with the JAX
 package's initializers.
 """
 
@@ -20,6 +22,7 @@ from glsdet_tpu_torch.models.csp_darknet import (PHI_TABLE, CSPDarknet,
                                                  scaled_channels,
                                                  scaled_depths)
 from glsdet_tpu_torch.models.fpn import FPN
+from glsdet_tpu_torch.models.gfl_head import GFLHead
 from glsdet_tpu_torch.models.layers import flax_init_
 from glsdet_tpu_torch.models.mp_head import VISDRONE_PROXIES, MPHead
 from glsdet_tpu_torch.models.pafpn import YOLOXPAFPN
@@ -66,6 +69,25 @@ class MPDet(nn.Module):
         self.head = MPHead(num_classes, feat_channels,
                            proxies_list=tuple(proxies_list), gamma=gamma,
                            remat=remat)
+        flax_init_(self, generator)
+
+    def forward(self, images):
+        feats = self.backbone(images)[1:]       # FPN start_level=1
+        return self.head(self.neck(feats))
+
+
+class GFLDet(nn.Module):
+    """ResNet + FPN + GFLHead (the gfl_res50 configuration); ``remat``
+    checkpoints the ResNet blocks and each level's head towers in
+    training, as MPDet's does."""
+
+    def __init__(self, num_classes: int = 10, depth: int = 50,
+                 feat_channels: int = 256, remat: bool = False, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.backbone = ResNet(depth, remat=remat)
+        self.neck = FPN(self.backbone.out_channels[1:], feat_channels, 5)
+        self.head = GFLHead(num_classes, feat_channels, remat=remat)
         flax_init_(self, generator)
 
     def forward(self, images):

@@ -1,4 +1,8 @@
-"""``cv2.resize(img, (w, h))`` (INTER_LINEAR on uint8) in integer torch ops.
+"""Image resizes of the port: ``cv2.resize`` on uint8 frames
+(:func:`resize_linear_u8`) and ``jax.image.resize(..., "bilinear")`` on
+float batches (:func:`resize_bilinear`).
+
+``cv2.resize(img, (w, h))`` (INTER_LINEAR on uint8) in integer torch ops.
 
 ``apis.Detector`` resizes every frame as the JAX package's does, with
 OpenCV; the GPU machine has no OpenCV, so this module repeats its
@@ -22,7 +26,7 @@ a mixed one, the 2x reduction and the identity.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -79,3 +83,55 @@ def resize_linear_u8(img: torch.Tensor, out_hw: Tuple[int, int]
     out = (((b0[:, None, None] * h0) >> 16)
            + ((b1[:, None, None] * h1) >> 16) + 2) >> 2
     return out.clamp(0, 255).to(torch.uint8)
+
+
+_F32 = np.float32
+_weights: Dict[tuple, torch.Tensor] = {}
+
+
+def bilinear_weights(src: int, dst: int) -> np.ndarray:
+    """(src, dst) float32 weights of ``jax.image.resize``'s "bilinear"
+    along one axis (``scale_and_translate``'s ``compute_weight_mat``,
+    antialiased): the triangle kernel widened by ``src / dst`` when it
+    shrinks, each column renormalised to sum 1 (so the borders, where
+    taps fall outside, are not darkened), every step in float32 as JAX
+    computes it."""
+    inv_scale = _F32(1.0 / (dst / src))
+    kernel_scale = max(inv_scale, _F32(1.0))
+    sample = ((np.arange(dst, dtype=_F32) + _F32(0.5)) * inv_scale
+              - _F32(0.5))
+    x = np.abs(sample[None, :] - np.arange(src, dtype=_F32)[:, None]) \
+        / kernel_scale
+    w = np.maximum(_F32(0.0), _F32(1.0) - x)
+    total = w.sum(axis=0, keepdims=True, dtype=_F32)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, _F32(1.0)), _F32(0.0))
+    inside = (sample >= -0.5) & (sample <= src - 0.5)
+    return np.where(inside[None, :], w, _F32(0.0)).astype(_F32)
+
+
+def _weight(src: int, dst: int, device) -> torch.Tensor:
+    """:func:`bilinear_weights` on ``device``, made once per (src, dst,
+    device) and kept: a later resize copies nothing to the card."""
+    key = (src, dst, torch.device(device))
+    if key not in _weights:
+        _weights[key] = torch.from_numpy(bilinear_weights(src, dst)).to(
+            key[2])
+    return _weights[key]
+
+
+def resize_bilinear(images: torch.Tensor, out_hw: Tuple[int, int]
+                    ) -> torch.Tensor:
+    """(B, H, W, C) float -> (B, h, w, C), as ``jax.image.resize(images,
+    (B, h, w, C), "bilinear")``: one weight matrix per resized axis, each
+    applied as a matrix product (an axis whose size is kept is left as it
+    is, as JAX skips it)."""
+    h, w = int(out_hw[0]), int(out_hw[1])
+    x = images
+    if x.shape[1] != h:
+        x = torch.einsum("bhwc,hk->bkwc", x,
+                         _weight(x.shape[1], h, x.device).to(x.dtype))
+    if x.shape[2] != w:
+        x = torch.einsum("bhwc,wk->bhkc", x,
+                         _weight(x.shape[2], w, x.device).to(x.dtype))
+    return x

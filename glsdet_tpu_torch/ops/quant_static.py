@@ -13,9 +13,11 @@ counterpart of ``glsdet_tpu/ops/quant_static.py``.
 
    - ``ResNet`` at depth >= 50 -> :class:`Int8ResNet`, an explicit int8
      dataflow (int8 tensors between every conv and block, BN folded);
-   - ``MPHead`` -> :class:`Int8MPHead`: int8 GN towers whose GroupNorm ->
-     ReLU -> requant step is the CUDA kernel of ``ops/gn_kernel.py`` on the
-     card; the predictor convs and the proxy scores stay full precision;
+   - ``MPHead`` -> :class:`Int8MPHead` and ``GFLHead`` ->
+     :class:`Int8GFLHead`: int8 GN towers whose GroupNorm -> ReLU ->
+     requant step is the CUDA kernel of ``ops/gn_kernel.py`` on the card
+     (8 launches per level: 40 per batch at five levels); the predictor
+     convs and the proxy scores stay full precision;
    - otherwise per module: ``ConvNormAct``/``ResNetConv`` with groups 1 and
      in/out >= ``min_channels`` -> :class:`QConvNormAct` (int8 conv, folded
      BN or GN, activation, output fake-quant); bare ``Conv2d`` with in/out
@@ -48,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from glsdet_tpu_torch.models.build import resolve_device
+from glsdet_tpu_torch.models.gfl_head import GFLHead
 from glsdet_tpu_torch.models.layers import ConvNormAct
 from glsdet_tpu_torch.models.mp_head import MPHead, proxy_scores
 from glsdet_tpu_torch.models.resnet import (BasicBlock, Bottleneck, ResNet,
@@ -406,7 +409,7 @@ class Int8ResNet(Int8Module):
 
 
 # --------------------------------------------------------------------------
-# explicit int8 MP head (quant_static.py:479-599)
+# explicit int8 GFL and MP heads (quant_static.py:479-599)
 # --------------------------------------------------------------------------
 
 class _Int8Tower(Int8Module):
@@ -440,13 +443,15 @@ class _Int8Tower(Int8Module):
         return (q.float() * self.s_outs[-1]).to(x.dtype)
 
 
-class Int8MPHead(Int8Module):
-    """``MPHead`` with int8 cls/reg towers.  ``gfl_cls_conv`` and
-    ``gfl_reg`` stay full precision in the compute dtype (``_pred_conv``),
-    and the proxy scores are computed in float32 against float32 proxies.
-    Raises ``KeyError`` when a scale is missing."""
+class _Int8GNHead(Int8Module):
+    """The int8 part of a GN-tower head (``GFLHead``, ``MPHead``): the cls
+    and reg towers as :class:`_Int8Tower` s, the full-precision box
+    predictor ``gfl_reg`` (compute dtype) and the per-level ``Scale`` s.
+    ``cls_pred``: the name of the class predictor conv, also kept in full
+    precision.  Raises ``KeyError`` when a scale is missing."""
 
-    def __init__(self, m: MPHead, scales: Dict[str, float], prefix: str):
+    def __init__(self, m: nn.Module, scales: Dict[str, float], prefix: str,
+                 cls_pred: str):
         super().__init__()
 
         def s_of(key):
@@ -458,13 +463,12 @@ class Int8MPHead(Int8Module):
             self.add_module(f"{t}_tower", _Int8Tower(
                 convs, s_of(f"{t}_conv0.in"),
                 [s_of(f"{t}_conv{i}.out") for i in range(n)]))
-        self.gfl_cls_conv = copy.deepcopy(m.gfl_cls_conv)
+        self.cls_pred = cls_pred
+        self.add_module(cls_pred, copy.deepcopy(getattr(m, cls_pred)))
         self.gfl_reg = copy.deepcopy(m.gfl_reg)
         for i in range(m.num_levels):
             self.add_module(f"scale{i}", copy.deepcopy(getattr(m, f"scale{i}")))
-        self.register_buffer("proxies", m.proxies.detach().float().clone())
-        self.register_buffer("membership", m.membership.float().clone())
-        self.gamma, self.num_classes = m.gamma, m.num_classes
+        self.num_classes = m.num_classes
 
     @staticmethod
     def _pred_conv(x, conv):
@@ -473,15 +477,49 @@ class Int8MPHead(Int8Module):
         return (F.conv2d(x, conv.weight, None, conv.stride, conv.padding)
                 + conv.bias[:, None, None])
 
-    def forward(self, feats):
-        cls_out, bbox_preds = [], []
+    def levels(self, feats):
+        """Per level: the class predictor's NHWC output in the compute
+        dtype and the float32 NHWC box distributions."""
         for lvl, x in enumerate(feats):
             cls_feat = _nchw(self.cls_tower(x))
             reg_feat = _nchw(self.reg_tower(x))
             bp = getattr(self, f"scale{lvl}")(
                 self._pred_conv(reg_feat, self.gfl_reg))
-            bbox_preds.append(_nhwc(bp).float())
-            cf = _nhwc(self._pred_conv(cls_feat, self.gfl_cls_conv))
+            cf = self._pred_conv(cls_feat, getattr(self, self.cls_pred))
+            yield _nhwc(cf), _nhwc(bp).float()
+
+
+class Int8GFLHead(_Int8GNHead):
+    """``GFLHead`` with int8 cls/reg towers (the non-MP branch of the JAX
+    package's ``_int8_head_forward``): ``gfl_cls`` and ``gfl_reg`` stay
+    full precision, the class logits in the compute dtype."""
+
+    def __init__(self, m: GFLHead, scales: Dict[str, float], prefix: str):
+        super().__init__(m, scales, prefix, "gfl_cls")
+
+    def forward(self, feats):
+        cls_out, bbox_preds = [], []
+        for cf, bp in self.levels(feats):
+            cls_out.append(cf)
+            bbox_preds.append(bp)
+        return cls_out, bbox_preds
+
+
+class Int8MPHead(_Int8GNHead):
+    """``MPHead`` with int8 cls/reg towers.  ``gfl_cls_conv`` and
+    ``gfl_reg`` stay full precision in the compute dtype, and the proxy
+    scores are computed in float32 against float32 proxies."""
+
+    def __init__(self, m: MPHead, scales: Dict[str, float], prefix: str):
+        super().__init__(m, scales, prefix, "gfl_cls_conv")
+        self.register_buffer("proxies", m.proxies.detach().float().clone())
+        self.register_buffer("membership", m.membership.float().clone())
+        self.gamma = m.gamma
+
+    def forward(self, feats):
+        cls_out, bbox_preds = [], []
+        for cf, bp in self.levels(feats):
+            bbox_preds.append(bp)
             b, h, w, c = cf.shape
             sc = proxy_scores(cf.reshape(-1, c).float(), self.proxies,
                               self.membership, self.gamma)
@@ -504,9 +542,10 @@ def _quantized(name: str, m: nn.Module, parent: Optional[nn.Module],
             return Int8ResNet(m, scales, key)
         except KeyError:
             pass
-    if type(m) is MPHead:
+    head = {MPHead: Int8MPHead, GFLHead: Int8GFLHead}.get(type(m))
+    if head is not None:
         try:
-            return Int8MPHead(m, scales, key)
+            return head(m, scales, key)
         except KeyError:
             pass
     if type(m) in REWRITE_KINDS and _eligible(m, min_channels):

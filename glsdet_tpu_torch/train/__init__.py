@@ -1,6 +1,7 @@
-"""Training: MP-Det's losses, targets, BoIW dictionary, schedules, state
-and step (the counterpart of ``glsdet_tpu.train``; the YOLOX and plain
-GFL trainers are still to be ported)."""
+"""Training: the YOLOX (SimOTA), MP-Det and plain GFL losses, targets and
+steps, the BoIW dictionary, schedules and state (the counterpart of
+``glsdet_tpu.train``; the loop with its data pipeline is still to be
+ported)."""
 
 from glsdet_tpu_torch.train.boiw import (BoIWState, enable_emd_training,
                                          init_boiw, update_dictionary,
@@ -13,7 +14,14 @@ from glsdet_tpu_torch.train.schedules import (ema_momentum, epoch_step_decay,
                                               mp_det_sgd, schedule_1x,
                                               yolox_sgd, yolox_warm_cos)
 from glsdet_tpu_torch.train.state import TrainState, apply_updates
-from glsdet_tpu_torch.train.steps import make_mpdet_train_step, stack_batches
+from glsdet_tpu_torch.train.steps import (make_gfl_train_step,
+                                          make_mpdet_train_step,
+                                          make_yolox_train_step,
+                                          stack_batches)
+from glsdet_tpu_torch.train.yolox_loss import (YOLOXLossOut, yolox_loss,
+                                               yolox_loss_3assign,
+                                               yolox_loss_decoupled,
+                                               yolox_loss_fpn_weight)
 
 __all__ = [
     "BoIWState", "enable_emd_training", "init_boiw", "update_dictionary",
@@ -21,5 +29,7 @@ __all__ = [
     "MPLossOut", "contrastive_loss", "mp_loss", "ot_proxy_loss",
     "ema_momentum", "epoch_step_decay", "mp_det_sgd", "schedule_1x",
     "yolox_sgd", "yolox_warm_cos", "TrainState", "apply_updates",
-    "make_mpdet_train_step", "stack_batches",
+    "make_gfl_train_step", "make_mpdet_train_step", "make_yolox_train_step",
+    "stack_batches", "YOLOXLossOut", "yolox_loss", "yolox_loss_3assign",
+    "yolox_loss_decoupled", "yolox_loss_fpn_weight",
 ]

@@ -1,6 +1,6 @@
-"""Config -> optimizer and train state, the counterparts of
-``build_optimizer`` and ``make_state_template`` in
-``glsdet_tpu.train.loop``.  The loop itself (``train()``, checkpoints,
+"""Config -> head strides, optimizer and train state, the counterparts
+of ``family_strides``, ``build_optimizer`` and ``make_state_template``
+in ``glsdet_tpu.train.loop``.  The loop itself (``train()``, checkpoints,
 loaders, the hooks' cadence) comes with the data pipeline (ROADMAP.md,
 queue A item 11); until then a caller drives the step and the OT hook
 (``update_ot`` every ``train.ot_interval`` steps while the epoch is
@@ -14,9 +14,20 @@ import torch
 from torch import nn
 
 from glsdet_tpu_torch.config import Config
+from glsdet_tpu_torch.models.detectors import GFL_STRIDES, YOLOX_STRIDES
 from glsdet_tpu_torch.train import schedules
 from glsdet_tpu_torch.train.boiw import init_boiw
 from glsdet_tpu_torch.train.state import TrainState
+
+
+def family_strides(family: str):
+    """Head strides of a model family (ffa adds the P2 level): what
+    ``make_yolox_train_step(strides=)`` takes for the config's model."""
+    if family == "ffa":
+        return (4, *YOLOX_STRIDES)
+    if family in ("mpdet", "gfl"):
+        return GFL_STRIDES
+    return YOLOX_STRIDES
 
 
 def build_optimizer(cfg: Config, steps_per_epoch: int, model: nn.Module
@@ -50,7 +61,8 @@ def make_state_template(cfg: Config, model: nn.Module,
                         optimizer: torch.optim.Optimizer,
                         generator: torch.Generator) -> TrainState:
     """A fresh :class:`TrainState`; MP-Det configs carry a BoIW
-    dictionary drawn from ``generator`` (on its device)."""
+    dictionary drawn from ``generator`` (on its device), the YOLOX and
+    GFL families none."""
     boiw = None
     if cfg.model.family == "mpdet":
         boiw = init_boiw(generator, cfg.model.num_classes,

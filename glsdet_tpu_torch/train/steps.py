@@ -1,6 +1,8 @@
-"""The MP-Det train step, the counterpart of ``glsdet_tpu.train.steps``
-(``make_mpdet_train_step``; the YOLOX and plain GFL steps are still to
-be ported, ROADMAP.md queue A item 12).
+"""The train steps of the three detector families, the counterparts of
+``glsdet_tpu.train.steps``: ``make_yolox_train_step`` (SimOTA and the
+YOLOX loss, the coarse detector's), ``make_mpdet_train_step`` (ATSS,
+GFL and the proxy/BoIW/OT losses) and ``make_gfl_train_step`` (ATSS and
+GFL, the MP-Det ablation baseline).
 
 Batch dict contract (fixed shapes, tensors on the model's device):
     images:    (B, H, W, 3) uint8 RGB (``normalize=True``) or already
@@ -26,13 +28,104 @@ from torch import nn
 from glsdet_tpu_torch.data.device_color import (apply_batch_color,
                                                 imagenet_stats,
                                                 normalize_images)
-from glsdet_tpu_torch.models.detectors import GFL_STRIDES
+from glsdet_tpu_torch.models.detectors import GFL_STRIDES, YOLOX_STRIDES
 from glsdet_tpu_torch.models.mp_head import proxy_class_matrix
-from glsdet_tpu_torch.ops.priors import grid_anchors
-from glsdet_tpu_torch.train.gfl_loss import gfl_targets
+from glsdet_tpu_torch.models.yolox_head import flatten_head_outputs
+from glsdet_tpu_torch.ops.image import resize_bilinear
+from glsdet_tpu_torch.ops.priors import grid_anchors, grid_points
+from glsdet_tpu_torch.train.gfl_loss import gfl_loss, gfl_targets
 from glsdet_tpu_torch.train.mp_loss import mp_loss
 from glsdet_tpu_torch.train.state import TrainState, apply_updates
+from glsdet_tpu_torch.train.yolox_loss import yolox_loss
 
+
+def _device_dtype(model: nn.Module):
+    param = next(model.parameters())
+    return param.device, param.dtype
+
+
+def _gfl_anchors(img_hw, dev):
+    """GFL anchors (octave scale 8) at ``img_hw``, their level counts,
+    centres and strides, made once on ``dev``."""
+    anchors_np, counts = grid_anchors(img_hw, GFL_STRIDES,
+                                      octave_base_scale=8.0)
+    anchors = torch.from_numpy(anchors_np).to(dev)
+    centers = (anchors[:, :2] + anchors[:, 2:4]) / 2.0
+    strides = torch.from_numpy(np.concatenate([
+        np.full((n,), s, np.float32)
+        for n, s in zip(counts, GFL_STRIDES)])).to(dev)
+    return anchors, counts, centers, strides
+
+
+def _flat_levels(maps, b):
+    return torch.cat([m.reshape(b, -1, m.shape[-1]) for m in maps], dim=1)
+
+
+def _step_end(state, total, new_boiw=None):
+    state.optimizer.zero_grad(set_to_none=True)
+    total.backward()
+    return apply_updates(state, new_boiw=new_boiw)
+
+
+def make_yolox_train_step(model: nn.Module, img_hw: Tuple[int, int],
+                          use_l1: bool = False,
+                          strides: Tuple[int, ...] = YOLOX_STRIDES,
+                          normalize: bool = False,
+                          resize_from: Optional[Tuple[int, int]] = None,
+                          bbox_loss_mode: str = "square",
+                          dtype: torch.dtype = torch.float32) -> Callable:
+    """Returns ``step(state, batch) -> (state, metrics)`` of the YOLOX
+    recipe: the forward in training mode (under autocast to ``dtype``
+    when it is not float32; the head outputs are cast to float32 for
+    the loss), SimOTA and :func:`yolox_loss` (``use_l1`` for the last
+    no-mosaic epochs, ``bbox_loss_mode``), one optimizer step and the
+    EMA.  Metrics: ``loss``, ``loss_cls``, ``loss_bbox``, ``loss_obj``,
+    ``loss_l1``, ``num_fg``, detached.
+
+    ``resize_from``: batches arrive at this size and the step resizes
+    the images to ``img_hw`` on the device as ``jax.image.resize``'s
+    "bilinear" does (``ops/image.py: resize_bilinear``), before the
+    normalisation, and scales the GT boxes by the ratio: the
+    multi-scale primitive (one base size from the loader, each target
+    size its own step).  The priors are made once on the model's
+    device; the images enter the model in its parameters' dtype."""
+    dev, param_dtype = _device_dtype(model)
+    centers_np, strides_np, _ = grid_points(img_hw, strides, offset=0.5)
+    priors_cxy = torch.from_numpy(centers_np).to(dev)
+    priors_stride = torch.from_numpy(strides_np).to(dev)
+    do_resize = (resize_from is not None
+                 and tuple(resize_from) != tuple(img_hw))
+    if do_resize:
+        sy = img_hw[0] / resize_from[0]
+        sx = img_hw[1] / resize_from[1]
+        box_scale = torch.tensor([sx, sy, sx, sy], dtype=torch.float32,
+                                 device=dev)
+    mean, std = imagenet_stats(dev)
+    use_autocast = dtype != torch.float32
+
+    def step(state: TrainState, batch: dict):
+        model.train()
+        images = apply_batch_color(batch)
+        gt_boxes = batch["gt_boxes"]
+        if do_resize:
+            images = resize_bilinear(images.float(), img_hw)
+            gt_boxes = gt_boxes * box_scale.to(gt_boxes.dtype)
+        images = normalize_images(images, normalize, mean, std)
+        with torch.autocast(dev.type, dtype=dtype, enabled=use_autocast):
+            cls_l, reg_l, obj_l = model(
+                images.permute(0, 3, 1, 2).to(param_dtype))
+        cls_f, reg_f, obj_f = flatten_head_outputs(cls_l, reg_l, obj_l)
+        out = yolox_loss(cls_f.float(), reg_f.float(), obj_f.float(),
+                         priors_cxy, priors_stride, gt_boxes,
+                         batch["gt_labels"], batch["gt_valid"],
+                         use_l1=use_l1, bbox_loss_mode=bbox_loss_mode)
+        state = _step_end(state, out.total)
+        metrics = {"loss": out.total, "loss_cls": out.loss_cls,
+                   "loss_bbox": out.loss_bbox, "loss_obj": out.loss_obj,
+                   "loss_l1": out.loss_l1, "num_fg": out.num_fg}
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return step
 
 
 def make_mpdet_train_step(model: nn.Module, img_hw: Tuple[int, int],
@@ -50,15 +143,8 @@ def make_mpdet_train_step(model: nn.Module, img_hw: Tuple[int, int],
     proxy-class membership are made once, on the model's device.  The
     images enter the model in its parameters' dtype (a float64 model is
     how the CPU tests hold the gradients to the JAX package's)."""
-    param = next(model.parameters())
-    dev, param_dtype = param.device, param.dtype
-    anchors_np, counts = grid_anchors(img_hw, GFL_STRIDES,
-                                      octave_base_scale=8.0)
-    anchors = torch.from_numpy(anchors_np).to(dev)
-    centers = (anchors[:, :2] + anchors[:, 2:4]) / 2.0
-    strides = torch.from_numpy(np.concatenate([
-        np.full((n,), s, np.float32)
-        for n, s in zip(counts, GFL_STRIDES)])).to(dev)
+    dev, param_dtype = _device_dtype(model)
+    anchors, counts, centers, strides = _gfl_anchors(img_hw, dev)
     membership = torch.from_numpy(proxy_class_matrix(proxies_list)).to(dev)
     mean, std = imagenet_stats(dev)
     use_autocast = dtype != torch.float32
@@ -74,20 +160,51 @@ def make_mpdet_train_step(model: nn.Module, img_hw: Tuple[int, int],
         with torch.autocast(dev.type, dtype=dtype, enabled=use_autocast):
             cls_l, bbox_l = model(images.permute(0, 3, 1, 2).to(param_dtype))
         b = images.shape[0]
-        cls_feats = torch.cat([f.reshape(b, -1, f.shape[-1]) for f in cls_l],
-                              dim=1)
-        bbox_preds = torch.cat([p.reshape(b, -1, p.shape[-1])
-                                for p in bbox_l], dim=1).float()
-        out = mp_loss(cls_feats, bbox_preds, model.head.proxies, membership,
+        out = mp_loss(_flat_levels(cls_l, b), _flat_levels(bbox_l, b).float(),
+                      model.head.proxies, membership,
                       state.boiw, state.generator, targets, centers,
                       strides, num_classes, proxies_list, reg_max=reg_max,
                       gamma=gamma, noise=noise)
-        state.optimizer.zero_grad(set_to_none=True)
-        out.total.backward()
-        state = apply_updates(state, new_boiw=out.boiw)
+        state = _step_end(state, out.total, new_boiw=out.boiw)
         metrics = {"loss": out.total, "loss_cls": out.loss_cls,
                    "loss_bbox": out.loss_bbox, "loss_dfl": out.loss_dfl,
                    "loss_emb": out.loss_emb, "loss_op": out.loss_op}
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def make_gfl_train_step(model: nn.Module, img_hw: Tuple[int, int],
+                        num_classes: int, reg_max: int = 16,
+                        normalize: bool = False,
+                        dtype: torch.dtype = torch.float32) -> Callable:
+    """Returns ``step(state, batch) -> (state, metrics)`` of the plain
+    GFL recipe (the MP-Det ablation baseline): ATSS targets, the forward
+    in training mode (autocast as :func:`make_mpdet_train_step`), the
+    GFL losses (QFL, GIoU, DFL) on float32 head outputs, one optimizer
+    step and the EMA.  Metrics: ``loss``, ``loss_cls``, ``loss_bbox``,
+    ``loss_dfl``, detached."""
+    dev, param_dtype = _device_dtype(model)
+    anchors, counts, centers, strides = _gfl_anchors(img_hw, dev)
+    mean, std = imagenet_stats(dev)
+    use_autocast = dtype != torch.float32
+
+    def step(state: TrainState, batch: dict):
+        model.train()
+        targets = gfl_targets(anchors, counts, batch["gt_boxes"],
+                              batch["gt_labels"], batch["gt_valid"],
+                              num_classes)
+        images = normalize_images(apply_batch_color(batch),
+                                  normalize, mean, std)
+        with torch.autocast(dev.type, dtype=dtype, enabled=use_autocast):
+            cls_l, bbox_l = model(images.permute(0, 3, 1, 2).to(param_dtype))
+        b = images.shape[0]
+        out = gfl_loss(_flat_levels(cls_l, b).float(),
+                       _flat_levels(bbox_l, b).float(), targets, centers,
+                       strides, num_classes, reg_max)
+        state = _step_end(state, out.total)
+        metrics = {"loss": out.total, "loss_cls": out.loss_cls,
+                   "loss_bbox": out.loss_bbox, "loss_dfl": out.loss_dfl}
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return step

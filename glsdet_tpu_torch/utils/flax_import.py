@@ -10,11 +10,13 @@ walk: ``{"params": {"backbone": {"stem": {"conv": {"conv": {"kernel":
   plus the ``num_batches_tracked`` counter torch keeps;
 - ``Scale.scale`` and ``MPHead.proxies`` keep their names.
 
-:func:`train_state_from_flax` carries a whole JAX ``TrainState`` of the
-MP-Det recipe across: parameters and BN statistics, the EMA, the SGD
-momentum trace of optax's ``opt_state`` (into the torch optimizer's
-``momentum_buffer`` s), the schedule count, the step and the BoIW
-dictionary.
+:func:`train_state_from_flax` carries a whole JAX ``TrainState`` across
+(the MP-Det and GFL recipes' ``mp_det_sgd``, the YOLOX recipe's
+``yolox_sgd`` with its masked weight decay and Nesterov trace):
+parameters and BN statistics, the EMA, the SGD momentum trace of optax's
+``opt_state`` (into the torch optimizer's ``momentum_buffer`` s, whichever
+parameter group holds each), the schedule count, the step and, for
+MP-Det, the BoIW dictionary.
 
 Takes numpy arrays (``jax.device_get`` of the variables), so this module
 imports neither jax nor flax.

@@ -130,10 +130,13 @@ def test_nms_kernel_none_suppressed_and_all_invalid(card, k):
 # (B, K, offset, threshold) of the launches of one bf16 and one
 # static-int8 run_device_batch at the smoke's fixture (chip_smoke.py's
 # nms_path phases log them: the coarse YOLOX NMS, the chip GFL NMS and the
-# unmapped class-wise NMS), and the global-local fusion's class-wise NMS
-# over 200 coarse + 500 local rows (the serve phase)
+# unmapped class-wise NMS), the global-local fusion's class-wise NMS
+# over 200 coarse + 500 local rows (the serve phase), and the GFL
+# Detector's gfl_postprocess NMS on 4 frames (budget 4 * max_dets = 400;
+# the gfl_int8 phase)
 PATH_NMS_SHAPES = [(16, 800, 0.0, 0.65), (16, 2000, 0.0, 0.6),
-                   (16, 500, 1.0, 0.6), (16, 700, 0.0, 0.65)]
+                   (16, 500, 1.0, 0.6), (16, 700, 0.0, 0.65),
+                   (4, 400, 0.0, 0.65)]
 
 
 @pytest.mark.parametrize("b,k,offset,thr", PATH_NMS_SHAPES)
@@ -1020,3 +1023,177 @@ def test_train_step_with_an_image_without_gts(card):
     state, metrics = step(state, batch)
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     assert float(metrics["loss_bbox"]) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the YOLOX and GFL trainers, and B3 on the int8 GFL head
+
+
+def _family_setup(device, family, dtype=torch.float64, seed=0, **step_kw):
+    """A seeded small YOLOX-nano (64x96, yolox_sgd in its warmup) or
+    GFLDet-18 (64 channels, 128x128, mp_sgd) train state in ``dtype``,
+    biases and BN statistics jittered, and its step."""
+    from glsdet_tpu_torch.models import GFLDet, YOLOXDetector
+    from glsdet_tpu_torch.train import schedules
+    from glsdet_tpu_torch.train.state import TrainState
+    from glsdet_tpu_torch.train.steps import (make_gfl_train_step,
+                                              make_yolox_train_step)
+
+    gen = torch.Generator().manual_seed(seed)
+    if family == "yolox":
+        model = YOLOXDetector(10, "nano", generator=gen)
+        opt = schedules.yolox_sgd(model.parameters(),
+                                  schedules.yolox_warm_cos(0.01, 4, 20, 4))
+    else:
+        model = GFLDet(10, 18, 64, generator=gen)
+        opt = schedules.mp_det_sgd(model.parameters(),
+                                   schedules.schedule_1x(0.01, 100))
+    _jitter_bn(model)
+    model.to(device, dtype)
+    state = TrainState.create(model, opt, torch.Generator(device=device))
+    opt.count = 2                       # a non-zero learning rate
+    if family == "yolox":
+        step = make_yolox_train_step(model, (64, 96), normalize=True,
+                                     **step_kw)
+    else:
+        step = make_gfl_train_step(model, (128, 128), 10, normalize=True)
+    return state, step
+
+
+def _family_batch(device, hw, b=2, g=4, seed=0):
+    rs = np.random.RandomState(seed)
+    x1 = rs.uniform(0, hw[1] - 32, (b, g))
+    y1 = rs.uniform(0, hw[0] - 32, (b, g))
+    wh = rs.uniform(6, 30, (b, g, 2))
+    boxes = np.concatenate([np.stack([x1, y1], -1),
+                            np.stack([x1, y1], -1) + wh], -1)
+    valid = np.ones((b, g), bool)
+    valid[:, -1] = False
+    batch = {"images": rs.randint(0, 255, (b, *hw, 3)).astype(np.uint8),
+             "gt_boxes": boxes.astype(np.float32),
+             "gt_labels": rs.randint(0, 10, (b, g)).astype(np.int64),
+             "gt_valid": valid}
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("family,hw", [("yolox", (64, 96)),
+                                       ("gfl", (128, 128))])
+def test_family_train_step_on_the_card_matches_the_cpu(card, family, hw):
+    """One float64 step of the same seeded state on the CPU and on the
+    card (TF32 off): metrics within 1e-5 relative (num_fg equal); every
+    parameter, BN statistic, EMA and momentum leaf within 1e-5 of its
+    max (the losses are float32 on both devices)."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = []
+        for dev in (torch.device("cpu"), card):
+            state, step = _family_setup(dev, family)
+            state, metrics = step(state, _family_batch(dev, hw))
+            named = dict(state.model.named_parameters())
+            leaves = {"state": state.model.state_dict(),
+                      "momentum": {n: state.optimizer.state[p][
+                          "momentum_buffer"] for n, p in named.items()},
+                      "ema": state.ema_params}
+            runs.append((leaves, metrics))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    (cl, cm), (gl, gm) = runs
+    for k in cm:
+        assert bool(torch.isfinite(cm[k])), k
+        torch.testing.assert_close(gm[k].cpu(), cm[k], rtol=1e-5, atol=0)
+    for kind, leaves in cl.items():
+        for name, want in leaves.items():
+            if name.endswith("num_batches_tracked"):
+                continue
+            want, got = want.double(), gl[kind][name].cpu().double()
+            err = float((got - want).abs().max())
+            scale = max(float(want.abs().max()), 1e-30)
+            assert err <= 1e-5 * scale, (kind, name, err, scale)
+
+
+@pytest.mark.parametrize("family,kw", [("yolox", {}),
+                                       ("yolox", {"use_l1": True,
+                                                  "resize_from": (96, 128)}),
+                                       ("gfl", {})])
+def test_family_train_step_does_not_sync_with_the_host(card, family, kw):
+    """bf16 autocast as the configs train; one warm step, then one under
+    the sync debug mode."""
+    state, step = _family_setup(card, family, torch.float32, **kw)
+    if family == "yolox":
+        from glsdet_tpu_torch.train.steps import make_yolox_train_step
+        step = make_yolox_train_step(state.model, (64, 96), normalize=True,
+                                     dtype=torch.bfloat16, **kw)
+        hw = kw.get("resize_from", (64, 96))
+    else:
+        from glsdet_tpu_torch.train.steps import make_gfl_train_step
+        step = make_gfl_train_step(state.model, (128, 128), 10,
+                                   normalize=True, dtype=torch.bfloat16)
+        hw = (128, 128)
+    batch = _family_batch(card, hw)
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+def test_resize_bilinear_on_the_card_equals_the_cpu(card):
+    from glsdet_tpu_torch.ops.image import resize_bilinear
+
+    x = torch.rand(2, 96, 80, 3, generator=torch.Generator().manual_seed(1))
+    for hw in ((64, 112), (128, 48)):
+        got = resize_bilinear(x.to(card), hw).cpu()
+        torch.testing.assert_close(got, resize_bilinear(x, hw), rtol=0,
+                                   atol=1e-5)
+
+
+def test_gn_kernel_on_the_int8_gfl_towers(card):
+    """A GFLHead at 256 channels on five levels (32^2 down to 2^2, batch
+    2), calibrated and quantized on the card in bf16: B3 launches 8 times
+    per level, and on the accumulators the towers give it, each launch
+    within +-1 code of its plain version (at most 1e-3 differing)."""
+    from glsdet_tpu_torch.models.gfl_head import GFLHead
+    from glsdet_tpu_torch.ops import quant_static as tq
+
+    head = GFLHead(10, 256)
+    flax_init_(head, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    feats = [torch.randn(2, 256, s, s, generator=g).to(card, torch.bfloat16)
+             for s in (32, 16, 8, 4, 2)]
+    scales = tq.calibrate_scales(head.to(card, torch.bfloat16).eval(),
+                                 [feats])
+    q = tq.quantize_static(head.float(), scales, dtype=torch.bfloat16,
+                           device=card)
+    assert type(q) is tq.Int8GFLHead
+    calls = []
+    real = gn_kernel.gn_relu_quant_acc
+
+    def spy(acc, deq, gamma, beta, s_out, **kw):
+        out = real(acc, deq, gamma, beta, s_out, **kw)
+        calls.append((acc.clone(), deq, gamma, beta, s_out, kw, out))
+        return out
+
+    tq.gn_relu_quant_acc = spy
+    try:
+        before = gn_kernel.launches
+        with torch.inference_mode():
+            cls, reg = q(feats)
+        torch.cuda.synchronize()
+        launched = gn_kernel.launches - before
+    finally:
+        tq.gn_relu_quant_acc = real
+    assert launched == len(calls) == 40
+    for acc, deq, gamma, beta, s_out, kw, out in calls:
+        want = gn_kernel.gn_relu_quant_acc_plain(
+            acc, deq, gamma, beta, s_out, kw["groups"], kw["eps"],
+            kw["dtype"])
+        d = (out.int() - want.int()).abs()
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+    assert all(bool(torch.isfinite(t).all()) for t in cls + reg)

@@ -45,6 +45,33 @@ def test_yolox_postprocess_matches(thr):
     _compare(got, want)
 
 
+@pytest.mark.parametrize("mode", ["all", "cls", "obj", "none"])
+def test_yolox_postprocess_apply_sigmoid_matches(mode):
+    """The loss ablations' heads: a map the decode does not pass through
+    a sigmoid is already a probability (raw values in [0, 0.3) here)."""
+    rs = np.random.RandomState(1)
+    hw, strides, b = (64, 96), (8, 16, 32), 2
+
+    def head(chans, sigmoid):
+        if sigmoid:
+            return _maps(rs, b, hw, strides, chans, loc=-2.0)
+        return [(0.3 * rs.rand(*m.shape)).astype(np.float32)
+                for m in _maps(rs, b, hw, strides, chans)]
+
+    cls = head(10, mode in ("all", "cls"))
+    reg = _maps(rs, b, hw, strides, 4)
+    obj = head(1, mode in ("all", "obj"))
+    t = [[torch.from_numpy(m.copy()) for m in ms] for ms in (cls, reg, obj)]
+    j = [[jnp.asarray(m.copy()) for m in ms] for ms in (cls, reg, obj)]
+    got = tpp.yolox_postprocess(*t, hw, score_thr=0.01, max_dets=200,
+                                apply_sigmoid=mode)
+    want = jpp.yolox_postprocess(*j, hw, score_thr=0.01, max_dets=200,
+                                 apply_sigmoid=mode)
+    _compare(got, want)
+    with pytest.raises(ValueError):
+        tpp.yolox_postprocess(*t, hw, apply_sigmoid="both")
+
+
 @pytest.mark.parametrize("max_dets,nms_pre", [(100, 1000), (500, 64)])
 def test_gfl_postprocess_matches(max_dets, nms_pre):
     rs = np.random.RandomState(max_dets)

@@ -51,7 +51,7 @@ from glsdet_tpu_torch.utils.flax_import import (optax_fields,
                                                 params_from_flax,
                                                 state_dict_from_flax,
                                                 train_state_from_flax)
-from torch_port_util import flax_vars, to_np
+from torch_port_util import assert_leaf_close, flax_vars, to_np
 
 HW, B, G, NC, DEPTH, FC, WORDS = (128, 128), 2, 3, 10, 18, 64, 16
 PROXIES = (2, 3, 2, 5, 4, 8, 8, 4, 3, 3)
@@ -157,14 +157,6 @@ def port_side(jstate, grad_clip, dtype=torch.float32):
                                   torch.Generator().manual_seed(0))
     step = make_mpdet_train_step(model, HW, NC, PROXIES, normalize=True)
     return state, step
-
-
-def assert_leaf_close(got, want, what, tol=LEAF_TOL):
-    got, want = to_np(got), np.asarray(want)
-    assert got.shape == want.shape, what
-    scale = max(float(np.abs(want).max()), 1e-12)
-    err = float(np.abs(got - want).max())
-    assert err <= tol * scale, (what, err, scale)
 
 
 def assert_states_match(state, jstate, momentum_tol=None):

@@ -138,5 +138,62 @@ def to_np(t) -> np.ndarray:
     return np.asarray(t)
 
 
+def assert_leaf_close(got, want, what, tol: float = 1e-5) -> None:
+    """``got`` within ``tol`` of ``want``'s max |value| (a state leaf)."""
+    got, want = to_np(got), np.asarray(want)
+    assert got.shape == want.shape, what
+    scale = max(float(np.abs(want).max()), 1e-12)
+    err = float(np.abs(got - want).max())
+    assert err <= tol * scale, (what, err, scale)
+
+
+IMAGENET_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
+IMAGENET_STD = np.array([58.395, 57.12, 57.375], np.float32)
+
+
+def normalized(batch: dict) -> dict:
+    """A train batch with its uint8 frames ImageNet-normalised in float32
+    numpy, for steps built with ``normalize=False`` in both packages."""
+    out = dict(batch)
+    out["images"] = ((batch["images"].astype(np.float32) - IMAGENET_MEAN)
+                     / IMAGENET_STD)
+    return out
+
+
 def rand_nhwc(shape, seed: int) -> np.ndarray:
     return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+def yolox_fixture(seed: int, hw=(64, 96), b: int = 3, g: int = 6,
+                  nc: int = 4, strides=(8, 16, 32)) -> dict:
+    """Seeded YOLOX head outputs and padded GTs for the SimOTA and loss
+    parity tests: raw cls/reg/obj maps flattened to (B, A, ...), the
+    priors, and GTs of 4-40 px with the last two slots of each image
+    padding.  Image 1 has two GTs competing for the same anchors (one
+    box and its copy moved by a pixel, other labels); image 2 has no
+    valid GT."""
+    from glsdet_tpu_torch.ops.priors import grid_points
+
+    rs = np.random.RandomState(seed)
+    centers, stride_v, _ = grid_points(hw, strides, offset=0.5)
+    a = centers.shape[0]
+    cls = (2.0 * rs.randn(b, a, nc)).astype(np.float32)
+    reg = np.concatenate([0.5 * rs.randn(b, a, 2),
+                          0.6 + 0.5 * rs.randn(b, a, 2)], -1).astype(
+        np.float32)
+    obj = (2.0 * rs.randn(b, a)).astype(np.float32)
+    x1 = rs.uniform(0, hw[1] - 40, (b, g))
+    y1 = rs.uniform(0, hw[0] - 40, (b, g))
+    w = rs.uniform(4, 40, (b, g))
+    h = rs.uniform(4, 40, (b, g))
+    boxes = np.stack([x1, y1, x1 + w, y1 + h], -1).astype(np.float32)
+    labels = rs.randint(0, nc, (b, g)).astype(np.int32)
+    boxes[1, 1] = boxes[1, 0] + np.float32(1.0)
+    labels[1, 1] = (labels[1, 0] + 1) % nc
+    valid = np.ones((b, g), bool)
+    valid[:, -2:] = False
+    valid[2] = False
+    return {"cls": cls, "reg": reg, "obj": obj,
+            "priors_cxy": centers.astype(np.float32),
+            "priors_stride": stride_v.astype(np.float32),
+            "gt_boxes": boxes, "gt_labels": labels, "gt_valid": valid}
