@@ -181,7 +181,36 @@ Phases, in the order they run, each printing one line:
      max_dets), its keep mask equal to nms_sorted_plain's (the int8
      run's launches timed, with their bound), the top 10 bf16 detections
      of each frame matched by int8 ones (same label, IoU > 0.5, score
-     within 0.3) at least half the time, img/s of both.
+     within 0.3) at least half the time, img/s of both;
+ 21. train_loop: train() (train/loop.py) from PNG files on disk.  A
+     synthetic VisDrone-like split (48 frames at 765x1360, 16 at
+     1080x1920: smooth fields with 5-60 drawn boxes of 4-64 px, ignore
+     and "others" rows) written with the port's PNG writer and converted
+     by visdrone_to_coco (bytes on disk, decode ms per frame); then
+     train(coarse_det) at full width (YOLOX-s, 640x640, batch 8, mosaic,
+     mixup, HSV and mixup rendered on the card, flip, yolox_sgd with
+     warm-cos, 4 loader workers): 3 epochs of 8 steps with a checkpoint
+     each, the last without mosaic/mixup and with L1 (loss_l1 0 before,
+     > 0 after); steps 4-7 under torch.profiler (idle share, launches per
+     step); the host ms between batches (their mean after the first, and
+     the last epoch's, once the prefetched batches are spent) against
+     phase 18's bare step; the
+     epoch-2 checkpoint restored into a fresh state equal bit for bit to
+     the state the loop had then, a resumed run taking only epoch 3's
+     steps, and apis.init_detector serving the epoch-3 EMA.  Then one
+     epoch with multiscale_sizes (608, 640, 672) (the logged sizes equal
+     multiscale_size's), five steps with device_geom (the mosaic and
+     affine warp on the card), and train(mp_det_res50) at 1024x1024,
+     batch 4, remat on, on 16 frames for 3 epochs: update_ot at exactly
+     the JAX cadence's steps (every 3 while the epoch is below 2), beta
+     switched at epoch 1, the dictionary pointers moved.  Card against
+     CPU: the colour and geometric stages on one real device_geom batch
+     within +-1 code (share differing printed), warp_affine_u8 and
+     resize_linear_u8 equal, and three float64 steps of train() for
+     YOLOX-nano at 128x128 on both devices, losses and every leaf within
+     1e-5 (relative; of a leaf's max).  Last, the loader alone at 4
+     workers and at os.cpu_count(), the decode cache off and on,
+     samples/s.  Printed as one {"train_loop": ...} line.
 Then one JSON line of per-kernel results (each with its bound: the bytes
 it must move at 3.35 TB/s or its operations at the card's peak for their
 type, whichever is longer) and, last, the device line.  A kernel's ``ms``
@@ -2058,14 +2087,21 @@ LOSS_NAMES = ("loss", "loss_cls", "loss_bbox", "loss_dfl", "loss_emb",
               "loss_op")
 
 
-def train_batch(rs, b, hw, max_gt, device, visdrone=False):
-    """uint8 frames and their GTs (labels 0-9), padded to ``max_gt``: by
-    default scripts/bench_train.py _mk_batch's recipe (5-19 boxes of 8-64
-    px per image, drawn as for 20 slots); ``visdrone=True`` a VisDrone-like
-    one (5-60 boxes of 4-64 px per image, inside the frame)."""
+BOX_RECIPES = ("bench", "visdrone")
+
+
+def train_batch(rs, b, hw, max_gt, device, boxes="bench"):
+    """uint8 frames and their GTs (labels 0-9), padded to ``max_gt``, by
+    the box recipe ``boxes``: "bench", scripts/bench_train.py _mk_batch's
+    (5-19 boxes of 8-64 px per image, drawn as for 20 slots), or
+    "visdrone", a VisDrone-like one (5-60 boxes of 4-64 px per image,
+    inside the frame)."""
+    if boxes not in BOX_RECIPES:
+        raise ValueError(f"box recipe {boxes!r}: one of {BOX_RECIPES}")
+    visdrone = boxes == "visdrone"
     h, w = hw
     images = rs.randint(0, 255, (b, h, w, 3)).astype(np.uint8)
-    boxes = np.zeros((b, max_gt, 4), np.float32)
+    gt = np.zeros((b, max_gt, 4), np.float32)
     labels = np.zeros((b, max_gt), np.int64)
     valid = np.zeros((b, max_gt), bool)
     if not visdrone:
@@ -2081,9 +2117,9 @@ def train_batch(rs, b, hw, max_gt, device, visdrone=False):
             n_i = n[i]
             x1, y1 = rs.uniform(0, w - 80, 20), rs.uniform(0, h - 80, 20)
             bw, bh = rs.uniform(8, 64, 20), rs.uniform(8, 64, 20)
-        boxes[i, :len(x1)] = np.stack([x1, y1, x1 + bw, y1 + bh], 1)
+        gt[i, :len(x1)] = np.stack([x1, y1, x1 + bw, y1 + bh], 1)
         valid[i, :n_i] = True
-    batch = {"images": images, "gt_boxes": boxes, "gt_labels": labels,
+    batch = {"images": images, "gt_boxes": gt, "gt_labels": labels,
              "gt_valid": valid}
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
@@ -2402,11 +2438,30 @@ def time_steps(state, step, batches, b):
                    "first": floats(ms[0]), "last": floats(ms[-1])}
 
 
+def profile_summary(prof, wall_ms: float, steps: int = 1) -> dict:
+    """Device busy time, idle share, launches and the ops that take most
+    of the device, from a torch.profiler run of ``wall_ms``."""
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    ops = sorted((e for e in events if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    launches = sum(e.count for e in kernels)
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": device_ms,
+            "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+            "kernel_launches": launches,
+            "launches_per_step": launches / steps,
+            "top_ops_ms": [(e.key, e.self_device_time_total / 1e3, e.count)
+                           for e in ops[:12]]}
+
+
 def profile_step(run) -> dict:
     """torch.profiler over one ``run()`` (one train step): wall time,
     device busy time, idle share, kernel launches, the ops that take most
     of the device."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2416,17 +2471,7 @@ def profile_step(run) -> dict:
         run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    ops = sorted((e for e in events if e.device_type == DeviceType.CPU
-                  and e.self_device_time_total > 0),
-                 key=lambda e: -e.self_device_time_total)
-    return {"profiled_wall_ms": wall_ms, "device_busy_ms": device_ms,
-            "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
-            "kernel_launches": sum(e.count for e in kernels),
-            "top_ops_ms": [(e.key, e.self_device_time_total / 1e3, e.count)
-                           for e in ops[:12]]}
+    return profile_summary(prof, wall_ms)
 
 
 def no_sync_step(state, step, batch):
@@ -2479,7 +2524,7 @@ def family_parity(family) -> dict:
             step = make_yolox_train_step(state.model, (128, 128),
                                          normalize=True)
             batch = train_batch(np.random.RandomState(0), 2, (128, 128),
-                                60, dev, visdrone=True)
+                                60, dev, boxes="visdrone")
         else:
             step = make_gfl_train_step(state.model, (128, 128), 10,
                                        normalize=True)
@@ -2522,7 +2567,7 @@ def phase_train_yolox(smi: str) -> dict:
         COARSE_HW, YOLOX_B, YOLOX_MAX_GT), cfg
     rs = np.random.RandomState(0)
     batches = [train_batch(rs, YOLOX_B, hw, YOLOX_MAX_GT, DEVICE,
-                           visdrone=True) for _ in range(2)]
+                           boxes="visdrone") for _ in range(2)]
     out["gts_per_image"] = [int(v) for b in batches
                             for v in b["gt_valid"].sum(1).cpu()]
     state = train_state(cfg, DEVICE)
@@ -2772,6 +2817,493 @@ def phase_gfl_int8(frames) -> dict:
     torch.cuda.empty_cache()
     return out
 
+# ---------------------------------------------------------------------------
+# 21. train(): the data pipeline and the loop, from PNG files on disk
+
+
+LOOP_FRAMES = (((765, 1360), 48), ((1080, 1920), 16))
+LOOP_WORKERS = 8             # threads writing the synthetic frames
+
+
+def synth_visdrone_frame(seed, hw):
+    """A smooth field (a coarse random grid resized up) with boxes drawn
+    in flat colours and +-2 codes of noise, as PNG bytes; and its
+    VisDrone annotation lines: 5-60 boxes of 4-64 px, 0-3 ignore rows
+    (category 0) and 0-2 "others" rows (category 11)."""
+    from glsdet_tpu_torch.data.image_io import encode_png
+    from glsdet_tpu_torch.ops.image import resize_linear_u8
+
+    rs = np.random.RandomState(seed)
+    h, w = hw
+    coarse = rs.randint(40, 216, (h // 96 + 2, w // 96 + 2, 3), np.uint8)
+    img = resize_linear_u8(torch.from_numpy(coarse), hw).numpy().astype(
+        np.int16)
+    lines = []
+    for cat, n in ((None, rs.randint(5, 61)), (0, rs.randint(0, 4)),
+                   (11, rs.randint(0, 3))):
+        for _ in range(n):
+            bw, bh = rs.randint(4, 65), rs.randint(4, 65)
+            x, y = rs.randint(0, w - bw), rs.randint(0, h - bh)
+            c = int(rs.randint(1, 11)) if cat is None else cat
+            img[y:y + bh, x:x + bw] = rs.randint(0, 256, 3)
+            lines.append(f"{x},{y},{bw},{bh},{int(cat is None)},{c},0,0")
+    img += rs.randint(-2, 3, img.shape).astype(np.int16)
+    return encode_png(np.clip(img, 0, 255).astype(np.uint8)), lines
+
+
+def write_loop_dataset(root) -> dict:
+    """The synthetic VisDrone split (LOOP_FRAMES), converted with the
+    port's visdrone_to_coco: bytes on disk and decode time per frame."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from glsdet_tpu_torch.data.image_io import read_image
+    from glsdet_tpu_torch.data.visdrone import visdrone_to_coco
+
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(root, "images"))
+    os.makedirs(os.path.join(root, "annotations"))
+    jobs = list(enumerate(hw for hw, n in LOOP_FRAMES for _ in range(n)))
+
+    def write(job):
+        k, hw = job
+        data, lines = synth_visdrone_frame(1000 + k, hw)
+        with open(os.path.join(root, "images", f"{k:05d}.png"), "wb") as f:
+            f.write(data)
+        with open(os.path.join(root, "annotations", f"{k:05d}.txt"),
+                  "w") as f:
+            f.write("\n".join(lines) + "\n")
+        return len(data)
+
+    with ThreadPoolExecutor(LOOP_WORKERS) as pool:
+        sizes = list(pool.map(write, jobs))
+    ann = os.path.join(root, "ann.json")
+    coco = visdrone_to_coco(root, ann)
+    decode = {}
+    read_image(os.path.join(root, "images", "00000.png"))  # builds png.cpp
+    for hw, _ in LOOP_FRAMES:
+        names = [f"{k:05d}.png" for k, f_hw in jobs if f_hw == hw][:4]
+        t1 = time.perf_counter()
+        for name in names:
+            img = read_image(os.path.join(root, "images", name))
+            assert img.shape == (*hw, 3), img.shape
+        decode[f"{hw[0]}x{hw[1]}"] = 1e3 * (time.perf_counter() - t1) / 4
+    by_hw = {}
+    for (k, hw), n in zip(jobs, sizes):
+        by_hw.setdefault(f"{hw[0]}x{hw[1]}", []).append(n)
+    return {"ann_file": ann, "img_root": os.path.join(root, "images"),
+            "frames": len(jobs), "annotations": len(coco["annotations"]),
+            "ignore_regions": len(coco["ignore_regions"]),
+            "bytes_on_disk": int(sum(sizes)),
+            "mean_bytes": {k: sum(v) / len(v) for k, v in by_hw.items()},
+            "decode_ms_per_frame": decode,
+            "seconds": time.perf_counter() - t0}
+
+
+class LoopProbe:
+    """Stands in for train/loop.py's train_loader: the real loader, with
+    the host time of each batch taken and, optionally, torch.profiler
+    over the steps of batches [start, stop) (the loader's waits
+    included)."""
+
+    def __init__(self, real, start=None, stop=None):
+        self.real, self.start, self.stop = real, start, stop
+        self.times, self.keys, self.profile = [], [], None
+
+    def __call__(self, *args, **kw):
+        from torch.profiler import ProfilerActivity, profile
+
+        inner = self.real(*args, **kw)
+        prof = None
+        try:
+            for i, batch in enumerate(inner):
+                self.times.append(time.perf_counter())
+                self.keys.append(sorted(batch))
+                if i == self.stop and prof is not None:
+                    torch.cuda.synchronize()
+                    wall = 1e3 * (time.perf_counter() - t0)
+                    prof.__exit__(None, None, None)
+                    self.profile = profile_summary(prof, wall,
+                                                   self.stop - self.start)
+                    prof = None
+                if i == self.start:
+                    torch.cuda.synchronize()
+                    prof = profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA])
+                    prof.__enter__()
+                    t0 = time.perf_counter()
+                yield batch
+        finally:
+            if prof is not None:
+                prof.__exit__(None, None, None)
+            inner.close()
+
+
+class LogRecords:
+    """Collects the glsdet_tpu_torch logger's messages during a run."""
+
+    def __enter__(self):
+        import logging
+
+        self.lines = []
+        self.logger = logging.getLogger("glsdet_tpu_torch")
+        self.level = self.logger.level
+        self.handler = logging.Handler(logging.DEBUG)
+        self.handler.emit = lambda r: self.lines.append(r.getMessage())
+        self.logger.addHandler(self.handler)
+        self.logger.setLevel(logging.DEBUG)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+    def ints(self, pattern):
+        return [tuple(int(g) for g in m.groups()) for m in
+                (re.fullmatch(pattern, line) for line in self.lines) if m]
+
+
+def loop_cfg(name, ds, work, **over):
+    from glsdet_tpu_torch.config import apply_overrides, get_config
+
+    return apply_overrides(get_config(name), {
+        "data.ann_file": ds["ann_file"], "data.img_root": ds["img_root"],
+        "train.work_dir": work, "train.log_interval": 1, **over})
+
+
+def read_log(work) -> list:
+    with open(os.path.join(work, "train.log.json")) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_train(cfg, probe=None, **kw):
+    """train(cfg) on the card through ``probe`` (a LoopProbe, or a plain
+    one): its state, log entries, the host ms between batches, peak
+    memory and wall seconds."""
+    from glsdet_tpu_torch.train import loop
+
+    probe = probe or LoopProbe(loop.train_loader)
+    real = loop.train_loader
+    loop.train_loader = probe
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        state = loop.train(cfg, device=DEVICE, **kw)
+    finally:
+        loop.train_loader = real
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    logs = read_log(cfg.train.work_dir)
+    for e in logs:
+        check_finite(f"train {cfg.name} step {e['step']}",
+                     {k: v for k, v in e.items()
+                      if k not in ("mode", "epoch", "iter", "step")})
+    gaps = [1e3 * (b - a) for a, b in zip(probe.times, probe.times[1:])]
+    return state, logs, gaps, {
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "first_batch_s": probe.times[0] - t0, "seconds": wall}
+
+
+def cpu_state(state) -> dict:
+    from glsdet_tpu_torch.train.state import state_dict
+
+    sd = state_dict(state)
+    sd["generator"] = sd["generator"].clone()
+    return sd
+
+
+def same_state(a, b) -> bool:
+    """Two state_dict snapshots equal bit for bit."""
+    def eq(x, y):
+        if torch.is_tensor(x):
+            return torch.is_tensor(y) and x.shape == y.shape and bool(
+                torch.equal(x, y))
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(eq(x[k], y[k]) for k in x)
+        if isinstance(x, (list, tuple)):
+            return len(x) == len(y) and all(eq(u, v) for u, v in zip(x, y))
+        return x == y
+
+    return eq(a, b)
+
+
+def loop_coarse(ds, tmp, bare_ms) -> dict:
+    """train(coarse_det) at full width: 3 epochs of 8 steps, a checkpoint
+    after each, the last epoch with L1 (its batches were drawn before the
+    switch, so they still carry mosaic: the loader's 4 x 2 in flight);
+    steps 4-7 profiled, the host clock between batches; then the epoch-2
+    checkpoint restored and resumed, and init_detector serving the
+    epoch-3 EMA."""
+    from glsdet_tpu_torch import apis
+    from glsdet_tpu_torch.train import loop
+
+    work = os.path.join(tmp, "coarse")
+    cfg = loop_cfg("coarse_det", ds, work, **{
+        "train.epochs": 3, "train.warmup_epochs": 1,
+        "train.num_last_epochs": 1, "train.ckpt_interval": 1})
+    assert (tuple(cfg.data.img_hw), cfg.data.batch_size, cfg.model.phi,
+            cfg.data.device_color, cfg.data.mosaic, cfg.data.mixup) == (
+        COARSE_HW, YOLOX_B, PHI, True, True, True), cfg
+    seen = {}
+    probe = LoopProbe(loop.train_loader, start=3, stop=7)
+    state, logs, gaps, run = run_train(
+        cfg, probe, eval_fn=lambda st, ep: seen.__setitem__(
+            ep, cpu_state(st)))
+    spe = 64 // YOLOX_B
+    assert state.step == 3 * spe and len(logs) == 3 * spe, (state.step,
+                                                            len(logs))
+    l1 = [e["loss_l1"] for e in logs]
+    assert all(v == 0.0 for v in l1[:2 * spe]) and all(
+        v > 0.0 for v in l1[2 * spe:]), l1
+    ckpts = sorted(f for f in os.listdir(work) if f.endswith(".pt"))
+    assert ckpts == ["epoch_1.pt", "epoch_2.pt", "epoch_3.pt"], ckpts
+    # restore the epoch-2 checkpoint into a fresh state: bit for bit
+    model = loop.build_model(cfg, DEVICE,
+                             generator=torch.Generator().manual_seed(9))
+    fresh = loop.make_state_template(
+        cfg, model, loop.build_optimizer(cfg, spe, model),
+        torch.Generator(device=DEVICE).manual_seed(9))
+    restored = loop.restore_checkpoint(os.path.join(work, "epoch_2.pt"),
+                                       fresh)
+    restore_equal = same_state(cpu_state(restored), seen[2])
+    assert restore_equal, "checkpoint restore differs"
+    del restored, fresh, model
+    # resume: only epoch 3's steps, in the no-aug + L1 mode
+    rcfg = loop_cfg("coarse_det", ds, os.path.join(tmp, "resume"), **{
+        "train.epochs": 3, "train.warmup_epochs": 1,
+        "train.num_last_epochs": 1, "train.ckpt_interval": 1,
+        "train.resume": os.path.join(work, "epoch_2.pt")})
+    rprobe = LoopProbe(loop.train_loader)
+    rstate, rlogs, _, _ = run_train(rcfg, rprobe)
+    assert [e["step"] for e in rlogs] == list(range(2 * spe + 1,
+                                                    3 * spe + 1)), rlogs
+    assert all(e["loss_l1"] > 0 for e in rlogs)
+    # drawn after the switch: the plain pipeline (no mix_images)
+    assert all("mix_images" not in k for k in rprobe.keys), rprobe.keys
+    assert all("mix_images" in k for k in probe.keys[:2 * spe])
+    del rstate
+    # init_detector serves the EMA of the last checkpoint
+    _, served, _ = apis.init_detector(
+        "coarse_det", os.path.join(work, "epoch_3.pt"), device=DEVICE)
+    ema = seen[3]["ema_params"]
+    ema_served = all(torch.equal(p.detach().cpu(), ema[n])
+                     for n, p in served.named_parameters())
+    assert ema_served, "init_detector does not serve the EMA"
+    del served, state
+    torch.cuda.empty_cache()
+    # host ms between batches: the loader's 4 x 2 prefetched batches and
+    # those built during the checkpoint stalls run at the card's pace,
+    # the rest at the loader's
+    steady = sum(gaps) / len(gaps)
+    return {"steps": len(logs), "losses_first_last": [logs[0]["loss"],
+                                                      logs[-1]["loss"]],
+            "l1_switch_at_step": 2 * spe + 1, "checkpoints": ckpts,
+            "restore_bit_equal": restore_equal,
+            "resume_steps": [rlogs[0]["step"], rlogs[-1]["step"]],
+            "init_detector_serves_ema": ema_served,
+            "first_batch_s": run["first_batch_s"],
+            "ms_per_step_after_first": steady, "step_gaps_ms": gaps,
+            "img_per_s_after_first": YOLOX_B * 1e3 / steady,
+            "ms_per_step_last_epoch": sum(gaps[-spe:]) / spe,
+            "bare_step_ms": bare_ms,
+            "loader_bound_x": sum(gaps[-spe:]) / spe / bare_ms,
+            "profile_steps_4_7": probe.profile, **run}
+
+
+def loop_multiscale(ds, tmp) -> dict:
+    from glsdet_tpu_torch.train.loop import multiscale_size
+
+    sizes = (608, 640, 672)
+    cfg = loop_cfg("coarse_det", ds, os.path.join(tmp, "ms"), **{
+        "train.epochs": 1, "train.warmup_epochs": 1,
+        "train.num_last_epochs": 0, "train.ckpt_interval": 10,
+        "train.multiscale_sizes": sizes, "train.multiscale_interval": 2})
+    with LogRecords() as rec:
+        state, logs, gaps, run = run_train(cfg)
+    got = rec.ints(r"step (\d+): multiscale size (\d+)")
+    want = [(i, multiscale_size(i, sizes, 2)) for i in range(len(logs))]
+    assert got == want and len({s for _, s in got}) > 1, (got, want)
+    del state
+    torch.cuda.empty_cache()
+    return {"sizes": [s for _, s in got], "steps": len(logs),
+            "ms_per_step": sum(gaps[1:]) / max(len(gaps) - 1, 1), **run}
+
+
+def loop_geom(ds, tmp) -> dict:
+    cfg = loop_cfg("coarse_det", ds, os.path.join(tmp, "geom"), **{
+        "train.epochs": 1, "train.warmup_epochs": 1,
+        "train.num_last_epochs": 0, "train.ckpt_interval": 10})
+    state, logs, gaps, run = run_train(cfg, device_geom=True, max_steps=5)
+    assert len(logs) == 5
+    del state
+    torch.cuda.empty_cache()
+    return {"steps": len(logs),
+            "ms_per_step": sum(gaps[1:]) / max(len(gaps) - 1, 1),
+            "losses_first_last": [logs[0]["loss"], logs[-1]["loss"]], **run}
+
+
+def loop_mpdet(ds, tmp) -> dict:
+    """train(mp_det_res50) at 1024², batch 4, remat on, on 16 frames (4
+    steps an epoch), 3 epochs: update_ot every 3 steps while the epoch is
+    below 2, beta switched at epoch 1, read from the loop's log."""
+    from glsdet_tpu_torch.data.coco import CocoDataset
+
+    cfg = loop_cfg("mp_det_res50", ds, os.path.join(tmp, "mp"), **{
+        "train.epochs": 3, "train.ot_interval": 3,
+        "train.emd_start_epoch": 1, "train.ot_stop_epoch": 2,
+        "train.ckpt_interval": 3})
+    assert (tuple(cfg.data.img_hw), cfg.data.batch_size,
+            cfg.model.remat) == (TRAIN_HW, TRAIN_B, True), cfg
+    sub = CocoDataset(ds["ann_file"], ds["img_root"], filter_empty=True)
+    sub.records = sub.records[:16]
+    spe = 16 // TRAIN_B
+    with LogRecords() as rec:
+        state, logs, gaps, run = run_train(cfg, dataset=sub)
+    ot = [s for (s,) in rec.ints(r"step (\d+): ran update_ot")]
+    want_ot = [s for s in range(1, 3 * spe + 1)
+               if (s - 1) // spe < 2 and s % 3 == 0]
+    beta = [e for (e,) in rec.ints(r"epoch (\d+): enabled emd training "
+                                   r"\(beta=1\)")]
+    ptr_moved = int((state.boiw.ptr != 0).sum())
+    beta_now = float(state.boiw.beta)
+    assert ot == want_ot and beta == [1] and beta_now == 1.0, (ot, beta)
+    assert ptr_moved > 0
+    del state
+    torch.cuda.empty_cache()
+    return {"steps": len(logs), "update_ot_at": ot, "jax_cadence": want_ot,
+            "beta_switched_at_epoch": beta, "ptr_moved_classes": ptr_moved,
+            "ms_per_step": sum(gaps[1:]) / max(len(gaps) - 1, 1),
+            "losses_first_last": [logs[0]["loss"], logs[-1]["loss"]], **run}
+
+
+def loop_card_vs_cpu(ds, tmp) -> dict:
+    """The device stages and image ops on the card against the CPU on one
+    real batch, and three float64 steps of train() for YOLOX-nano at 128²
+    on both devices from the same files and seed."""
+    from glsdet_tpu_torch.data.augment import random_affine_params
+    from glsdet_tpu_torch.data.coco import CocoDataset
+    from glsdet_tpu_torch.data.device_color import apply_batch_color
+    from glsdet_tpu_torch.data.image_io import read_image
+    from glsdet_tpu_torch.data.loader import TrainPipeline, collate
+    from glsdet_tpu_torch.ops.image import resize_linear_u8, warp_affine_u8
+
+    out = {}
+    data = CocoDataset(ds["ann_file"], ds["img_root"], filter_empty=True)
+    pipe = TrainPipeline(data, COARSE_HW, YOLOX_MAX_GT, raw_uint8=True,
+                         device_color=True, device_geom=True,
+                         geom_src_hw=(1080, 1920))
+    batch = collate([pipe(i, np.random.RandomState(i))
+                     for i in range(YOLOX_B)])
+    cpu = apply_batch_color(batch, COARSE_HW)
+    card = apply_batch_color({k: v.to(DEVICE) for k, v in batch.items()},
+                             COARSE_HW).cpu()
+    diff = (card - cpu).abs()
+    out["color_geom"] = {"max_code_diff": float(diff.max()),
+                         "share_differing": float((diff > 0).float().mean())}
+    assert out["color_geom"]["max_code_diff"] <= 1, out
+    frame = torch.from_numpy(read_image(os.path.join(
+        ds["img_root"], data.records[0].file_name)))
+    canvas = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 256, (1280, 1280, 3), np.uint8))
+    mat = random_affine_params(np.random.RandomState(2), (1280, 1280),
+                               COARSE_HW)[:2]
+    out["warp_affine_equal"] = bool(torch.equal(
+        warp_affine_u8(canvas.to(DEVICE), mat, COARSE_HW).cpu(),
+        warp_affine_u8(canvas, mat, COARSE_HW)))
+    out["resize_equal"] = bool(torch.equal(
+        resize_linear_u8(frame.to(DEVICE), (360, 640)).cpu(),
+        resize_linear_u8(frame, (360, 640))))
+    assert out["warp_affine_equal"] and out["resize_equal"], out
+
+    from glsdet_tpu_torch.train import loop
+
+    runs = []
+    for dev in ("cpu", DEVICE):
+        cfg = loop_cfg("coarse_det", ds, os.path.join(tmp, f"f64_{dev}"), **{
+            "model.phi": "nano", "model.dtype": "float32",
+            "data.img_hw": (128, 128), "data.batch_size": 4,
+            "data.num_workers": 2, "train.ckpt_interval": 100})
+        state = loop.train(cfg, max_steps=3, device=dev,
+                           param_dtype=torch.float64)
+        named = dict(state.model.named_parameters())
+        sd = state.model.state_dict()
+        leaves = {"params": {n: sd[n] for n in named},
+                  "bn_stats": {n: v for n, v in sd.items() if "running" in n},
+                  "momentum": {n: state.optimizer.state[p]["momentum_buffer"]
+                               for n, p in named.items()},
+                  "ema": state.ema_params}
+        runs.append(([{k: v for k, v in e.items() if k.startswith("loss")
+                       or k == "num_fg"}
+                      for e in read_log(cfg.train.work_dir)], leaves))
+    (cl, cleaves), (gl, gleaves) = runs
+    loss_rel = max(rel(g[k], c[k]) for c, g in zip(cl, gl) for k in c
+                   if c[k] != 0)
+    out["f64_train_3_steps"] = {"loss_rel": loss_rel,
+                                "leaves": leaf_errors(gleaves, cleaves),
+                                "losses_card": gl}
+    if loss_rel > 1e-5 or any(e["max_rel"] > 1e-5 for e in
+                              out["f64_train_3_steps"]["leaves"].values()):
+        raise AssertionError(f"train() card vs CPU: {out}")
+    return out
+
+
+def loader_rates(ds, reps=12) -> dict:
+    """The loader alone at coarse_det's recipe (mosaic, mixup, device
+    colour keys, batch 8, pinned): samples/s over ``reps`` batches after
+    two, at 4 workers and at os.cpu_count(), the decode cache off and
+    on."""
+    from glsdet_tpu_torch.data.coco import CocoDataset
+    from glsdet_tpu_torch.data.loader import TrainPipeline, train_loader
+
+    out = {}
+    for workers in (4, os.cpu_count()):
+        for cache in (False, True):
+            data = CocoDataset(ds["ann_file"], ds["img_root"],
+                               filter_empty=True, cache_images=cache)
+            pipe = TrainPipeline(data, COARSE_HW, YOLOX_MAX_GT,
+                                 raw_uint8=True, device_color=True)
+            loader = train_loader(pipe, YOLOX_B, seed=0,
+                                  num_workers=workers, pin_memory=True)
+            try:
+                t_start = time.perf_counter()
+                for _ in range(2):
+                    next(loader)
+                first = time.perf_counter() - t_start
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    next(loader)
+                dt = time.perf_counter() - t0
+            finally:
+                loader.close()
+            out[f"workers_{workers}_cache_{'on' if cache else 'off'}"] = {
+                "samples_per_s": reps * YOLOX_B / dt,
+                "first_two_batches_s": first}
+    return out
+
+
+def phase_train_loop(smi: str, yolox: dict) -> dict:
+    """train() from PNG files at full width: coarse_det (with a
+    checkpoint, a resume, the mode switch, init_detector), multiscale,
+    device_geom and mp_det_res50 (the OT cadence); then the card against
+    the CPU and the loader alone."""
+    t0 = time.perf_counter()
+    out = {"card": smi}
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = write_loop_dataset(os.path.join(tmp, "visdrone"))
+        out["dataset"] = {k: v for k, v in ds.items()
+                          if k not in ("ann_file", "img_root")}
+        out["coarse_det"] = loop_coarse(ds, tmp,
+                                        yolox["timed"]["ms_per_step"])
+        out["multiscale"] = loop_multiscale(ds, tmp)
+        out["device_geom"] = loop_geom(ds, tmp)
+        out["mp_det_res50"] = loop_mpdet(ds, tmp)
+        out["card_vs_cpu"] = loop_card_vs_cpu(ds, tmp)
+        out["loader"] = loader_rates(ds)
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"train_loop": out}), flush=True)
+    return out
+
+
 
 def main() -> None:
     # float32 products of the plain versions stay float32 on the card
@@ -2808,9 +3340,10 @@ def main() -> None:
         serve8 = phase_serve_int8(frames, paths, serve)
         phase_detector(frames, paths)
     phase_train(smi)
-    phase_train_yolox(smi)
+    yolox = phase_train_yolox(smi)
     phase_train_gfl(smi)
     gfl8 = phase_gfl_int8(frames)
+    phase_train_loop(smi, yolox)
     launches = bf16["launches"]
     sk = serve["kernels"]
     print(json.dumps({"kernels": [

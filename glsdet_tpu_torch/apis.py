@@ -11,11 +11,12 @@ Every entry point takes ``device`` (default ``"cuda"``; ``"cuda"``
 without a GPU raises, nothing falls back to the CPU).  On the card the
 models compute in bfloat16, on the CPU in float32.
 
-A checkpoint is a file of the port's ``state_dict()`` (``torch.save``),
-loaded strictly.  The JAX package's orbax directories cannot be read
-here: converting one is ROADMAP.md, queue A item 8.  A state-dict file
-holds one set of weights, so ``use_ema`` has nothing to select and is
-accepted for the JAX package's signature only.
+A checkpoint is either a file of a model's ``state_dict()``
+(``torch.save``), loaded strictly, or a training checkpoint that
+``train/loop.py: save_checkpoint`` wrote, loaded shape-matched through
+``load_weights``, whose EMA weights serve when ``use_ema`` is set.  The
+JAX package's orbax directories cannot be read here: converting one is
+ROADMAP.md, queue A item 8.
 """
 
 from __future__ import annotations
@@ -46,25 +47,48 @@ from glsdet_tpu_torch.ops.quant_static import (calibrate_scales, load_scales,
 def init_detector(config_name: str, checkpoint: Optional[str] = None,
                   use_ema: bool = True, options: Optional[dict] = None,
                   device="cuda"):
-    """Build a model from a named config and an optional state-dict file.
+    """Build a model from a named config and an optional checkpoint.
 
     Returns ``(cfg, model, state_dict)``: the float32 model in eval mode
     on ``device``, with the checkpoint's weights or, without one, the
-    seeded initialisation of ``models/build.py``.  ``use_ema``: see the
-    module docstring."""
-    del use_ema
+    seeded initialisation of ``models/build.py``.  A state-dict file
+    loads strictly (a mismatch raises ``ValueError``).  A training
+    checkpoint loads as the JAX package's does: shape-matched through
+    ``train/loop.py: load_weights`` (mismatched tensors keep their
+    initialisation, no match at all raises ``ValueError``), then the
+    parameters are the checkpoint's EMA with ``use_ema`` and its raw
+    parameters without; BN statistics are the checkpoint's either
+    way."""
+    from glsdet_tpu_torch.train.loop import (build_optimizer, load_weights,
+                                             make_state_template,
+                                             restore_raw)
+
     cfg = get_config(config_name)
     if options:
         apply_overrides(cfg, options)
     model = build_model(cfg, device)
-    if checkpoint:
-        state = torch.load(checkpoint, map_location="cpu", weights_only=True)
+    if not checkpoint:
+        return cfg, model, model.state_dict()
+    raw = restore_raw(checkpoint)
+    if not ("model" in raw and "step" in raw):
         try:
-            model.load_state_dict(state, strict=True)
+            model.load_state_dict(raw, strict=True)
         except RuntimeError as e:
             raise ValueError(f"{checkpoint} does not hold the weights of "
                              f"{config_name}: {e}") from e
-    return cfg, model, model.state_dict()
+        return cfg, model, model.state_dict()
+    gen = torch.Generator(device=next(model.parameters()).device)
+    state = make_state_template(cfg, model, build_optimizer(cfg, 1000, model),
+                                gen)
+    state, n_loaded, skipped = load_weights(checkpoint, state)
+    if n_loaded == 0:
+        raise ValueError(f"no weight arrays in {checkpoint} match "
+                         f"{config_name}: {skipped[:5]}")
+    if use_ema:
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(state.ema_params[name])
+    return cfg, model.eval(), model.state_dict()
 
 
 def _dtype(device: torch.device) -> torch.dtype:

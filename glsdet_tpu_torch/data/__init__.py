@@ -1,3 +1,4 @@
-"""The data constants the serving facades need and the device side of a
-train batch (``device_color.py``); the datasets, loaders and
-augmentations are still to be ported (ROADMAP.md, queue A item 11)."""
+"""Data layer of the port: frames read without OpenCV (``image_io``),
+the COCO reader and VisDrone converter, the YOLOX-recipe augmentations,
+the dataset wrappers, the training loader on worker processes, and the
+device-side colour and geometric stages of a train batch."""

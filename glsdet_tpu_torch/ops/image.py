@@ -1,5 +1,6 @@
-"""Image resizes of the port: ``cv2.resize`` on uint8 frames
-(:func:`resize_linear_u8`) and ``jax.image.resize(..., "bilinear")`` on
+"""Image resizes and warps of the port: ``cv2.resize`` on uint8 frames
+(:func:`resize_linear_u8`), ``cv2.warpAffine`` on uint8 frames
+(:func:`warp_affine_u8`) and ``jax.image.resize(..., "bilinear")`` on
 float batches (:func:`resize_bilinear`).
 
 ``cv2.resize(img, (w, h))`` (INTER_LINEAR on uint8) in integer torch ops.
@@ -83,6 +84,105 @@ def resize_linear_u8(img: torch.Tensor, out_hw: Tuple[int, int]
     out = (((b0[:, None, None] * h0) >> 16)
            + ((b1[:, None, None] * h1) >> 16) + 2) >> 2
     return out.clamp(0, 255).to(torch.uint8)
+
+
+# output columns per vector block of OpenCV's float warp kernel for 8UC3
+# (an AVX2 build); the columns past the last full block take its scalar
+# tail, whose coordinate is summed in another order
+WARP_BLOCK = 16
+
+
+def _affine_inverse(mat: np.ndarray) -> Tuple[float, ...]:
+    """The output -> source map of a (2, 3) forward matrix, as
+    ``cv2.warpAffine`` inverts it (in double, in OpenCV's order)."""
+    m = [float(v) for v in np.asarray(mat, np.float64)[:2].reshape(-1)]
+    d = m[0] * m[4] - m[1] * m[3]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = m[4] * d, m[0] * d
+    m[0], m[1], m[3], m[4] = a11, m[1] * -d, m[3] * -d, a22
+    b1 = -m[0] * m[2] - m[1] * m[5]
+    b2 = -m[3] * m[2] - m[4] * m[5]
+    m[2], m[5] = b1, b2
+    return tuple(m)
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add: the
+    product of two float32 values is exact in float64."""
+    return (a.double() * b + c.double()).float()
+
+
+def warp_affine_u8(img: torch.Tensor, mat: np.ndarray,
+                   out_hw: Tuple[int, int], border_value: int = 114
+                   ) -> torch.Tensor:
+    """(H, W, C) uint8 -> (h, w, C) uint8, as ``cv2.warpAffine(img,
+    mat[:2], (w, h), borderValue=(border_value,) * 3)`` (INTER_LINEAR,
+    constant border) computes it, on ``img``'s device.
+
+    OpenCV 4.11 replaced the fixed-point remap (``AB_BITS = 10``
+    coordinates, 5-bit sub-pixel tables, 15-bit weights) with float32
+    kernels, and the OpenCV these tests hold the port to (5.0) runs
+    them; the fixed-point arithmetic differs from it by up to 6 codes in
+    60% of pixels.  This repeats the float kernel:
+
+    - the forward matrix inverted in double as OpenCV does, then cast to
+      float32 (M0..M5);
+    - per pixel ``sx = fma(x, M0, y * M1 + M2)`` and ``sy = fma(x, M3,
+      y * M4 + M5)`` in blocks of ``WARP_BLOCK`` columns, and ``fma(x,
+      M0, y * M1) + M2`` in the scalar tail past the last block;
+    - ``ix = floor(sx)``, ``alpha = sx - ix`` (likewise y, ``beta``);
+      taps outside the image read ``border_value``;
+    - ``v0 = fma(alpha, p01 - p00, p00)``, ``v1 = fma(alpha, p11 - p10,
+      p10)``, ``fma(beta, v1 - v0, v0)``, rounded half to even and
+      saturated.
+
+    The fused multiply-adds are float64 products rounded to float32
+    once.  ``tests/test_torch_augment.py`` holds it equal to
+    ``cv2.warpAffine`` value for value over the matrices
+    ``random_affine_params`` draws, the identity, a pure scale and a
+    flip, at widths with and without a tail."""
+    if img.dtype != torch.uint8 or img.dim() != 3:
+        raise ValueError(f"expected an (H, W, C) uint8 image, got "
+                         f"{img.dtype} {tuple(img.shape)}")
+    src_h, src_w, ch = img.shape
+    h, w = int(out_hw[0]), int(out_hw[1])
+    m = [float(np.float32(v)) for v in _affine_inverse(mat)]
+    dev = img.device
+    f32 = torch.float32
+    xs = torch.arange(w, dtype=f32, device=dev)[None, :]
+    ys = torch.arange(h, dtype=f32, device=dev)[:, None]
+    tail = w - w % WARP_BLOCK
+
+    def coord(mx, my, mc):
+        row = (ys * np.float32(my)).to(f32) + np.float32(mc)
+        out = _fma(xs.expand(h, w), mx, row.expand(h, w))
+        if tail < w:
+            out[:, tail:] = _fma(xs[:, tail:].expand(h, w - tail), mx,
+                                 (ys * np.float32(my)).expand(
+                                     h, w - tail)) + np.float32(mc)
+        return out
+
+    sx = coord(m[0], m[1], m[2])
+    sy = coord(m[3], m[4], m[5])
+    fx, fy = torch.floor(sx), torch.floor(sy)
+    alpha = (sx - fx)[..., None]
+    beta = (sy - fy)[..., None]
+    ix, iy = fx.to(torch.int64), fy.to(torch.int64)
+    flat = img.reshape(-1, ch)
+
+    def tap(ty, tx):
+        inside = (ty >= 0) & (ty < src_h) & (tx >= 0) & (tx < src_w)
+        idx = (ty.clamp(0, src_h - 1) * src_w
+               + tx.clamp(0, src_w - 1)).reshape(-1)
+        v = flat.index_select(0, idx).reshape(h, w, ch).to(f32)
+        return torch.where(inside[..., None], v, float(border_value))
+
+    p00, p01 = tap(iy, ix), tap(iy, ix + 1)
+    p10, p11 = tap(iy + 1, ix), tap(iy + 1, ix + 1)
+    v0 = _fma(alpha, p01 - p00, p00)
+    v1 = _fma(alpha, p11 - p10, p10)
+    out = _fma(beta, v1 - v0, v0)
+    return torch.round(out).clamp(0, 255).to(torch.uint8)
 
 
 _F32 = np.float32

@@ -1,7 +1,6 @@
 """Training: the YOLOX (SimOTA), MP-Det and plain GFL losses, targets and
-steps, the BoIW dictionary, schedules and state (the counterpart of
-``glsdet_tpu.train``; the loop with its data pipeline is still to be
-ported)."""
+steps, the BoIW dictionary, schedules, state and the loop with its
+checkpoints (the counterpart of ``glsdet_tpu.train``)."""
 
 from glsdet_tpu_torch.train.boiw import (BoIWState, enable_emd_training,
                                          init_boiw, update_dictionary,

@@ -1,7 +1,9 @@
 """Train state: the model (parameters and BN running statistics), the
 optimizer (momentum buffers and update count), an EMA of the parameters,
 the generator and the BoIW dictionary; the counterpart of
-``glsdet_tpu.train.state``.
+``glsdet_tpu.train.state``.  :func:`state_dict` and
+:func:`load_state_dict` carry all of it to and from a checkpoint
+(``train/loop.py``).
 
 The JAX package's state is an immutable pytree; here the model and the
 optimizer are updated in place and :func:`apply_updates` returns the same
@@ -13,7 +15,7 @@ card.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -57,4 +59,54 @@ def apply_updates(state: TrainState,
     state.step += 1
     if new_boiw is not None:
         state.boiw = new_boiw
+    return state
+
+
+def state_dict(state: TrainState) -> Dict[str, Any]:
+    """Everything that resuming needs, as tensors copied to the CPU (a
+    snapshot: training may go on while it is written): ``step``,
+    ``model`` (parameters and BN statistics), ``optimizer`` (its
+    ``state_dict`` and update ``count``), ``ema_params``, ``generator``
+    (its state) and ``boiw`` (None for families without one)."""
+    def snap(t):
+        return t.detach().to("cpu", copy=True)
+
+    opt = state.optimizer.state_dict()
+    opt_state = {k: {n: snap(v) if torch.is_tensor(v) else v
+                     for n, v in st.items()}
+                 for k, st in opt["state"].items()}
+    return {
+        "step": int(state.step),
+        "model": {k: snap(v) for k, v in state.model.state_dict().items()},
+        "optimizer": {"state": opt_state,
+                      "param_groups": opt["param_groups"],
+                      "count": int(getattr(state.optimizer, "count", 0))},
+        "ema_params": {k: snap(v) for k, v in state.ema_params.items()},
+        "generator": state.generator.get_state(),
+        "boiw": (None if state.boiw is None
+                 else {k: snap(v) for k, v in state.boiw._asdict().items()}),
+    }
+
+
+@torch.no_grad()
+def load_state_dict(state: TrainState, sd: Dict[str, Any]) -> TrainState:
+    """Restore :func:`state_dict` into ``state`` in place (each tensor
+    onto the device and dtype of the one it replaces) and return it."""
+    state.step = int(sd["step"])
+    state.model.load_state_dict(sd["model"], strict=True)
+    opt = sd["optimizer"]
+    state.optimizer.load_state_dict({"state": opt["state"],
+                                     "param_groups": opt["param_groups"]})
+    if hasattr(state.optimizer, "count"):
+        state.optimizer.count = int(opt["count"])
+    for k, v in sd["ema_params"].items():
+        state.ema_params[k].copy_(v)
+    state.generator.set_state(sd["generator"])
+    if (sd["boiw"] is None) != (state.boiw is None):
+        raise ValueError("checkpoint and state disagree on the BoIW "
+                         "dictionary")
+    if state.boiw is not None:
+        state.boiw = BoIWState(**{
+            k: v.to(getattr(state.boiw, k).device)
+            for k, v in sd["boiw"].items()})
     return state

@@ -10,6 +10,11 @@ Batch dict contract (fixed shapes, tensors on the model's device):
     gt_boxes:  (B, G, 4) xyxy, zero-padded
     gt_labels: (B, G) int
     gt_valid:  (B, G) bool
+and, from ``data/loader.py: TrainPipeline`` with ``device_color``, the
+keys of the augmentations the step renders on the device
+(``data/device_color.py: apply_batch_color``): ``mix_images`` /
+``mix_weight``, ``hsv_deltas``, and ``geom_sources`` / ``geom_quads`` /
+``geom_mat`` in place of ``images`` with ``device_geom``.
 
 The step makes no host sync between taking the batch and returning the
 metrics: every shape is fixed, nothing is read back, and the schedules
@@ -84,8 +89,8 @@ def make_yolox_train_step(model: nn.Module, img_hw: Tuple[int, int],
 
     ``resize_from``: batches arrive at this size and the step resizes
     the images to ``img_hw`` on the device as ``jax.image.resize``'s
-    "bilinear" does (``ops/image.py: resize_bilinear``), before the
-    normalisation, and scales the GT boxes by the ratio: the
+    "bilinear" does (``ops/image.py: resize_bilinear``), between the
+    color stage and the normalisation, and scales the GT boxes by the ratio: the
     multi-scale primitive (one base size from the loader, each target
     size its own step).  The priors are made once on the model's
     device; the images enter the model in its parameters' dtype."""
@@ -105,7 +110,8 @@ def make_yolox_train_step(model: nn.Module, img_hw: Tuple[int, int],
 
     def step(state: TrainState, batch: dict):
         model.train()
-        images = apply_batch_color(batch)
+        images = apply_batch_color(batch, resize_from if do_resize
+                                   else img_hw)
         gt_boxes = batch["gt_boxes"]
         if do_resize:
             images = resize_bilinear(images.float(), img_hw)
@@ -155,7 +161,7 @@ def make_mpdet_train_step(model: nn.Module, img_hw: Tuple[int, int],
         targets = gfl_targets(anchors, counts, batch["gt_boxes"],
                               batch["gt_labels"], batch["gt_valid"],
                               num_classes)
-        images = normalize_images(apply_batch_color(batch),
+        images = normalize_images(apply_batch_color(batch, img_hw),
                                   normalize, mean, std)
         with torch.autocast(dev.type, dtype=dtype, enabled=use_autocast):
             cls_l, bbox_l = model(images.permute(0, 3, 1, 2).to(param_dtype))
@@ -194,7 +200,7 @@ def make_gfl_train_step(model: nn.Module, img_hw: Tuple[int, int],
         targets = gfl_targets(anchors, counts, batch["gt_boxes"],
                               batch["gt_labels"], batch["gt_valid"],
                               num_classes)
-        images = normalize_images(apply_batch_color(batch),
+        images = normalize_images(apply_batch_color(batch, img_hw),
                                   normalize, mean, std)
         with torch.autocast(dev.type, dtype=dtype, enabled=use_autocast):
             cls_l, bbox_l = model(images.permute(0, 3, 1, 2).to(param_dtype))

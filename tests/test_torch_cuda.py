@@ -48,10 +48,20 @@ matches the CPU's (losses within 1e-4 relative, every leaf of the state
 within 1e-5 of its max, TF32 off; the momentum buffers in float64 only);
 remat on and off give the same losses and BN statistics; an image
 without valid GTs gives finite losses.
+
+The data pipeline's device stages (``data/device_color.py``,
+``data/device_geom.py``) on the card against the same batch on the CPU:
+HSV codes within +-1 (float32 division and rounding on either device;
+the share that differs is reported in the assertion message), the
+geometric warp within one code; ``ops/image.py: warp_affine_u8`` and
+``resize_linear_u8`` equal to the CPU; and ``train/loop.py: train()``
+from a PNG dataset on disk, whose steps make no host sync between the
+loop's own reads.
 """
 
 import functools
 import math
+import os
 
 
 import numpy as np
@@ -1197,3 +1207,128 @@ def test_gn_kernel_on_the_int8_gfl_towers(card):
         d = (out.int() - want.int()).abs()
         assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
     assert all(bool(torch.isfinite(t).all()) for t in cls + reg)
+
+
+def _color_batch(b=3, hw=(40, 56), seed=0):
+    rs = np.random.RandomState(seed)
+    return {
+        "images": torch.from_numpy(rs.randint(0, 256, (b, *hw, 3),
+                                              dtype=np.uint8)),
+        "mix_images": torch.from_numpy(rs.randint(0, 256, (b, *hw, 3),
+                                                  dtype=np.uint8)),
+        "mix_weight": torch.tensor([1.0, 0.5, 0.5][:b]),
+        "hsv_deltas": torch.from_numpy(np.stack([
+            rs.randint(-5, 6, b), rs.randint(-30, 31, b),
+            rs.randint(-30, 31, b)], 1).astype(np.float32)),
+    }
+
+
+def test_device_color_on_the_card_matches_the_cpu(card):
+    from glsdet_tpu_torch.data import device_color as dc
+
+    batch = _color_batch()
+    want = dc.apply_batch_color(batch)
+    got = dc.apply_batch_color({k: v.to(card) for k, v in batch.items()})
+    diff = (got.cpu() - want).abs()
+    assert diff.max() <= 1, float((diff > 0).float().mean())
+    codes = torch.rand(4096, 3, generator=torch.Generator().manual_seed(2))
+    codes = torch.round(codes * 255)
+    hsv = dc.rgb_to_hsv_u8(codes)
+    d = (dc.rgb_to_hsv_u8(codes.to(card)).cpu() - hsv).abs()
+    assert d.max() <= 1, float((d > 0).float().mean())
+    d = (dc.hsv_to_rgb_u8(hsv.to(card)).cpu() - dc.hsv_to_rgb_u8(hsv)).abs()
+    assert d.max() <= 1, float((d > 0).float().mean())
+
+
+def test_geom_warp_on_the_card_matches_the_cpu(card):
+    from glsdet_tpu_torch.data import augment as aug
+    from glsdet_tpu_torch.data import device_geom as dg
+
+    rs = np.random.RandomState(3)
+    shapes = [(30, 50), (40, 36), (28, 28), (50, 60)]
+    srcs = np.zeros((2, 4, 50, 60, 3), np.uint8)
+    quads, mats = [], []
+    for k in range(2):
+        for i, (h, w) in enumerate(shapes):
+            srcs[k, i, :h, :w] = rs.randint(0, 256, (h, w, 3))
+        _, _, q = aug.mosaic4_params(shapes, (32, 48), rs)
+        quads.append(dg.quads_to_array(q, shapes))
+        mats.append(dg.inverse_affine_2x3(
+            aug.random_affine_params(rs, (64, 96), (32, 48))))
+    args = [torch.from_numpy(np.stack(a)) for a in (srcs, quads, mats)]
+    want = dg.geom_warp(*args, (32, 48))
+    got = dg.geom_warp(*(a.to(card) for a in args), (32, 48)).cpu()
+    diff = (got - want).abs()
+    assert diff.max() <= 1, float((diff > 0).float().mean())
+
+
+def test_image_warp_and_resize_on_the_card_equal_the_cpu(card):
+    from glsdet_tpu_torch.data.augment import random_affine_params
+    from glsdet_tpu_torch.ops.image import resize_linear_u8, warp_affine_u8
+
+    rs = np.random.RandomState(4)
+    img = torch.from_numpy(rs.randint(0, 256, (150, 190, 3), dtype=np.uint8))
+    for _ in range(4):
+        mat = random_affine_params(rs, (150, 190), (75, 90))[:2]
+        assert torch.equal(warp_affine_u8(img.to(card), mat, (75, 90)).cpu(),
+                           warp_affine_u8(img, mat, (75, 90)))
+    for hw in ((71, 95), (300, 380), (75, 95)):
+        assert torch.equal(resize_linear_u8(img.to(card), hw).cpu(),
+                           resize_linear_u8(img, hw))
+
+
+def test_train_from_png_files_makes_no_host_sync_between_reads(card,
+                                                               tmp_path):
+    """Three steps of ``train()`` (YOLOX-nano, 128x128, device colour)
+    from PNG files, with the sync debug mode at "error" from the first
+    batch on; no step reaches the loop's own reads (every 10 steps, the
+    log interval) or a checkpoint."""
+    import json
+
+    from glsdet_tpu_torch.config import apply_overrides, get_config
+    from glsdet_tpu_torch.data.image_io import write_png
+    from glsdet_tpu_torch.train import loop
+
+    rs = np.random.RandomState(0)
+    os.makedirs(tmp_path / "img")
+    images, anns = [], []
+    for i in range(8):
+        write_png(str(tmp_path / "img" / f"{i}.png"),
+                  rs.randint(0, 256, (90, 160, 3), dtype=np.uint8))
+        images.append({"id": i + 1, "file_name": f"{i}.png", "width": 160,
+                       "height": 90})
+        anns.append({"id": i + 1, "image_id": i + 1, "category_id": 1,
+                     "bbox": [20.0, 10.0, 30.0, 25.0], "iscrowd": 0})
+    with open(tmp_path / "ann.json", "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": 0, "name": "a"},
+                                  {"id": 1, "name": "b"}]}, f)
+    cfg = apply_overrides(get_config("coarse_det"), {
+        "model.phi": "nano", "data.img_hw": (128, 128), "data.batch_size": 2,
+        "data.num_workers": 0, "data.ann_file": str(tmp_path / "ann.json"),
+        "data.img_root": str(tmp_path / "img"),
+        "train.work_dir": str(tmp_path / "work"), "train.log_interval": 100,
+        "train.ckpt_interval": 100})
+    real_loader = loop.train_loader
+    steps = []
+
+    def checked_loader(*args, **kw):
+        inner = real_loader(*args, **kw)
+        try:
+            for batch in inner:
+                torch.cuda.set_sync_debug_mode("error")
+                steps.append(batch["images"].is_pinned())
+                yield batch
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            inner.close()
+
+    loop.train_loader = checked_loader
+    try:
+        state = loop.train(cfg, max_steps=3, device="cuda")
+    finally:
+        loop.train_loader = real_loader
+        torch.cuda.set_sync_debug_mode(0)
+    assert state.step == 3 and steps == [True] * 3
+    assert all(bool(torch.isfinite(p).all())
+               for p in state.model.parameters())

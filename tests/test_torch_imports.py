@@ -33,11 +33,22 @@ print(json.dumps([len(names), bad]))
 def test_every_port_module_imports_without_jax():
     modules = [m.name for m in pkgutil.walk_packages(
         glsdet_tpu_torch.__path__, "glsdet_tpu_torch.")]
-    # the serving facades and the carried-over host modules are among them
+    # the serving facades, the carried-over host modules and the data
+    # pipeline are among them
     for name in ("glsdet_tpu_torch.apis", "glsdet_tpu_torch.serve",
                  "glsdet_tpu_torch.config.core",
                  "glsdet_tpu_torch.eval.fusion",
-                 "glsdet_tpu_torch.models.build"):
+                 "glsdet_tpu_torch.models.build",
+                 "glsdet_tpu_torch.data.image_io",
+                 "glsdet_tpu_torch.data.augment",
+                 "glsdet_tpu_torch.data.coco",
+                 "glsdet_tpu_torch.data.visdrone",
+                 "glsdet_tpu_torch.data.wrappers",
+                 "glsdet_tpu_torch.data.device_color",
+                 "glsdet_tpu_torch.data.device_geom",
+                 "glsdet_tpu_torch.data.loader",
+                 "glsdet_tpu_torch.train.loop",
+                 "glsdet_tpu_torch.train.state"):
         assert name in modules
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,

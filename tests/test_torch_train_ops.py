@@ -239,8 +239,12 @@ def test_build_optimizer_matches_optax(name):
 
 
 def test_device_color_plain_batches():
-    """normalize_images as the JAX package's; the augmentation keys of the
-    data pipeline (not ported yet) raise."""
+    """normalize_images as the JAX package's; a plain batch's images pass
+    through, and the augmentation keys of the data pipeline render as the
+    JAX package's apply_batch_color renders them (eagerly)."""
+    import jax
+
+    from glsdet_tpu.data.device_color import apply_batch_color as j_color
     from glsdet_tpu.data.device_color import normalize_images as j_norm
     from glsdet_tpu_torch.data.device_color import (apply_batch_color,
                                                     normalize_images)
@@ -252,6 +256,16 @@ def test_device_color_plain_batches():
                                rtol=1e-6, atol=1e-6)
     assert apply_batch_color(batch) is batch["images"]
     assert normalize_images(batch["images"], False) is batch["images"]
-    for key in ("geom_sources", "mix_images", "hsv_deltas"):
-        with pytest.raises(NotImplementedError, match="queue A item 11"):
-            apply_batch_color(dict(batch, **{key: batch["images"]}))
+    keys = {"mix_images": img[::-1].copy(),
+            "mix_weight": np.array([1.0, 0.5], np.float32),
+            "hsv_deltas": np.array([[2, -9, 4], [-3, 12, 0]], np.float32)}
+    for key in ("mix_images", "hsv_deltas"):
+        extra = ({k: keys[k] for k in ("mix_images", "mix_weight")}
+                 if key == "mix_images" else {key: keys[key]})
+        with jax.disable_jit():
+            want = j_color({"images": img, **extra})
+        got = apply_batch_color({"images": T(img.copy()),
+                                 **{k: T(v.copy()) for k, v in extra.items()}})
+        np.testing.assert_array_equal(to_np(got), np.asarray(want))
+    with pytest.raises(ValueError, match="out_hw"):
+        apply_batch_color(dict(batch, geom_sources=batch["images"]))

@@ -197,3 +197,36 @@ def yolox_fixture(seed: int, hw=(64, 96), b: int = 3, g: int = 6,
             "priors_cxy": centers.astype(np.float32),
             "priors_stride": stride_v.astype(np.float32),
             "gt_boxes": boxes, "gt_labels": labels, "gt_valid": valid}
+
+
+def write_png_dataset(root):
+    """8 PNG frames (written by ``cv2.imwrite``) of three sizes in turn,
+    each with 1-6 boxes of classes 0-2, and their COCO json; returns
+    ``(ann_file, img_root)``."""
+    import json
+
+    import cv2
+
+    n, shapes = 8, ((60, 100), (80, 64), (50, 90))
+    rs = np.random.RandomState(0)
+    img_root = os.path.join(root, "img")
+    os.makedirs(img_root, exist_ok=True)
+    images, anns = [], []
+    for i in range(n):
+        h, w = shapes[i % len(shapes)]
+        cv2.imwrite(os.path.join(img_root, f"{i}.png"),
+                    rs.randint(0, 256, (h, w, 3), np.uint8))
+        images.append({"id": i + 1, "file_name": f"{i}.png",
+                       "width": w, "height": h})
+        for _ in range(rs.randint(1, 7)):
+            x, y = rs.uniform(0, w - 20), rs.uniform(0, h - 20)
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": int(rs.randint(0, 3)),
+                         "bbox": [x, y, rs.uniform(3, 19),
+                                  rs.uniform(3, 19)], "iscrowd": 0})
+    ann_file = os.path.join(root, "ann.json")
+    with open(ann_file, "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": k, "name": str(k)}
+                                  for k in range(3)]}, f)
+    return ann_file, img_root
