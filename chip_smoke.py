@@ -5,7 +5,8 @@
 Phases, in the order they run, each printing one line:
   1. the card (nvidia-smi name and power limit); fails without CUDA;
   2. build the CUDA kernels from glsdet_tpu_torch/csrc (seconds taken);
-  3. NMS kernel vs nms_sorted_plain: B=8, K in {500, 512, 700, 800, 2000},
+  3. NMS kernel vs nms_sorted_plain: B=8, K in {500, 512, 700, 800, 2000,
+     2400, 4096} (4096 the kernel's limit),
      offsets 0/1, thresholds 0.6/0.65, class-shifted detection-like
      boxes; keep masks must be equal; the kernel's time, each of its two
      passes alone, and the plain version's; then the candidate ladder's
@@ -194,8 +195,9 @@ Phases, in the order they run, each printing one line:
      > 0 after); steps 4-7 under torch.profiler (idle share, launches per
      step); the host ms between batches (their mean after the first, and
      the last epoch's, once the prefetched batches are spent) against
-     phase 18's bare step; the
-     epoch-2 checkpoint restored into a fresh state equal bit for bit to
+     phase 18's bare step; tools/train.py's eval_fn (run_eval over the
+     EMA weights, 16 val frames, float32) after each epoch, its AP
+     printed; the epoch-2 checkpoint restored into a fresh state equal bit for bit to
      the state the loop had then, a resumed run taking only epoch 3's
      steps, and apis.init_detector serving the epoch-3 EMA.  Then one
      epoch with multiscale_sizes (608, 640, 672) (the logged sizes equal
@@ -210,7 +212,26 @@ Phases, in the order they run, each printing one line:
      YOLOX-nano at 128x128 on both devices, losses and every leaf within
      1e-5 (relative; of a leaf's max).  Last, the loader alone at 4
      workers and at os.cpu_count(), the decode cache off and on,
-     samples/s.  Printed as one {"train_loop": ...} line.
+     samples/s.  Printed as one {"train_loop": ...} line;
+ 22. eval, over phase 21's 64 PNG frames as a val split (their own
+     synthetic annotations): YOLOX-s with its norm statistics and biases
+     jittered from the seed (at the initializers' constants every score
+     ties at the prior), MP-Det-R50 as seeded.  run_eval for coarse_det
+     (640², batch 8) and mp_det_res50 (1024², batch 4, max_dets 500) in
+     bf16, and run_eval_tta on 16 frames (scales 1.0 and 1.25, flip),
+     each after a one-frame warm pass: img/s, the host's share, COCO
+     stats, B2 launched and every launch's keep mask equal to
+     nms_sorted_plain's, each (B, K) timed with its plain version and
+     bound.  float32 run_eval of the jittered YOLOX-s (TF32 off) on 8
+     frames on the CPU and on the card, against GTs made from the CPU's
+     own detections: COCO stats within 0.02.  Then
+     glsdet_tpu_torch.tools.ufpmp_det_eval.main from state-dict files,
+     --fuse-global, coarse threshold 1e-4, in bf16 and --int8-static
+     (calibrating on 4 frames): B2's keep masks equal to plain, B1 at
+     every stage-2 group equal to mosaic_inputs_plain (timed per bucket
+     and batch), B3 launched 40 times per int8 group and, on the inputs
+     the path gave it, within +-1 code of its plain version, timed.
+     Printed as one {"eval": ...} line.
 Then one JSON line of per-kernel results (each with its bound: the bytes
 it must move at 3.35 TB/s or its operations at the card's peak for their
 type, whichever is longer) and, last, the device line.  A kernel's ``ms``
@@ -221,6 +242,8 @@ Any failure raises, and the script exits non-zero without the last line.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import os
 import re
@@ -239,7 +262,7 @@ COARSE_HW = (640, 640)
 BUCKETS = (1024, 1152)
 PAINT_HW = (1024, 1280)      # paint canvases of the two buckets
 PHI, DEPTH = "s", 50
-NMS_K = (500, 512, 700, 800, 2000)
+NMS_K = (500, 512, 700, 800, 2000, 2400, 4096)
 # MP-Det head levels (strides 8..128) of the two buckets
 LEVELS = {1024: (128, 64, 32, 16, 8), 1152: (144, 72, 36, 18, 9)}
 GN_C, GN_GROUPS, GN_S_OUT = 256, 32, 0.03
@@ -1504,32 +1527,10 @@ def check_fusions(fusions) -> dict:
 
 def phase_serve_kernels(groups, nms_calls) -> dict:
     """B1 at every bucket the facade's run used, torch.equal to
-    mosaic_inputs_plain and timed; B2 at the fusion's launches (K = 700,
-    offset 0, 0.65), keep masks equal to the plain version, timed."""
-    from glsdet_tpu_torch.eval.preprocess import (mosaic_inputs_plain,
-                                                  norm_constants)
-    from glsdet_tpu_torch.ufp.paint_kernel import (assemble_mosaic_cuda_batch,
-                                                   paint_mosaic_inputs_cuda)
-
-    mean, inv_std = norm_constants(torch.bfloat16, DEVICE)
-    paints = []
-    for imgs, idx, regs, hw in groups:
-        run = lambda: paint_mosaic_inputs_cuda(  # noqa: E731
-            imgs, idx, regs, hw, mean, inv_std)
-        got = run()
-        if not torch.equal(got, mosaic_inputs_plain(imgs, idx, regs, hw,
-                                                    torch.bfloat16)):
-            raise AssertionError(f"paint inputs at {hw}: differs from "
-                                 f"mosaic_inputs_plain")
-        painted = float((assemble_mosaic_cuda_batch(
-            imgs, idx, regs, hw, hw).float().abs().sum(-1) > 0).sum() * 3)
-        t = {"hw": hw, "batch": int(idx.shape[0]), "ms": cuda_ms(run),
-             "graph_ms": graph_ms(run),
-             "plain_ms": cuda_ms(lambda: mosaic_inputs_plain(
-                 imgs, idx, regs, hw, torch.bfloat16), 3),
-             **paint_bound(got, regs, painted, got.numel())}
-        t["share_of_bound"] = t["bound_ms"] / t["ms"]
-        paints.append(t)
+    mosaic_inputs_plain and timed (check_paint_groups); B2 at the
+    fusion's launches (K = 700, offset 0, 0.65), keep masks equal to the
+    plain version, timed."""
+    paints = check_paint_groups(groups)
     fusion = [c for c in nms_calls if c[0].shape[1] == FUSION_K]
     if len(fusion) != len(groups):
         raise AssertionError(f"{len(fusion)} fusion NMS launches for "
@@ -2014,7 +2015,6 @@ def serve_int8_ladder(frames, paths, scales) -> dict:
     level, captured) within +-1 code of its plain version, timed with
     phase 4's bound (the int32 read and the int8 write)."""
     from glsdet_tpu_torch.ops import quant_static
-    from glsdet_tpu_torch.ops.gn_kernel import gn_relu_quant_acc_plain
 
     facade = make_facade(paths, buckets=LADDER, quant8="static",
                          int8_scales=scales)
@@ -2038,19 +2038,7 @@ def serve_int8_ladder(frames, paths, scales) -> dict:
         raise AssertionError(f"GN kernel launched {run['launches']['gn']} "
                              f"times for {run['groups']} groups")
     del groups
-    levels = []
-    for shape, (acc, deq, gamma, beta, s_out, kw) in sorted(
-            captured.items()):
-        args = (acc, deq, gamma, beta, s_out)
-        c = check_codes(inner(*args, **kw),
-                        gn_relu_quant_acc_plain(*args, kw["groups"],
-                                                kw["eps"], kw["dtype"]),
-                        f"ladder input {shape}")
-        t = {"shape": list(shape), **c,
-             "ms": cuda_ms(lambda: inner(*args, **kw)),
-             **bound(5 * acc.numel(), 12 * acc.numel(), PEAK_F32)}
-        t["share_of_bound"] = t["bound_ms"] / t["ms"]
-        levels.append(t)
+    levels = check_gn_captured(captured)
     del captured
     return {**run, "ladder": LADDER, "gn_path_inputs": levels}
 
@@ -3044,11 +3032,18 @@ def loop_coarse(ds, tmp, bare_ms) -> dict:
     assert (tuple(cfg.data.img_hw), cfg.data.batch_size, cfg.model.phi,
             cfg.data.device_color, cfg.data.mosaic, cfg.data.mixup) == (
         COARSE_HW, YOLOX_B, PHI, True, True, True), cfg
-    seen = {}
+    seen, aps = {}, []
+    run_ap = train_eval_fn(cfg, eval_split(ds, tmp, "val_train",
+                                           LOOP_EVAL_FRAMES), aps)
+
+    def eval_fn(st, ep):
+        seen[ep] = cpu_state(st)
+        run_ap(st, ep)
+
     probe = LoopProbe(loop.train_loader, start=3, stop=7)
-    state, logs, gaps, run = run_train(
-        cfg, probe, eval_fn=lambda st, ep: seen.__setitem__(
-            ep, cpu_state(st)))
+    state, logs, gaps, run = run_train(cfg, probe, eval_fn=eval_fn)
+    if [a["epoch"] for a in aps] != [1, 2, 3]:
+        raise AssertionError(f"eval_fn ran after epochs {aps}")
     spe = 64 // YOLOX_B
     assert state.step == 3 * spe and len(logs) == 3 * spe, (state.step,
                                                             len(logs))
@@ -3100,7 +3095,7 @@ def loop_coarse(ds, tmp, bare_ms) -> dict:
             "l1_switch_at_step": 2 * spe + 1, "checkpoints": ckpts,
             "restore_bit_equal": restore_equal,
             "resume_steps": [rlogs[0]["step"], rlogs[-1]["step"]],
-            "init_detector_serves_ema": ema_served,
+            "init_detector_serves_ema": ema_served, "epoch_eval": aps,
             "first_batch_s": run["first_batch_s"],
             "ms_per_step_after_first": steady, "step_gaps_ms": gaps,
             "img_per_s_after_first": YOLOX_B * 1e3 / steady,
@@ -3281,28 +3276,464 @@ def loader_rates(ds, reps=12) -> dict:
     return out
 
 
-def phase_train_loop(smi: str, yolox: dict) -> dict:
-    """train() from PNG files at full width: coarse_det (with a
-    checkpoint, a resume, the mode switch, init_detector), multiscale,
+def phase_train_loop(smi: str, yolox: dict, tmp: str):
+    """train() from PNG files at full width, written under ``tmp``:
+    coarse_det (with a checkpoint, a resume, the mode switch,
+    init_detector, and tools/train.py's eval_fn each epoch), multiscale,
     device_geom and mp_det_res50 (the OT cadence); then the card against
-    the CPU and the loader alone."""
+    the CPU and the loader alone.  Returns (its line, the dataset)."""
     t0 = time.perf_counter()
     out = {"card": smi}
-    with tempfile.TemporaryDirectory() as tmp:
-        ds = write_loop_dataset(os.path.join(tmp, "visdrone"))
-        out["dataset"] = {k: v for k, v in ds.items()
-                          if k not in ("ann_file", "img_root")}
-        out["coarse_det"] = loop_coarse(ds, tmp,
-                                        yolox["timed"]["ms_per_step"])
-        out["multiscale"] = loop_multiscale(ds, tmp)
-        out["device_geom"] = loop_geom(ds, tmp)
-        out["mp_det_res50"] = loop_mpdet(ds, tmp)
-        out["card_vs_cpu"] = loop_card_vs_cpu(ds, tmp)
-        out["loader"] = loader_rates(ds)
+    ds = write_loop_dataset(os.path.join(tmp, "visdrone"))
+    out["dataset"] = {k: v for k, v in ds.items()
+                      if k not in ("ann_file", "img_root")}
+    out["coarse_det"] = loop_coarse(ds, tmp, yolox["timed"]["ms_per_step"])
+    out["multiscale"] = loop_multiscale(ds, tmp)
+    out["device_geom"] = loop_geom(ds, tmp)
+    out["mp_det_res50"] = loop_mpdet(ds, tmp)
+    out["card_vs_cpu"] = loop_card_vs_cpu(ds, tmp)
+    out["loader"] = loader_rates(ds)
     out["seconds"] = time.perf_counter() - t0
     print(json.dumps({"train_loop": out}), flush=True)
+    return out, ds
+
+
+# ---------------------------------------------------------------------------
+# 22. eval: run_eval, run_eval_tta and the two-stage ufpmp_det_eval
+
+
+LOOP_EVAL_FRAMES = 16        # train()'s per-epoch eval set
+EVAL_TTA_FRAMES = 16
+EVAL_TTA_SCALES = (1.0, 1.25)
+EVAL_CPU_FRAMES = 8
+
+
+def eval_split(ds, root, name, n=None, anns=None):
+    """A val split of the loop dataset: its first ``n`` frames (all by
+    default) with their own annotations, or ``anns`` (COCO dicts)."""
+    from glsdet_tpu_torch.data.coco import CocoDataset
+
+    with open(ds["ann_file"]) as f:
+        coco = json.load(f)
+    images = coco["images"][:n] if n else coco["images"]
+    ids = {im["id"] for im in images}
+    rows = coco["annotations"] if anns is None else anns
+    out = dict(coco, images=images,
+               annotations=[a for a in rows if a["image_id"] in ids])
+    path = os.path.join(root, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(out, f)
+    return CocoDataset(path, ds["img_root"])
+
+
+def train_eval_fn(cfg, val, aps):
+    """tools/train.py's eval_fn over the port's run_eval: the EMA
+    parameters and the model's BN statistics, the model in eval mode for
+    the pass, each epoch's AP appended to ``aps`` and printed."""
+    from glsdet_tpu_torch.eval.runner import run_eval
+
+    fam = cfg.model.family if cfg.model.family in ("yolox", "ffa") \
+        else "gfl"
+
+    def eval_fn(state, epoch):
+        model = state.model
+        was_training = model.training
+        model.eval()
+        try:
+            t0 = time.perf_counter()
+            res, stats = run_eval(
+                val, lambda v, x: torch.func.functional_call(model, v,
+                                                             (x,)),
+                fam, tuple(cfg.data.img_hw), cfg.model.num_classes,
+                batch_size=cfg.data.batch_size,
+                score_thr=cfg.eval.score_thr, nms_iou=cfg.eval.nms_iou,
+                max_dets=cfg.eval.max_dets,
+                variables={**model.state_dict(), **state.ema_params},
+                dtype=torch.float32, device=DEVICE, verbose=False)
+        finally:
+            model.train(was_training)
+        print(f"epoch {epoch}: AP={res.ap:.4f} AP50={res.ap50:.4f}",
+              flush=True)
+        aps.append({"epoch": epoch, "ap": res.ap, "ap50": res.ap50,
+                    "images": stats["images"],
+                    "seconds": time.perf_counter() - t0})
+
+    return eval_fn
+
+
+def jitter_(model, seed):
+    """Replace the constant initial values of a seeded model's norm
+    statistics, norm scales and biases by random ones, as the parity
+    tests' flax_vars does: at the initializers' constants every coarse
+    score sits at the prior (1e-4) to within 1e-11, so all detections tie
+    and a ranking, a threshold or a max_dets cut is arbitrary.  The
+    running variances are drawn from [0.7, 1.7), not flax_vars' [0.5,
+    1.5): on some of phase 21's frames YOLOX-s's activations then grow
+    through the CSP blocks until its box regression reaches 700 and the
+    decode's exp overflows (the seeded model itself reaches 168); from
+    0.7 on, the largest regression output over the 64 frames is 0.34
+    (float32 on the CPU)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in [*model.named_parameters(), *model.named_buffers()]:
+            leaf = name.rsplit(".", 1)[-1]
+            if not t.is_floating_point():
+                continue
+            if leaf == "running_var":
+                t.copy_(0.7 + torch.rand(t.shape, generator=g))
+            elif leaf in ("running_mean", "bias"):
+                t.copy_(0.1 * torch.randn(t.shape, generator=g))
+            elif leaf == "scale" or (leaf == "weight" and t.dim() == 1):
+                t.copy_(1.0 + 0.1 * torch.randn(t.shape, generator=g))
+    return model
+
+
+def eval_models(root):
+    """The eval phase's weights: YOLOX-s jittered, MP-Det as seeded, as
+    the state-dict files ufpmp_det_eval loads, and the float32 YOLOX."""
+    coarse, mp = seeded_models()
+    jitter_(coarse, 7)
+    paths = (os.path.join(root, "eval_coarse.pt"),
+             os.path.join(root, "eval_mp.pt"))
+    torch.save(coarse.state_dict(), paths[0])
+    torch.save(mp.state_dict(), paths[1])
+    return coarse, mp, paths
+
+
+@contextlib.contextmanager
+def capture_path(stage2_quant=None):
+    """Captures, while the block runs: every B2 launch's inputs and keep
+    mask (clones), the stage-2 groups of TwoStagePipeline objects whose
+    ``quant8`` is ``stage2_quant`` (frames, rows, bucket), and B3's calls
+    (their count, the first call at each shape cloned); and the kernels'
+    launch counts, set to 0 first and read at the end."""
+    from glsdet_tpu_torch.eval import two_stage
+    from glsdet_tpu_torch.ops import nms as nms_mod
+    from glsdet_tpu_torch.ops import quant_static
+
+    cap = {"nms": [], "groups": [], "gn": {}, "gn_calls": 0,
+           "launches": None}
+    real = (nms_mod.nms_sorted_cuda, two_stage.TwoStagePipeline.stage2_packed,
+            quant_static.gn_relu_quant_acc)
+
+    def nms(bx, vd, thr, offset=0.0):
+        keep = real[0](bx, vd, thr, offset)
+        cap["nms"].append((bx.clone(), vd.clone(), float(thr),
+                           float(offset), keep.clone()))
+        return keep
+
+    def stage2(self, imgs, idx, regs, hw, gdets=None):
+        if self.quant8 == stage2_quant:
+            cap["groups"].append((imgs, idx.clone(), regs.clone(), hw))
+        return real[1](self, imgs, idx, regs, hw, gdets)
+
+    def gn(acc, deq, gamma, beta, s_out, **kw):
+        cap["gn_calls"] += 1
+        if tuple(acc.shape) not in cap["gn"]:
+            cap["gn"][tuple(acc.shape)] = (acc.clone(), deq, gamma, beta,
+                                           s_out, kw)
+        return real[2](acc, deq, gamma, beta, s_out, **kw)
+
+    nms_mod.nms_sorted_cuda = nms
+    two_stage.TwoStagePipeline.stage2_packed = stage2
+    quant_static.gn_relu_quant_acc = gn
+    torch.cuda.synchronize()
+    reset_launches()
+    try:
+        yield cap
+        torch.cuda.synchronize()
+        cap["launches"] = read_launches()
+    finally:
+        nms_mod.nms_sorted_cuda = real[0]
+        two_stage.TwoStagePipeline.stage2_packed = real[1]
+        quant_static.gn_relu_quant_acc = real[2]
+
+
+def check_nms_calls(calls, what) -> dict:
+    """Every captured B2 launch: its keep mask equal to nms_sorted_plain's
+    on the same inputs.  The first launch of each (B, K, threshold,
+    offset) timed (eager, replayed, each pass, the plain version) beside
+    its bound; ``per_run`` sums them over the run's launches."""
+    from glsdet_tpu_torch.ops.nms import nms_sorted_plain
+
+    by_shape = {}
+    for bx, vd, thr, off, keep in calls:
+        if not torch.equal(keep, nms_sorted_plain(bx, vd, thr, off)):
+            raise AssertionError(f"{what} NMS {tuple(bx.shape)}: keep mask "
+                                 "differs from nms_sorted_plain")
+        by_shape.setdefault((*bx.shape[:2], thr, off), []).append(
+            (bx, vd, keep))
+    shapes, total = [], dict.fromkeys(("ms", "graph_ms", "plain_ms",
+                                       "bound_ms"), 0.0)
+    share = {"bytes": 0.0, "operations": 0.0}
+    for (b, k, thr, off), group in by_shape.items():
+        bx, vd, keep = group[0]
+        t, bd = nms_times(bx, vd, thr, off), nms_bound(bx, vd, keep)
+        n = len(group)
+        shapes.append({"batch": b, "k": k, "threshold": thr, "offset": off,
+                       "launches": n, "valid": int(vd.sum()),
+                       "kept": int(keep.sum()), **t, **bd})
+        for key in total:
+            total[key] += n * (t[key] if key in t else bd[key])
+        share[bd["bound_by"]] += n * bd["bound_ms"]
+    return {"launches_checked": len(calls), "masks_equal": True,
+            "max_abs_err": 0.0, "shapes": shapes, "per_run": total,
+            "bound_by": max(share, key=share.get)}
+
+
+def check_paint_groups(groups) -> list:
+    """B1 at every captured stage-2 group: the path entry torch.equal to
+    mosaic_inputs_plain; the first group of each (bucket, batch) timed
+    beside its plain version and bound."""
+    from glsdet_tpu_torch.eval.preprocess import (mosaic_inputs_plain,
+                                                  norm_constants)
+    from glsdet_tpu_torch.ufp.paint_kernel import (assemble_mosaic_cuda_batch,
+                                                   paint_mosaic_inputs_cuda)
+
+    mean, inv_std = norm_constants(torch.bfloat16, DEVICE)
+    timed, rows = set(), []
+    for imgs, idx, regs, hw in groups:
+        run = lambda: paint_mosaic_inputs_cuda(  # noqa: E731
+            imgs, idx, regs, hw, mean, inv_std)
+        got = run()
+        if not torch.equal(got, mosaic_inputs_plain(imgs, idx, regs, hw,
+                                                    torch.bfloat16)):
+            raise AssertionError(f"eval paint inputs at {hw}: differs "
+                                 "from mosaic_inputs_plain")
+        key = (hw, int(idx.shape[0]))
+        if key in timed:
+            continue
+        timed.add(key)
+        painted = float((assemble_mosaic_cuda_batch(
+            imgs, idx, regs, hw, hw).float().abs().sum(-1) > 0).sum() * 3)
+        t = {"hw": hw, "batch": key[1], "ms": cuda_ms(run),
+             "graph_ms": graph_ms(run),
+             "plain_ms": cuda_ms(lambda: mosaic_inputs_plain(
+                 imgs, idx, regs, hw, torch.bfloat16), 3),
+             **paint_bound(got, regs, painted, got.numel())}
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        t["groups"] = sum(1 for g in groups
+                          if (g[3], int(g[1].shape[0])) == key)
+        rows.append(t)
+    return rows
+
+
+def check_gn_captured(captured) -> list:
+    """B3 on the inputs the path gave it (the first call at each shape)
+    within +-1 code of its plain version, timed with its bound."""
+    from glsdet_tpu_torch.ops.gn_kernel import (gn_relu_quant_acc,
+                                                gn_relu_quant_acc_plain)
+
+    rows = []
+    for shape, (acc, deq, gamma, beta, s_out, kw) in sorted(
+            captured.items()):
+        args = (acc, deq, gamma, beta, s_out)
+        c = check_codes(gn_relu_quant_acc(*args, **kw),
+                        gn_relu_quant_acc_plain(*args, kw["groups"],
+                                                kw["eps"], kw["dtype"]),
+                        f"path input {shape}")
+        t = {"shape": list(shape), **c,
+             "ms": cuda_ms(lambda: gn_relu_quant_acc(*args, **kw)),
+             "plain_ms": cuda_ms(lambda: gn_relu_quant_acc_plain(
+                 *args, kw["groups"], kw["eps"], kw["dtype"]), 3),
+             **bound(5 * acc.numel(), 12 * acc.numel(), PEAK_F32)}
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        rows.append(t)
+    return rows
+
+
+def check_stats(res, what) -> list:
+    stats = [float(v) for v in res.stats]
+    if not all(np.isfinite(v) and -1.0 <= v <= 1.0 for v in stats):
+        raise AssertionError(f"{what}: COCO stats {stats}")
+    return stats
+
+
+def eval_single(name, val, model, family, cfg, batch, tta=False) -> dict:
+    """run_eval (or run_eval_tta) of ``model`` over ``val`` on the card:
+    a warm pass over one batch, then the timed pass with B2's launches
+    captured and checked."""
+    from glsdet_tpu_torch.eval.runner import run_eval, run_eval_tta
+
+    kw = dict(score_thr=cfg.eval.score_thr, nms_iou=cfg.eval.nms_iou,
+              max_dets=cfg.eval.max_dets, device=DEVICE, verbose=False)
+    if tta:
+        fn = run_eval_tta
+        kw.update(tta_scales=EVAL_TTA_SCALES, tta_flip=True,
+                  max_images=EVAL_TTA_FRAMES)
+    else:
+        fn = run_eval
+        kw.update(batch_size=batch)
+    hw = tuple(cfg.data.img_hw)
+    n_cls = cfg.model.num_classes
+    fn(val, model, family, hw, n_cls, **{**kw, "max_images": 1},
+       format_only=True)
+    torch.cuda.reset_peak_memory_stats()
+    with capture_path() as cap:
+        t0 = time.perf_counter()
+        res, stats = fn(val, model, family, hw, n_cls, **kw)
+        seconds = time.perf_counter() - t0
+    launches = cap["launches"]
+    if launches["nms"] < 1 or launches["nms"] != len(cap["nms"]):
+        raise AssertionError(f"eval {name}: B2 launches {launches}, "
+                             f"{len(cap['nms'])} captured")
+    return {"images": stats["images"], "seconds": seconds,
+            "img_per_s": stats["images"] / seconds,
+            "host_s": stats["host_s"], "host_share": stats["host_s"]
+            / seconds, "stats": check_stats(res, name), "ap": res.ap,
+            "launches": launches,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "nms": check_nms_calls(cap["nms"], f"eval {name}")}
+
+
+def self_gt(dump, n_per_image=30, seed=0):
+    """GT annotations from detections (a COCO results list): each image's
+    top ``n_per_image`` by score of those at least 2 px wide and high
+    (anchors over the letterbox padding give boxes clipped to nothing),
+    every third dropped, the rest jittered by up to 5% of their sides, so
+    that AP is well above 0."""
+    rs = np.random.RandomState(seed)
+    by_img = {}
+    for d in sorted(dump, key=lambda d: -d["score"]):
+        if min(d["bbox"][2:]) >= 2:
+            by_img.setdefault(d["image_id"], []).append(d)
+    anns = []
+    for img_id, dets in by_img.items():
+        for j, d in enumerate(dets[:n_per_image]):
+            if j % 3 == 2:
+                continue
+            box = np.asarray(d["bbox"], np.float64)
+            x, y, w, h = box + rs.uniform(-0.05, 0.05, 4) * box[[2, 3, 2, 3]]
+            anns.append({"id": len(anns) + 1, "image_id": img_id,
+                         "category_id": d["category_id"], "iscrowd": 0,
+                         "bbox": [float(max(x, 0)), float(max(y, 0)),
+                                  float(max(w, 1)), float(max(h, 1))],
+                         "area": float(max(w, 1) * max(h, 1))})
+    return anns
+
+
+def eval_card_vs_cpu(ds, root, coarse) -> dict:
+    """float32 run_eval of the jittered YOLOX-s (TF32 off) on the first
+    EVAL_CPU_FRAMES frames, on the CPU and on the card, against GTs made
+    from the CPU's own detections: the COCO stats within 0.02."""
+    from glsdet_tpu_torch.config import get_config
+    from glsdet_tpu_torch.eval.runner import run_eval
+
+    cfg = get_config("coarse_det")
+    kw = dict(batch_size=EVAL_CPU_FRAMES, score_thr=cfg.eval.score_thr,
+              nms_iou=cfg.eval.nms_iou, max_dets=cfg.eval.max_dets,
+              dtype=torch.float32, verbose=False)
+    hw = tuple(cfg.data.img_hw)
+    cpu_model = copy.deepcopy(coarse).float().eval()
+    card_model = copy.deepcopy(coarse).float().eval().to(DEVICE)
+    base = eval_split(ds, root, "val_cpu", EVAL_CPU_FRAMES)
+    dump_path = os.path.join(root, "val_cpu_dets.json")
+    run_eval(base, cpu_model, "yolox", hw, 10, device="cpu",
+             out_json=dump_path, format_only=True, **kw)
+    with open(dump_path) as f:
+        anns = self_gt(json.load(f))
+    val = eval_split(ds, root, "val_cpu_gt", EVAL_CPU_FRAMES, anns)
+    t0 = time.perf_counter()
+    cpu, cstats = run_eval(val, cpu_model, "yolox", hw, 10, device="cpu",
+                           **kw)
+    cpu_s = time.perf_counter() - t0
+    card, gstats = run_eval(val, card_model, "yolox", hw, 10,
+                            device=DEVICE, **kw)
+    diff = float(np.abs(card.stats - cpu.stats).max())
+    out = {"frames": EVAL_CPU_FRAMES, "gt_boxes": len(anns),
+           "stats_cpu": check_stats(cpu, "cpu f32"),
+           "stats_card": check_stats(card, "card f32"),
+           "max_stat_diff": diff, "tolerance": 0.02, "cpu_seconds": cpu_s}
+    if diff > 0.02 or cpu.ap < 0.2:
+        raise AssertionError(f"eval card vs CPU: {out}")
     return out
 
+
+def eval_two_stage(ds, val_ann, paths, int8) -> dict:
+    """glsdet_tpu_torch.tools.ufpmp_det_eval.main on the val split, with
+    --fuse-global and the coarse threshold at 1e-4 (so that stage 2
+    fires on these weights, as in the serving phases), in bf16 or with
+    --int8-static (calibrating on the first 4 frames): B2's launches
+    checked against its plain version, B1 at every stage-2 group equal to
+    mosaic_inputs_plain, and in int8 B3 launched 40 times per group and
+    within +-1 code of its plain version on the path's inputs."""
+    from glsdet_tpu_torch.tools import ufpmp_det_eval
+
+    name = "int8" if int8 else "bf16"
+    out_json = os.path.join(os.path.dirname(val_ann), f"ufpmp_{name}.json")
+    argv = ["coarse_det", paths[0], "mp_det_res50", paths[1], val_ann,
+            ds["img_root"], "--fuse-global", "--out-json", out_json,
+            "--first-options", "eval.coarse_score_thr=0.0001",
+            "--device", DEVICE] + (["--int8-static"] if int8 else [])
+    torch.cuda.reset_peak_memory_stats()
+    with capture_path("static" if int8 else False) as cap:
+        t0 = time.perf_counter()
+        res, stats = ufpmp_det_eval.main(argv)
+        seconds = time.perf_counter() - t0
+    launches, groups = cap["launches"], cap["groups"]
+    with open(out_json) as f:
+        dump = json.load(f)
+    boxes = np.asarray([d["bbox"] for d in dump], np.float64).reshape(-1, 4)
+    ok = (len(dump) > 0 and np.isfinite(boxes).all()
+          and (boxes[:, 2:] >= 0).all()
+          and all(0 < d["score"] <= 1 for d in dump))
+    want_gn = 40 * len(groups) if int8 else 0
+    if not ok or not groups or launches["nms"] < 1 \
+            or launches["paint_inputs"] < len(groups) \
+            or launches["gn"] != want_gn or cap["gn_calls"] != want_gn:
+        raise AssertionError(f"ufpmp_det_eval {name}: {len(dump)} "
+                             f"detections, {len(groups)} groups, launches "
+                             f"{launches}, {cap['gn_calls']} GN calls")
+    return {"images": stats["images"], "seconds": seconds,
+            "img_per_s": stats["images_per_sec"],
+            "frame_read_s": stats["frame_read_s"],
+            "detections": len(dump), "stats": check_stats(res, name),
+            "groups": len(groups),
+            "buckets": sorted({g[3] for g in groups}),
+            "launches": launches,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "nms": check_nms_calls(cap["nms"], f"ufpmp {name}"),
+            "paint": check_paint_groups(groups),
+            "gn": check_gn_captured(cap["gn"]) if int8 else []}
+
+
+def phase_eval(smi: str, ds, tmp: str) -> dict:
+    """The eval entry points on the card over the loop dataset's val
+    split (module docstring, phase 22)."""
+    from glsdet_tpu_torch.config import get_config
+
+    t0 = time.perf_counter()
+    out = {"card": smi}
+    root = os.path.join(tmp, "eval")
+    os.makedirs(root)
+    val = eval_split(ds, root, "val")
+    coarse, mp, paths = eval_models(root)
+    c_cfg, m_cfg = get_config("coarse_det"), get_config("mp_det_res50")
+    y16 = copy.deepcopy(coarse).to(DEVICE, torch.bfloat16).eval()
+    m16 = mp.to(DEVICE, torch.bfloat16).eval()
+    runs = {
+        "coarse_det": lambda: eval_single("coarse_det", val, y16, "yolox",
+                                          c_cfg, c_cfg.data.batch_size),
+        "mp_det_res50": lambda: eval_single("mp_det_res50", val, m16, "gfl",
+                                            m_cfg, m_cfg.data.batch_size),
+        "tta": lambda: eval_single("tta", val, y16, "yolox", c_cfg, 1,
+                                   tta=True),
+        "card_vs_cpu": lambda: eval_card_vs_cpu(ds, root, coarse),
+        "ufpmp_bf16": lambda: eval_two_stage(ds, val_ann, paths, False),
+        "ufpmp_int8": lambda: eval_two_stage(ds, val_ann, paths, True),
+    }
+    val_ann = os.path.join(root, "val.json")
+    for key, run in runs.items():
+        out[key] = run()
+        log(f"eval_{key}", since_phase_start_s=time.perf_counter() - t0,
+            **{k: v for k, v in out[key].items()
+               if k not in ("nms", "paint", "gn")})
+        if key == "card_vs_cpu":       # the single-model runs are done
+            del y16, m16, mp
+            torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"eval": out}), flush=True)
+    return out
 
 
 def main() -> None:
@@ -3343,8 +3774,13 @@ def main() -> None:
     yolox = phase_train_yolox(smi)
     phase_train_gfl(smi)
     gfl8 = phase_gfl_int8(frames)
-    phase_train_loop(smi, yolox)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, loop_ds = phase_train_loop(smi, yolox, tmp)
+        ev = phase_eval(smi, loop_ds, tmp)
     launches = bf16["launches"]
+    eval_nms = {run: ev[run]["nms"] for run in
+                ("coarse_det", "mp_det_res50", "tta", "ufpmp_bf16",
+                 "ufpmp_int8")}
     sk = serve["kernels"]
     print(json.dumps({"kernels": [
         {"name": "nms_sorted", "route": "cuda",
@@ -3362,14 +3798,36 @@ def main() -> None:
          "gfl_int8_plain_ms": gfl8["nms"]["per_batch"]["plain_ms"],
          "gfl_int8_bound_ms": gfl8["nms"]["per_batch"]["bound_ms"],
          "gfl_int8_bound_by": gfl8["nms"]["bound_by"],
-         "gfl_int8_max_abs_err": gfl8["nms"]["max_abs_err"]},
+         "gfl_int8_max_abs_err": gfl8["nms"]["max_abs_err"],
+         "eval_launches": {run: ev[run]["launches"]["nms"]
+                           for run in eval_nms},
+         "eval_shapes": {run: [[t["batch"], t["k"]] for t in r["shapes"]]
+                         for run, r in eval_nms.items()},
+         "eval_ms": {run: r["per_run"]["ms"] for run, r in eval_nms.items()},
+         "eval_graph_ms": {run: r["per_run"]["graph_ms"]
+                           for run, r in eval_nms.items()},
+         "eval_plain_ms": {run: r["per_run"]["plain_ms"]
+                           for run, r in eval_nms.items()},
+         "eval_bound_ms": {run: r["per_run"]["bound_ms"]
+                           for run, r in eval_nms.items()},
+         "eval_max_abs_err": max(r["max_abs_err"]
+                                 for r in eval_nms.values())},
         {"name": "paint_mosaic", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/paint.cu",
          "replaces": "glsdet_tpu/ufp/pallas_paint.py:368",
          "launches": launches["paint"], **paint,
          "serve_launches": serve["launches"]["paint"],
          "serve_ms": {f"{t['hw']}x{t['batch']}": t["ms"]
-                      for t in sk["paint"] + ladder["kernels"]["paint"]}},
+                      for t in sk["paint"] + ladder["kernels"]["paint"]},
+         "ufpmp_eval_launches": {
+             run: ev[run]["launches"]["paint_inputs"]
+             for run in ("ufpmp_bf16", "ufpmp_int8")},
+         "ufpmp_eval_ms": {f"{t['hw']}x{t['batch']}": t["ms"]
+                           for t in ev["ufpmp_bf16"]["paint"]},
+         "ufpmp_eval_plain_ms": {f"{t['hw']}x{t['batch']}": t["plain_ms"]
+                                 for t in ev["ufpmp_bf16"]["paint"]},
+         "ufpmp_eval_bound_ms": {f"{t['hw']}x{t['batch']}": t["bound_ms"]
+                                 for t in ev["ufpmp_bf16"]["paint"]}},
         {"name": "gn_relu_quant", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/gn_quant.cu",
          "replaces": "glsdet_tpu/ops/pallas_gn.py:173",
@@ -3380,7 +3838,12 @@ def main() -> None:
          "gfl_int8_ms_40": gfl8["gn_ms_40"],
          "gfl_int8_plain_ms_40": gfl8["gn_plain_ms_40"],
          "gfl_int8_bound_ms_40": gfl8["gn_bound_ms_40"],
-         "gfl_int8_max_abs_err": gfl8["gn_max_abs_err"]},
+         "gfl_int8_max_abs_err": gfl8["gn_max_abs_err"],
+         "ufpmp_eval_int8_launches": ev["ufpmp_int8"]["launches"]["gn"],
+         "ufpmp_eval_int8_levels": [
+             {k: t[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                "max_abs_err")}
+             for t in ev["ufpmp_int8"]["gn"]]},
         {"name": "fused_bottleneck", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/bottleneck.cu",
          "replaces": "glsdet_tpu/ops/pallas_bottleneck.py:212",

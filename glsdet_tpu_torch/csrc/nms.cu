@@ -6,9 +6,10 @@
 // (glsdet_tpu/ops/nms.py: nms).
 //
 // What bounds it on the H100: not bytes and not FLOPs.  The serving path
-// runs K <= 2048 boxes per image (K*K/2 IoUs, a few MFLOP), so the first
-// pass is short; the second is a chain of K dependent decisions per image,
-// i.e. latency.  The design keeps every link of that chain on chip:
+// runs K <= 2048 boxes per image and a TTA union up to 4096 (K*K/2 IoUs, a
+// few MFLOP), so the first pass is short; the second is a chain of K
+// dependent decisions per image, i.e. latency.  The design keeps every
+// link of that chain on chip:
 //   pass 1 (nms_mask_kernel): grid (K/64 column tiles, K/64 row tiles, B),
 //     64 threads.  A block stages one 64-box column tile in shared memory;
 //     each thread writes one 64-bit word: the bits j > i of the tile whose
@@ -17,16 +18,18 @@
 //     up to even, so each 64-row chunk starts 16-byte aligned.
 //   pass 2 (nms_reduce_kernel): one block of 8 warps per image.  Thread 0
 //     streams chunk c's 64 mask rows (mask[base:base+64, :], contiguous)
-//     into an 8-stage shared-memory ring by cp.async.bulk on mbarriers, so
-//     chunks c+1..c+7 load while chunk c is decided.  Warp 0 decides the
-//     chunk from shared memory alone: its lanes mark the candidates whose
-//     diagonal word meets another candidate, and lane 0 walks only those,
-//     in order, by find-first-set, each one still a candidate clearing
-//     its diagonal word's bits (a chunk of disjoint boxes takes no step).
-//     Then the 8 warps OR the kept rows' later words into the removed mask
-//     (lane w takes word c+1+w, warp r the rows r, r+8, ...), with shared
-//     atomics: OR is order-free, so the result does not depend on timing.
-//     No global load stays on the dependent chain.
+//     into a shared-memory ring of up to 8 stages (as many 64 x stride
+//     word slots as fit in kRingBytes: 8 up to K = 3456, 6 at K = 4096) by
+//     cp.async.bulk on mbarriers, so the next chunks load while chunk c is
+//     decided.  Warp 0 decides the chunk from shared memory alone: its
+//     lanes mark the candidates whose diagonal word meets another
+//     candidate, and lane 0 walks only those, in order, by find-first-set,
+//     each one still a candidate clearing its diagonal word's bits (a chunk
+//     of disjoint boxes takes no step).  Then the 8 warps OR the kept rows'
+//     later words into the removed mask (lane w takes words c+1+w and
+//     c+33+w, warp r the rows r, r+8, ...), with shared atomics: OR is
+//     order-free, so the result does not depend on timing.  No global load
+//     stays on the dependent chain.
 // Pass 1 stays a separate launch: folded into pass 2's one block per
 // image it would put the K*K/2 IoUs on one SM each.
 //
@@ -45,9 +48,17 @@
 namespace {
 
 constexpr int kTile = 64;
-constexpr int kMaxWords = 32;        // K <= 2048
+constexpr int kMaxWords = 64;        // K <= 4096
 constexpr int kReduceThreads = 256;  // 8 warps
-constexpr int kStages = 8;
+constexpr int kStages = 8;           // at most; fewer when slots are large
+constexpr int kRingBytes = 220 * 1024;  // the ring's dynamic shared memory
+
+// ring slots of 64 * stride words that fit in kRingBytes, at most kStages
+int ring_stages(int stride) {
+  const int slot = kTile * stride * 8;
+  const int n = kRingBytes / slot;
+  return n < kStages ? n : kStages;
+}
 
 __device__ __forceinline__ float box_area(float x1, float y1, float x2,
                                           float y2, float off) {
@@ -100,11 +111,11 @@ __global__ void nms_mask_kernel(const float* __restrict__ boxes, int k,
   mask[((size_t)b * k + i) * stride + cb] = bits;
 }
 
-// dynamic shared memory: kStages slots of 64 * stride words
+// dynamic shared memory: `stages` slots of 64 * stride words
 __global__ void __launch_bounds__(kReduceThreads, 1)
     nms_reduce_kernel(const unsigned long long* __restrict__ mask,
                       const uint8_t* __restrict__ valid, int k, int stride,
-                      uint8_t* __restrict__ keep) {
+                      int stages, uint8_t* __restrict__ keep) {
   extern __shared__ __align__(128) unsigned long long ring[];
   __shared__ unsigned long long removed[kMaxWords], kept_w[kMaxWords],
       vbits[kMaxWords];
@@ -118,7 +129,7 @@ __global__ void __launch_bounds__(kReduceThreads, 1)
   const int slot_words = kTile * stride;
 
   if (t == 0) {
-    for (int s = 0; s < kStages; ++s) ptx::mbar_init(bar_u + 8 * s, 1);
+    for (int s = 0; s < stages; ++s) ptx::mbar_init(bar_u + 8 * s, 1);
     ptx::fence_mbar_init();
   }
   if (t < kMaxWords) removed[t] = 0ull;
@@ -132,7 +143,7 @@ __global__ void __launch_bounds__(kReduceThreads, 1)
   }
   __syncthreads();
   auto issue = [&](int c) {
-    const int s = c % kStages;
+    const int s = c % stages;
     const int n = min(kTile, k - c * kTile);
     const uint32_t bytes = (uint32_t)(n * stride * 8);
     ptx::mbar_expect_tx(bar_u + 8 * s, bytes);
@@ -140,11 +151,11 @@ __global__ void __launch_bounds__(kReduceThreads, 1)
                    bytes, bar_u + 8 * s);
   };
   if (t == 0) {
-    for (int c = 0; c < min(kStages, nwords); ++c) issue(c);
+    for (int c = 0; c < min(stages, nwords); ++c) issue(c);
   }
   for (int c = 0; c < nwords; ++c) {
-    const int s = c % kStages;
-    ptx::mbar_wait(bar_u + 8 * s, (uint32_t)((c / kStages) & 1));
+    const int s = c % stages;
+    ptx::mbar_wait(bar_u + 8 * s, (uint32_t)((c / stages) & 1));
     const unsigned long long* rows = ring + (size_t)s * slot_words;
     if (warp == 0) {
       // greedy over the chunk.  Only a candidate whose diagonal word (bits
@@ -173,8 +184,7 @@ __global__ void __launch_bounds__(kReduceThreads, 1)
     }
     __syncthreads();
     const unsigned long long kept = kept_w[c];
-    const int w = c + 1 + lane;
-    if (kept && w < nwords) {
+    for (int w = c + 1 + lane; kept && w < nwords; w += 32) {
       unsigned long long mine = kept & (0x0101010101010101ull << warp);
       unsigned long long acc = 0ull;
       while (mine) {
@@ -185,7 +195,7 @@ __global__ void __launch_bounds__(kReduceThreads, 1)
       if (acc) atomicOr(&removed[w], acc);
     }
     __syncthreads();  // removed is current and the slot is read
-    if (t == 0 && c + kStages < nwords) issue(c + kStages);
+    if (t == 0 && c + stages < nwords) issue(c + stages);
   }
   uint8_t* out = keep + (size_t)b * k;
   for (int i = t; i < k; i += kReduceThreads)
@@ -202,7 +212,7 @@ int check_args(int k, int stride) {
 }  // namespace
 
 // boxes (B, K, 4) f32 sorted by descending score -> mask (B, K, stride)
-// u64, stride even and >= ceil(K/64).  K <= 2048.
+// u64, stride even and >= ceil(K/64).  K <= 4096.
 extern "C" int glsdet_nms_mask(const float* boxes, unsigned long long* mask,
                                int batch, int k, int stride, float iou_thr,
                                float offset, cudaStream_t stream) {
@@ -219,20 +229,21 @@ extern "C" int glsdet_nms_reduce(const unsigned long long* mask,
                                  int batch, int k, int stride,
                                  cudaStream_t stream) {
   if (int rc = check_args(k, stride)) return rc;
-  static bool attr_set[64] = {};  // per device: the ring at K = 2048
+  static bool attr_set[64] = {};  // per device: the largest ring
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (!attr_set[dev % 64]) {
     err = cudaFuncSetAttribute(nms_reduce_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kStages * kTile * kMaxWords * 8);
+                               kRingBytes);
     if (err != cudaSuccess) return (int)err;
     attr_set[dev % 64] = true;
   }
-  const int smem = kStages * kTile * stride * 8;
-  nms_reduce_kernel<<<batch, kReduceThreads, smem, stream>>>(mask, valid, k,
-                                                             stride, keep);
+  const int stages = ring_stages(stride);
+  const int smem = stages * kTile * stride * 8;
+  nms_reduce_kernel<<<batch, kReduceThreads, smem, stream>>>(
+      mask, valid, k, stride, stages, keep);
   return (int)cudaGetLastError();
 }
 

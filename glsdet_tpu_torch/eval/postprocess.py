@@ -42,10 +42,14 @@ def yolox_postprocess(cls_out: Sequence[torch.Tensor],
                       img_hw: Tuple[int, int],
                       strides: Sequence[int] = (8, 16, 32),
                       score_thr: float = 0.01, iou_thr: float = 0.65,
-                      max_dets: int = 100,
+                      max_dets: int = 100, single_label: bool = True,
                       apply_sigmoid: str = "all") -> dict:
-    """YOLOX decode with the reference's single-label semantics: score =
-    obj * max-class cls, one candidate per anchor, then class-wise NMS.
+    """YOLOX decode: score = obj * cls, then class-wise NMS.
+
+    ``single_label=True`` is the reference's semantics: each anchor keeps
+    only its max-class entry, one candidate per anchor.  ``False`` is
+    mmdet's multiclass decode: every above-threshold (anchor, class) pair
+    competes.
 
     ``apply_sigmoid`` serves the loss-ablation heads whose decode bakes
     in (or leaves out) the activations: ``"all"`` (sigmoid on obj and
@@ -69,11 +73,12 @@ def yolox_postprocess(cls_out: Sequence[torch.Tensor],
     if apply_sigmoid in ("all", "obj"):
         obj_p = torch.sigmoid(obj_p)
     scores = cls_p * obj_p[..., None]
-    # keep only each anchor's max-class entry: zeroed entries never pass
-    # score_thr's strict > test
-    best = scores.argmax(dim=-1, keepdim=True)
-    scores = torch.zeros_like(scores).scatter(
-        -1, best, torch.gather(scores, -1, best))
+    if single_label:
+        # keep only each anchor's max-class entry: zeroed entries never
+        # pass score_thr's strict > test
+        best = scores.argmax(dim=-1, keepdim=True)
+        scores = torch.zeros_like(scores).scatter(
+            -1, best, torch.gather(scores, -1, best))
     return _dets(*multiclass_nms_batched(boxes, scores, score_thr, iou_thr,
                                          max_dets))
 
@@ -84,9 +89,11 @@ def gfl_postprocess(cls_scores: Sequence[torch.Tensor],
                     strides: Sequence[int] = (8, 16, 32, 64, 128),
                     reg_max: int = 16, score_thr: float = 0.01,
                     iou_thr: float = 0.6, max_dets: int = 100,
+                    scores_are_logits: bool = True,
                     nms_pre: int = 1000) -> dict:
     """GFL/MPHead decode: per level the top ``nms_pre`` anchors by max
-    class logit, Integral decode, sigmoid scores, multiclass NMS."""
+    class score, Integral decode, scores (through a sigmoid when
+    ``scores_are_logits``), multiclass NMS."""
     dev = cls_scores[0].device
     centers, = _on_device(
         ("gfl", tuple(img_hw), tuple(strides)),
@@ -119,6 +126,20 @@ def gfl_postprocess(cls_scores: Sequence[torch.Tensor],
     dists = integral_decode(torch.cat(reg_l, 1).float(), reg_max)
     dists = dists * torch.cat(str_l, 1)[..., None]
     boxes = distance2bbox(torch.cat(ctr_l, 1), dists, max_shape=img_hw)
-    scores = torch.sigmoid(torch.cat(cls_l, 1).float())
+    scores = torch.cat(cls_l, 1).float()
+    if scores_are_logits:
+        scores = torch.sigmoid(scores)
     return _dets(*multiclass_nms_batched(boxes, scores, score_thr, iou_thr,
                                          max_dets))
+
+
+def rescale_detections(dets: dict, scale: float,
+                       offset: Tuple[float, float] = (0.0, 0.0)) -> dict:
+    """Undo a letterbox or resize: boxes back to original image
+    coordinates, ``(boxes - (dx, dy, dx, dy)) / scale`` in float32."""
+    boxes = dets["boxes"]
+    dx, dy = offset
+    shift = torch.tensor([dx, dy, dx, dy], dtype=torch.float32,
+                         device=boxes.device)
+    s = torch.tensor(scale, dtype=torch.float32, device=boxes.device)
+    return {**dets, "boxes": (boxes - shift) / s}

@@ -32,9 +32,11 @@ def proxy_class_matrix(proxies_list: Sequence[int]) -> np.ndarray:
     return mat
 
 
-def proxy_scores(feat, proxies, membership, gamma: float = 10.0):
+def proxy_scores(feat, proxies, membership, gamma: float = 10.0,
+                 return_sim: bool = False):
     """(N, C) features, (P, C) proxies, (P, classes) membership ->
-    (N, classes) pre-sigmoid scores."""
+    (N, classes) pre-sigmoid scores; with ``return_sim`` also the (N, P)
+    cosine similarities."""
     f = feat * torch.rsqrt((feat * feat).sum(-1, keepdim=True) + 1e-12)
     p = proxies * torch.rsqrt(
         (proxies * proxies).sum(-1, keepdim=True) + 1e-12)
@@ -43,7 +45,10 @@ def proxy_scores(feat, proxies, membership, gamma: float = 10.0):
     e = torch.exp(gamma * sim)
     denom = e @ membership
     num = (e * sim) @ membership
-    return gamma * num / torch.clamp(denom, min=1e-12)
+    scores = gamma * num / torch.clamp(denom, min=1e-12)
+    if return_sim:
+        return scores, sim
+    return scores
 
 
 class MPHead(nn.Module):

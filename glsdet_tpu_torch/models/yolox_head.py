@@ -8,8 +8,9 @@
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -56,6 +57,20 @@ class YOLOXHead(nn.Module):
             reg_out.append(to_nhwc(getattr(self, f"reg_pred{lvl}")(reg_feat)))
             obj_out.append(to_nhwc(getattr(self, f"obj_pred{lvl}")(reg_feat)))
         return cls_out, reg_out, obj_out
+
+
+def level_priors(featmap_sizes: Sequence[Tuple[int, int]],
+                 strides: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
+    """Flattened per-anchor grid coordinates and strides (mmdet's
+    MlvlPointGenerator): (A, 2) float32 grid (x, y) in units of stride,
+    offset 0, and (A,) float32 strides, levels concatenated in order."""
+    grids, strs = [], []
+    for (h, w), s in zip(featmap_sizes, strides):
+        ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+        grids.append(np.stack([xs.reshape(-1), ys.reshape(-1)], axis=-1))
+        strs.append(np.full((h * w,), s))
+    return (np.concatenate(grids, axis=0).astype(np.float32),
+            np.concatenate(strs, axis=0).astype(np.float32))
 
 
 def flatten_head_outputs(cls_out, reg_out, obj_out):

@@ -1,7 +1,11 @@
 """Image resizes and warps of the port: ``cv2.resize`` on uint8 frames
 (:func:`resize_linear_u8`), ``cv2.warpAffine`` on uint8 frames
 (:func:`warp_affine_u8`) and ``jax.image.resize(..., "bilinear")`` on
-float batches (:func:`resize_bilinear`).
+float batches (:func:`resize_bilinear`); and the float preprocessing of
+``glsdet_tpu.ops.image`` built on the last: :func:`normalize_image`,
+:func:`resize_keep_ratio`, :func:`letterbox` (pad 128, float canvas; not
+``data/augment.py: letterbox``, pad 114 on uint8 with ``cv2.resize``)
+and :func:`unletterbox_boxes`.
 
 ``cv2.resize(img, (w, h))`` (INTER_LINEAR on uint8) in integer torch ops.
 
@@ -235,3 +239,71 @@ def resize_bilinear(images: torch.Tensor, out_hw: Tuple[int, int]
         x = torch.einsum("bhwc,wk->bhkc", x,
                          _weight(x.shape[2], w, x.device).to(x.dtype))
     return x
+
+
+# ImageNet statistics of the mmdet configs (img_norm_cfg)
+IMAGENET_MEAN = (123.675, 116.28, 103.53)
+IMAGENET_STD = (58.395, 57.12, 57.375)
+
+
+def normalize_image(img: torch.Tensor, mean=IMAGENET_MEAN, std=IMAGENET_STD,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(..., H, W, 3) uint8 or float -> ``(x - mean) / std`` in float32,
+    cast to ``dtype`` (NHWC).  Divides by a float32 tensor, as the JAX
+    package does (a division by a Python scalar becomes a multiplication
+    by its reciprocal on CUDA)."""
+    dev = img.device
+    m = torch.as_tensor(mean, dtype=torch.float32).to(dev)
+    sd = torch.as_tensor(std, dtype=torch.float32).to(dev)
+    return ((img.float() - m) / sd).to(dtype)
+
+
+def _keep_ratio_resize(img: torch.Tensor, out_h: int, out_w: int,
+                       method: str):
+    """The keep-aspect resize of an (H, W, C) image in float32 as
+    ``jax.image.resize`` does it, and its scale."""
+    if method not in ("bilinear", "linear"):
+        raise NotImplementedError(f"method {method!r}: the port resizes "
+                                  "with 'bilinear' only")
+    h, w = img.shape[0], img.shape[1]
+    scale = min(out_h / h, out_w / w)
+    new_h, new_w = int(round(h * scale)), int(round(w * scale))
+    resized = resize_bilinear(img.float()[None], (new_h, new_w))[0]
+    return resized, scale
+
+
+def resize_keep_ratio(img: torch.Tensor, out_h: int, out_w: int,
+                      method: str = "bilinear"):
+    """Keep-aspect resize into an (out_h, out_w) float32 canvas, top-left
+    anchored and zero padded (mmdet ``Resize(keep_ratio=True)`` +
+    ``Pad``).  Returns (canvas, scale), ``scale`` mapping original
+    coordinates to canvas ones."""
+    resized, scale = _keep_ratio_resize(img, out_h, out_w, method)
+    canvas = torch.zeros((out_h, out_w, img.shape[2]), dtype=torch.float32,
+                         device=img.device)
+    canvas[:resized.shape[0], :resized.shape[1]] = resized
+    return canvas, scale
+
+
+def letterbox(img: torch.Tensor, out_h: int, out_w: int,
+              pad_value: float = 128.0, method: str = "bilinear"):
+    """Centre-padded keep-aspect resize into a float32 canvas
+    (yolox-drone ``resize_image`` with ``letterbox_image=True``).  Returns
+    (canvas, scale, (pad_x, pad_y))."""
+    resized, scale = _keep_ratio_resize(img, out_h, out_w, method)
+    new_h, new_w = resized.shape[0], resized.shape[1]
+    pad_y, pad_x = (out_h - new_h) // 2, (out_w - new_w) // 2
+    canvas = torch.full((out_h, out_w, img.shape[2]), float(pad_value),
+                        dtype=torch.float32, device=img.device)
+    canvas[pad_y:pad_y + new_h, pad_x:pad_x + new_w] = resized
+    return canvas, scale, (pad_x, pad_y)
+
+
+def unletterbox_boxes(boxes: torch.Tensor, scale: float, pad_x: float,
+                      pad_y: float) -> torch.Tensor:
+    """xyxy boxes from letterboxed-canvas coordinates back to the original
+    image (yolox-drone ``yolo_correct_boxes``)."""
+    shift = torch.tensor([pad_x, pad_y, pad_x, pad_y], dtype=boxes.dtype,
+                         device=boxes.device)
+    return (boxes - shift) / torch.tensor(scale, dtype=boxes.dtype,
+                                          device=boxes.device)

@@ -43,11 +43,20 @@ def nms_sorted_plain(boxes_sorted: torch.Tensor, valid: torch.Tensor,
     IoU(i, j) > thr``; iterating the full-vector update from ``keep =
     valid`` reaches it (as ``glsdet_tpu.ops.nms.nms`` does).
     """
-    k = boxes_sorted.shape[-2]
     b = boxes_sorted.float()
-    later = torch.ones(k, k, dtype=torch.bool,
-                       device=b.device).triu(diagonal=1)       # i < j
-    suppressor = (pairwise_iou(b, b, offset) > iou_threshold) & later
+    return _greedy(pairwise_iou(b, b, offset) > iou_threshold, valid)
+
+
+def _later(k: int, device) -> torch.Tensor:
+    """(K, K) bool, True where i < j."""
+    return torch.ones(k, k, dtype=torch.bool, device=device).triu(diagonal=1)
+
+
+def _greedy(overlap: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Greedy suppression over sorted rows: the fixpoint of ``keep[j] =
+    valid[j] and no kept i < j has overlap[i, j]``, (..., K) bool."""
+    k = valid.shape[-1]
+    suppressor = overlap & _later(k, valid.device)
     keep = valid
     for _ in range(k):
         new = valid & ~(keep[..., :, None] & suppressor).any(dim=-2)
@@ -102,9 +111,7 @@ def soft_nms(boxes: torch.Tensor, scores: torch.Tensor,
         decay = torch.exp(-(iou_mat ** 2) / sigma)
     else:
         decay = torch.where(iou_mat > iou_threshold, 1.0 - iou_mat, 1.0)
-    later = torch.ones(k, k, dtype=torch.bool,
-                       device=scores.device).triu(diagonal=1)
-    decay = torch.where(later, decay, 1.0)
+    decay = torch.where(_later(k, scores.device), decay, 1.0)
     for i in range(k):
         s = s * torch.where(s[i] >= score_threshold, decay[i], 1.0)
     return torch.zeros_like(scores).scatter(0, order, s)
@@ -162,3 +169,68 @@ def multiclass_nms_batched(boxes: torch.Tensor, scores: torch.Tensor,
     valid = out_s > NEG_INF / 2
     return (_take(top_boxes, oi), torch.where(valid, out_s, 0.0),
             torch.gather(top_labels, 1, oi), valid)
+
+
+def multiclass_nms(mlvl_boxes: torch.Tensor, mlvl_scores: torch.Tensor,
+                   score_thr: float, iou_threshold: float,
+                   max_per_img: int):
+    """mmdet ``multiclass_nms`` for one image: (N, 4) shared boxes and
+    (N, C) per-class scores -> (max_per_img, 4) boxes, (max_per_img,)
+    scores, labels and valid, ranked by score.  It is
+    :func:`multiclass_nms_batched` at B = 1, so on the card it runs the
+    NMS kernel."""
+    out = multiclass_nms_batched(mlvl_boxes[None], mlvl_scores[None],
+                                 score_thr, iou_threshold, max_per_img)
+    return tuple(t[0] for t in out)
+
+
+def diou_nms(boxes: torch.Tensor, scores: torch.Tensor,
+             iou_threshold: float = 0.7):
+    """DIoU-NMS over one image's (K, 4) boxes and (K,) scores: greedy
+    suppression where IoU minus the normalized squared distance of the
+    centres exceeds ``iou_threshold``.  Returns (keep (K,) bool over the
+    input order, (K,) descending score order).  Plain PyTorch: the JAX
+    package's is an XLA loop, no kernel stands behind it."""
+    k = scores.shape[0]
+    _, order = torch.sort(scores, descending=True, stable=True)
+    b = boxes[order]
+    valid = scores[order] > NEG_INF / 2
+    iou_mat = pairwise_iou(b, b)
+    cx = (b[:, 0] + b[:, 2]) / 2
+    cy = (b[:, 1] + b[:, 3]) / 2
+    d2 = (cx[:, None] - cx[None, :]) ** 2 + (cy[:, None] - cy[None, :]) ** 2
+    ex1 = torch.minimum(b[:, None, 0], b[None, :, 0])
+    ey1 = torch.minimum(b[:, None, 1], b[None, :, 1])
+    ex2 = torch.maximum(b[:, None, 2], b[None, :, 2])
+    ey2 = torch.maximum(b[:, None, 3], b[None, :, 3])
+    c2 = (ex2 - ex1) ** 2 + (ey2 - ey1) ** 2
+    diou = iou_mat - d2 / torch.clamp(c2, min=1e-9)
+    keep_sorted = _greedy(diou > iou_threshold, valid)
+    keep = torch.zeros(k, dtype=torch.bool, device=scores.device)
+    return keep.scatter(0, order, keep_sorted), order
+
+
+def nms_match(boxes: torch.Tensor, scores: torch.Tensor,
+              iou_threshold: float):
+    """mmcv ``nms_match``: greedy NMS over one image's (K, 4) boxes, each
+    suppressed box assigned to its group leader, the highest-scoring kept
+    box with IoU > ``iou_threshold``.  Returns keep (K,) bool (the
+    leaders) and group (K,) int32: each box's leader's input index
+    (leaders map to themselves, padding rows with ``score <= NEG_INF / 2``
+    to -1).  The NMS is :func:`batched_nms` with one class, the kernel on
+    the card."""
+    k = scores.shape[0]
+    keep, _ = batched_nms(boxes[None], scores[None],
+                          torch.zeros((1, k), dtype=torch.int64,
+                                      device=scores.device), iou_threshold)
+    keep = keep[0]
+    valid = scores > NEG_INF / 2
+    cand = keep[:, None] & (pairwise_iou(boxes, boxes) > iou_threshold)
+    cand_scores = torch.where(cand, scores[:, None],
+                              torch.full_like(cand, NEG_INF, dtype=scores.dtype))
+    leader = cand_scores.argmax(dim=0).to(torch.int32)
+    has_leader = cand_scores.max(dim=0).values > NEG_INF / 2
+    self_idx = torch.arange(k, dtype=torch.int32, device=scores.device)
+    group = torch.where(keep, self_idx,
+                        torch.where(has_leader, leader, self_idx))
+    return keep, torch.where(valid, group, torch.full_like(group, -1))

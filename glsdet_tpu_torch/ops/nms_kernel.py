@@ -14,7 +14,10 @@ import torch
 
 from glsdet_tpu_torch.native import kernels
 
-MAX_K = 2048          # the reduce pass keeps ceil(K/64) <= 32 words per row
+# the reduce pass keeps ceil(K/64) <= 64 words per row: the serving
+# budgets (<= 2000) and a TTA union (scales x flips x max_dets, 2400 at
+# tta_detect's defaults with 4 scales) fit
+MAX_K = 4096
 
 launches = 0          # kernel launches since the last reset
 # (B, K, offset, iou_threshold) of the launches since the last
@@ -62,20 +65,21 @@ def _count(b, k, offset, iou_threshold) -> None:
 
 def _check(boxes_sorted: torch.Tensor, valid: torch.Tensor):
     """Raises on what the kernel cannot take; returns (B, K)."""
-    if boxes_sorted.device.type != "cuda":
-        raise ValueError(f"no NMS for device {boxes_sorted.device}")
     if boxes_sorted.dim() != 3 or boxes_sorted.shape[-1] != 4:
         raise ValueError(f"boxes: expected (B, K, 4), got "
                          f"{tuple(boxes_sorted.shape)}")
     b, k, _ = boxes_sorted.shape
+    if k > MAX_K:
+        raise ValueError(f"K = {k} > {MAX_K}, the NMS kernel's limit "
+                         "(ops/nms_kernel.py: MAX_K)")
+    if boxes_sorted.device.type != "cuda":
+        raise ValueError(f"no NMS for device {boxes_sorted.device}")
     if boxes_sorted.dtype != torch.float32 or valid.dtype != torch.bool:
         raise TypeError("expected float32 boxes and bool valid")
     if tuple(valid.shape) != (b, k) or valid.device != boxes_sorted.device:
         raise ValueError("valid must be (B, K) on the boxes' device")
     if not (boxes_sorted.is_contiguous() and valid.is_contiguous()):
         raise ValueError("boxes and valid must be contiguous")
-    if k > MAX_K:
-        raise ValueError(f"K = {k} > {MAX_K}")
     return b, k
 
 

@@ -70,6 +70,34 @@ def chip_boxes_from_regions(regions: torch.Tensor) -> torch.Tensor:
     return torch.stack([nx, ny, nx + w * f, ny + h * f], dim=-1)
 
 
+def unmap_chip_detections(det_boxes: torch.Tensor, det_valid: torch.Tensor,
+                          regions: torch.Tensor,
+                          iof_threshold: float = 0.9):
+    """Map mosaic detections back to the frame through every chip they
+    transfer through: the reference's duplicate-per-matching-chip loop
+    (min-IoF > ``iof_threshold``), one output slot per (det, chip) pair.
+
+    Args: det_boxes (..., N, 4) mosaic xyxy; det_valid (..., N) bool;
+    regions (..., R, 7).  Returns boxes (..., N, R, 4) in frame
+    coordinates and the (..., N, R) bool transfer mask.  The pipeline
+    uses :func:`unmap_chip_detections_argmax`, which keeps the NMS at N
+    candidates instead of N * R."""
+    chips = chip_boxes_from_regions(regions)                  # (..., R, 4)
+    live = regions[..., 6] > 0
+    iof = pairwise_iof_min(det_boxes, chips)                  # (..., N, R)
+    take = (iof > iof_threshold) & det_valid[..., :, None] \
+        & live[..., None, :]
+    f = torch.clamp(regions[..., 6], min=1.0)[..., None, :]
+    ox, oy = regions[..., None, :, 0], regions[..., None, :, 1]
+    nx, ny = regions[..., None, :, 4], regions[..., None, :, 5]
+    bx = det_boxes[..., :, None, :]
+    x1 = (bx[..., 0] - nx) / f + ox
+    y1 = (bx[..., 1] - ny) / f + oy
+    x2 = x1 + (bx[..., 2] - bx[..., 0]) / f
+    y2 = y1 + (bx[..., 3] - bx[..., 1]) / f
+    return torch.stack([x1, y1, x2, y2], dim=-1), take
+
+
 def unmap_chip_detections_argmax(det_boxes: torch.Tensor,
                                  det_valid: torch.Tensor,
                                  regions: torch.Tensor,

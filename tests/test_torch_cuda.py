@@ -10,7 +10,8 @@ run it there with
 
 (``--noconftest``: ``tests/conftest.py`` imports jax).  The shapes are
 the edges the serving path does not reach in ``chip_smoke.py``: K not a
-multiple of 64, K = 1 and the 2048 maximum, a single image, identical
+multiple of 64, K = 1, 2048 and the 4096 maximum (the ring's 8, 7 and 6
+stages), a single image, identical
 boxes, canvases that are no multiple of the 8-row band or of 8 pixels,
 zero and 1024 region rows, batch 1, and chips overhanging the canvas and
 the frame.  Keep masks and the float32 canvas must be equal; the tap
@@ -60,6 +61,7 @@ loop's own reads.
 """
 
 import functools
+import json
 import math
 import os
 
@@ -101,7 +103,9 @@ def _det_boxes(rs, b, k, extent=500.0):
 
 
 @pytest.mark.parametrize("b,k", [(1, 1), (2, 63), (1, 64), (3, 65),
-                                 (2, 300), (1, 2047), (1, 2048)])
+                                 (2, 300), (1, 2047), (1, 2048),
+                                 (1, 2400), (1, 3456), (1, 3457),
+                                 (2, 4096)])
 @pytest.mark.parametrize("offset", [0.0, 1.0])
 def test_nms_kernel_matches_plain(card, b, k, offset):
     rs = np.random.RandomState(k)
@@ -125,7 +129,7 @@ def test_nms_kernel_identical_boxes_and_all_invalid(card):
     assert got[0, 0] and int(got[0].sum()) == 1 and not got[1].any()
 
 
-@pytest.mark.parametrize("k", [1, 65, 2048])
+@pytest.mark.parametrize("k", [1, 65, 2048, 4096])
 def test_nms_kernel_none_suppressed_and_all_invalid(card, k):
     """Disjoint boxes: every valid one is kept; no valid box: none is."""
     i = torch.arange(k, device=card, dtype=torch.float32)
@@ -172,8 +176,8 @@ def test_nms_kernel_rejects_what_it_cannot_take(card):
     with pytest.raises(TypeError):
         nms_kernel.nms_sorted_cuda(ok.double(), valid, 0.5)
     with pytest.raises(ValueError):
-        nms_kernel.nms_sorted_cuda(torch.zeros(1, 2049, 4, device=card),
-                                   torch.ones(1, 2049, dtype=torch.bool,
+        nms_kernel.nms_sorted_cuda(torch.zeros(1, 4097, 4, device=card),
+                                   torch.ones(1, 4097, dtype=torch.bool,
                                               device=card), 0.5)
     with pytest.raises(ValueError):
         nms_kernel.nms_sorted_cuda(ok[:, ::2], valid[:, ::2], 0.5)
@@ -1332,3 +1336,129 @@ def test_train_from_png_files_makes_no_host_sync_between_reads(card,
     assert state.step == 3 and steps == [True] * 3
     assert all(bool(torch.isfinite(p).all())
                for p in state.model.parameters())
+
+
+# (B, K, offset, threshold) of the eval path's NMS launches: run_eval of
+# coarse_det (batch 8, budget 4 * 100), of mp_det_res50 (batch 4,
+# max_dets 500: budget 2000, 0.6), run_eval_tta's per-variant forward and
+# union (batch 1, <= 4 x 100 rows), and tta_detect's union at its own
+# defaults with 4 scales and flip (8 x 300 = 2400 rows)
+EVAL_NMS_SHAPES = [(8, 400, 0.0, 0.65), (4, 2000, 0.0, 0.6),
+                   (1, 400, 0.0, 0.65), (1, 2400, 0.0, 0.65)]
+
+
+@pytest.mark.parametrize("b,k,offset,thr", EVAL_NMS_SHAPES)
+def test_nms_kernel_at_the_eval_shapes(card, b, k, offset, thr):
+    rs = np.random.RandomState(k + b)
+    boxes = _det_boxes(rs, b, k, extent=1360.0)
+    labels = rs.randint(0, 10, (b, k))
+    boxes = torch.from_numpy((boxes + labels[..., None] * 8192.0)
+                             .astype(np.float32)).to(card)
+    valid = torch.from_numpy(rs.rand(b, k) > 0.1).to(card)
+    got = nms_kernel.nms_sorted_cuda(boxes, valid, thr, offset)
+    want = tnms.nms_sorted_plain(boxes, valid, thr, offset)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _eval_png_set(root, n=6):
+    """``n`` PNG frames of two sizes with a few boxes each, and their COCO
+    json (category ids 1, 3, ...)."""
+    import json
+
+    from glsdet_tpu_torch.data.image_io import write_png
+
+    rs = np.random.RandomState(0)
+    os.makedirs(os.path.join(root, "img"))
+    images, anns = [], []
+    for i in range(n):
+        h, w = ((90, 160), (120, 96))[i % 2]
+        img = np.kron(rs.randint(40, 216, (h // 8 + 1, w // 8 + 1, 3)),
+                      np.ones((8, 8, 1)))[:h, :w].astype(np.uint8)
+        write_png(os.path.join(root, "img", f"{i}.png"), img)
+        images.append({"id": i + 1, "file_name": f"{i}.png", "width": w,
+                       "height": h})
+        for _ in range(4):
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": 2 * int(rs.randint(0, 10)) + 1,
+                         "bbox": [float(rs.uniform(0, w - 30)),
+                                  float(rs.uniform(0, h - 30)), 24.0, 20.0],
+                         "iscrowd": 0})
+    ann = os.path.join(root, "ann.json")
+    with open(ann, "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": 2 * c + 1, "name": f"c{c}"}
+                                  for c in range(10)]}, f)
+    return ann, os.path.join(root, "img")
+
+
+def test_run_eval_on_the_card_equals_the_cpu(card, tmp_path):
+    """run_eval of a float32 YOLOX-nano at 64x64 (TF32 off) over the same
+    PNG set on the card and on the CPU: the same number of detections per
+    image, boxes within 1e-3, scores within 1e-5, the COCO stats within
+    1e-3; B2 launched once per batch on the card."""
+    import copy
+
+    from glsdet_tpu_torch.data.coco import CocoDataset
+    from glsdet_tpu_torch.eval import runner
+    from glsdet_tpu_torch.models import YOLOXDetector
+
+    ann, img_root = _eval_png_set(str(tmp_path))
+    cpu = YOLOXDetector(10, "nano",
+                        generator=torch.Generator().manual_seed(0)).eval()
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():        # spread the scores off the prior
+        for name, p in cpu.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=g))
+    gpu = copy.deepcopy(cpu).to(card)
+    dumps = {}
+    kw = dict(batch_size=4, score_thr=0.01, max_dets=100, verbose=False)
+    results = {}
+    for dev, model in (("cpu", cpu), ("cuda", gpu)):
+        out = str(tmp_path / f"{dev}.json")
+        before = nms_kernel.launches
+        results[dev], _ = runner.run_eval(CocoDataset(ann, img_root), model,
+                                          "yolox", (64, 64), 10, device=dev,
+                                          out_json=out, **kw)
+        if dev == "cuda":
+            assert nms_kernel.launches == before + 2
+        with open(out) as f:
+            dumps[dev] = json.load(f)
+    assert len(dumps["cpu"]) == len(dumps["cuda"]) > 0
+    for a, b in zip(sorted(dumps["cpu"], key=lambda d: (d["image_id"],
+                                                        -d["score"])),
+                    sorted(dumps["cuda"], key=lambda d: (d["image_id"],
+                                                         -d["score"]))):
+        assert a["image_id"] == b["image_id"]
+        assert abs(a["score"] - b["score"]) <= 1e-5
+    np.testing.assert_allclose(results["cuda"].stats, results["cpu"].stats,
+                               atol=1e-3)
+
+
+def test_tta_detect_union_above_2048_on_the_card(card):
+    """tta_detect's defaults with 4 scales and flip put 2400 rows into one
+    NMS: on the card it runs the kernel once and keeps what the CPU
+    keeps."""
+    from glsdet_tpu_torch.eval.tta import tta_detect
+
+    def detect(img):
+        h, w = img.shape[:2]
+        rs = np.random.RandomState(
+            int((img[..., 0].astype(np.int64) * np.arange(w)).sum())
+            % 2 ** 31)
+        xy = rs.uniform(0, 1, (300, 2)) * [w * 0.8, h * 0.8]
+        wh = rs.uniform(0.05, 0.2, (300, 2)) * [w, h]
+        return {"boxes": np.concatenate([xy, xy + wh], 1).astype(np.float32),
+                "scores": rs.rand(300).astype(np.float32),
+                "labels": rs.randint(0, 4, 300)}
+
+    img = np.random.RandomState(2).randint(0, 256, (90, 150, 3), np.uint8)
+    scales = (0.5, 0.75, 1.0, 1.5)
+    before = nms_kernel.launches
+    got = tta_detect(detect, img, scales=scales, device="cuda")
+    assert nms_kernel.launches == before + 1
+    assert nms_kernel.shapes[-1][:2] == (1, 2400)
+    want = tta_detect(detect, img, scales=scales, device="cpu")
+    for key in ("boxes", "scores", "labels"):
+        np.testing.assert_array_equal(got[key], want[key])

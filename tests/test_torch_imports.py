@@ -48,7 +48,13 @@ def test_every_port_module_imports_without_jax():
                  "glsdet_tpu_torch.data.device_geom",
                  "glsdet_tpu_torch.data.loader",
                  "glsdet_tpu_torch.train.loop",
-                 "glsdet_tpu_torch.train.state"):
+                 "glsdet_tpu_torch.train.state",
+                 "glsdet_tpu_torch.eval.coco_eval",
+                 "glsdet_tpu_torch.eval.voc_map",
+                 "glsdet_tpu_torch.eval.ignore",
+                 "glsdet_tpu_torch.eval.tta",
+                 "glsdet_tpu_torch.eval.runner",
+                 "glsdet_tpu_torch.tools.ufpmp_det_eval"):
         assert name in modules
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
