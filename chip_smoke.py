@@ -221,10 +221,10 @@ Phases, in the order they run, each printing one line:
      bf16, and run_eval_tta on 16 frames (scales 1.0 and 1.25, flip),
      each after a one-frame warm pass: img/s, the host's share, COCO
      stats, B2 launched and every launch's keep mask equal to
-     nms_sorted_plain's, each (B, K) timed with its plain version and
+     nms_sorted_plain's, each launch timed with its plain version and
      bound.  float32 run_eval of the jittered YOLOX-s (TF32 off) on 8
      frames on the CPU and on the card, against GTs made from the CPU's
-     own detections: COCO stats within 0.02.  Then
+     own detections: COCO stats within 1e-3.  Then
      glsdet_tpu_torch.tools.ufpmp_det_eval.main from state-dict files,
      --fuse-global, coarse threshold 1e-4, in bf16 and --int8-static
      (calibrating on 4 frames): B2's keep masks equal to plain, B1 at
@@ -3032,16 +3032,25 @@ def loop_coarse(ds, tmp, bare_ms) -> dict:
     assert (tuple(cfg.data.img_hw), cfg.data.batch_size, cfg.model.phi,
             cfg.data.device_color, cfg.data.mosaic, cfg.data.mixup) == (
         COARSE_HW, YOLOX_B, PHI, True, True, True), cfg
-    seen, aps = {}, []
+    seen, aps, evals = {}, [], []
     run_ap = train_eval_fn(cfg, eval_split(ds, tmp, "val_train",
                                            LOOP_EVAL_FRAMES), aps)
 
     def eval_fn(st, ep):
         seen[ep] = cpu_state(st)
+        t0 = time.perf_counter()
         run_ap(st, ep)
+        evals.append((t0, time.perf_counter()))
 
     probe = LoopProbe(loop.train_loader, start=3, stop=7)
-    state, logs, gaps, run = run_train(cfg, probe, eval_fn=eval_fn)
+    state, logs, gaps_with_eval, run = run_train(cfg, probe,
+                                                 eval_fn=eval_fn)
+    # the gaps net of the epoch evals they span, as PR 10's loop measured
+    # them without one (the loader prefetches on during an eval)
+    gaps = [g - 1e3 * sum(max(0.0, min(b, e1) - max(a, e0))
+                          for e0, e1 in evals)
+            for g, a, b in zip(gaps_with_eval, probe.times,
+                               probe.times[1:])]
     if [a["epoch"] for a in aps] != [1, 2, 3]:
         raise AssertionError(f"eval_fn ran after epochs {aps}")
     spe = 64 // YOLOX_B
@@ -3098,6 +3107,8 @@ def loop_coarse(ds, tmp, bare_ms) -> dict:
             "init_detector_serves_ema": ema_served, "epoch_eval": aps,
             "first_batch_s": run["first_batch_s"],
             "ms_per_step_after_first": steady, "step_gaps_ms": gaps,
+            "step_gaps_with_eval_ms": gaps_with_eval,
+            "eval_s_in_gaps": (sum(gaps_with_eval) - sum(gaps)) / 1e3,
             "img_per_s_after_first": YOLOX_B * 1e3 / steady,
             "ms_per_step_last_epoch": sum(gaps[-spe:]) / spe,
             "bare_step_ms": bare_ms,
@@ -3306,6 +3317,7 @@ LOOP_EVAL_FRAMES = 16        # train()'s per-epoch eval set
 EVAL_TTA_FRAMES = 16
 EVAL_TTA_SCALES = (1.0, 1.25)
 EVAL_CPU_FRAMES = 8
+EVAL_STATS_TOL = 1e-3       # card vs CPU float32 COCO stats
 
 
 def eval_split(ds, root, name, n=None, anns=None):
@@ -3451,33 +3463,36 @@ def capture_path(stage2_quant=None):
 
 def check_nms_calls(calls, what) -> dict:
     """Every captured B2 launch: its keep mask equal to nms_sorted_plain's
-    on the same inputs.  The first launch of each (B, K, threshold,
-    offset) timed (eager, replayed, each pass, the plain version) beside
-    its bound; ``per_run`` sums them over the run's launches."""
+    on the same inputs, and timed on those inputs (eager, replayed, each
+    pass, the plain version) beside its bound.  ``shapes`` sums the
+    launches of each (B, K, threshold, offset); ``per_run`` sums them
+    all."""
     from glsdet_tpu_torch.ops.nms import nms_sorted_plain
 
-    by_shape = {}
+    keys = ("ms", "graph_ms", "pass1_graph_ms", "pass2_graph_ms",
+            "plain_ms", "bound_ms")
+    by_shape, total = {}, dict.fromkeys(keys, 0.0)
+    share = {"bytes": 0.0, "operations": 0.0}
     for bx, vd, thr, off, keep in calls:
         if not torch.equal(keep, nms_sorted_plain(bx, vd, thr, off)):
             raise AssertionError(f"{what} NMS {tuple(bx.shape)}: keep mask "
                                  "differs from nms_sorted_plain")
-        by_shape.setdefault((*bx.shape[:2], thr, off), []).append(
-            (bx, vd, keep))
-    shapes, total = [], dict.fromkeys(("ms", "graph_ms", "plain_ms",
-                                       "bound_ms"), 0.0)
-    share = {"bytes": 0.0, "operations": 0.0}
-    for (b, k, thr, off), group in by_shape.items():
-        bx, vd, keep = group[0]
-        t, bd = nms_times(bx, vd, thr, off), nms_bound(bx, vd, keep)
-        n = len(group)
-        shapes.append({"batch": b, "k": k, "threshold": thr, "offset": off,
-                       "launches": n, "valid": int(vd.sum()),
-                       "kept": int(keep.sum()), **t, **bd})
-        for key in total:
-            total[key] += n * (t[key] if key in t else bd[key])
-        share[bd["bound_by"]] += n * bd["bound_ms"]
-    return {"launches_checked": len(calls), "masks_equal": True,
-            "max_abs_err": 0.0, "shapes": shapes, "per_run": total,
+        t = {**nms_times(bx, vd, thr, off), **nms_bound(bx, vd, keep)}
+        row = by_shape.setdefault(
+            (*bx.shape[:2], thr, off),
+            {"batch": bx.shape[0], "k": bx.shape[1], "threshold": thr,
+             "offset": off, "launches": 0, "valid": 0, "kept": 0,
+             **dict.fromkeys(keys, 0.0)})
+        row["launches"] += 1
+        row["valid"] += int(vd.sum())
+        row["kept"] += int(keep.sum())
+        for key in keys:
+            row[key] += t[key]
+            total[key] += t[key]
+        share[t["bound_by"]] += t["bound_ms"]
+    return {"launches_checked": len(calls), "launches_timed": len(calls),
+            "masks_equal": True, "max_abs_err": 0.0,
+            "shapes": list(by_shape.values()), "per_run": total,
             "bound_by": max(share, key=share.get)}
 
 
@@ -3615,7 +3630,7 @@ def self_gt(dump, n_per_image=30, seed=0):
 def eval_card_vs_cpu(ds, root, coarse) -> dict:
     """float32 run_eval of the jittered YOLOX-s (TF32 off) on the first
     EVAL_CPU_FRAMES frames, on the CPU and on the card, against GTs made
-    from the CPU's own detections: the COCO stats within 0.02."""
+    from the CPU's own detections: the COCO stats within EVAL_STATS_TOL."""
     from glsdet_tpu_torch.config import get_config
     from glsdet_tpu_torch.eval.runner import run_eval
 
@@ -3643,8 +3658,9 @@ def eval_card_vs_cpu(ds, root, coarse) -> dict:
     out = {"frames": EVAL_CPU_FRAMES, "gt_boxes": len(anns),
            "stats_cpu": check_stats(cpu, "cpu f32"),
            "stats_card": check_stats(card, "card f32"),
-           "max_stat_diff": diff, "tolerance": 0.02, "cpu_seconds": cpu_s}
-    if diff > 0.02 or cpu.ap < 0.2:
+           "max_stat_diff": diff, "tolerance": EVAL_STATS_TOL,
+           "cpu_seconds": cpu_s}
+    if diff > EVAL_STATS_TOL or cpu.ap < 0.2:
         raise AssertionError(f"eval card vs CPU: {out}")
     return out
 

@@ -234,7 +234,7 @@ class Detector:
         return results
 
     def detect_image(self, image: np.ndarray, score_thr: float = 0.3):
-        """Draw detections (yolo.py detect_image analog); needs OpenCV."""
+        """Draw detections (yolo.py detect_image analog), outlines only."""
         from glsdet_tpu_torch.utils.visualize import draw_detections
 
         d = self.detect(image)

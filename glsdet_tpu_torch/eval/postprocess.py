@@ -14,6 +14,7 @@ import torch
 
 from glsdet_tpu_torch.models.yolox_head import (decode_boxes,
                                                 flatten_head_outputs)
+from glsdet_tpu_torch.ops.image import unletterbox_boxes
 from glsdet_tpu_torch.ops.integral import distance2bbox, integral_decode
 from glsdet_tpu_torch.ops.nms import multiclass_nms_batched, topk_stable
 from glsdet_tpu_torch.ops.priors import featmap_sizes, grid_points
@@ -136,10 +137,8 @@ def gfl_postprocess(cls_scores: Sequence[torch.Tensor],
 def rescale_detections(dets: dict, scale: float,
                        offset: Tuple[float, float] = (0.0, 0.0)) -> dict:
     """Undo a letterbox or resize: boxes back to original image
-    coordinates, ``(boxes - (dx, dy, dx, dy)) / scale`` in float32."""
+    coordinates, ``(boxes - (dx, dy, dx, dy)) / scale`` in float32 (or
+    wider)."""
     boxes = dets["boxes"]
-    dx, dy = offset
-    shift = torch.tensor([dx, dy, dx, dy], dtype=torch.float32,
-                         device=boxes.device)
-    s = torch.tensor(scale, dtype=torch.float32, device=boxes.device)
-    return {**dets, "boxes": (boxes - shift) / s}
+    boxes = boxes.to(torch.promote_types(boxes.dtype, torch.float32))
+    return {**dets, "boxes": unletterbox_boxes(boxes, scale, *offset)}

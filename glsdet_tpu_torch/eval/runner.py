@@ -179,9 +179,9 @@ def run_eval(
     (COCO result or None with ``format_only``, stats).
 
     ``mesh`` (the JAX package's data-parallel sharding) is not ported:
-    giving one raises.  ``show_dir`` draws with OpenCV
-    (``utils/visualize.py``), which the GPU machine lacks, and writes PNGs
-    with ``data/image_io.py: write_png``.
+    giving one raises.  ``show_dir`` draws the box outlines in numpy
+    (``utils/visualize.py``) and writes PNGs with ``data/image_io.py:
+    write_png``.
     """
     if mesh is not None:
         raise NotImplementedError(

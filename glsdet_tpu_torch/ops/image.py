@@ -36,6 +36,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from glsdet_tpu_torch.data.coco import IMAGENET_MEAN, IMAGENET_STD
+
 COEF_BITS = 11
 COEF_SCALE = 1 << COEF_BITS
 
@@ -239,11 +241,6 @@ def resize_bilinear(images: torch.Tensor, out_hw: Tuple[int, int]
         x = torch.einsum("bhwc,wk->bhkc", x,
                          _weight(x.shape[2], w, x.device).to(x.dtype))
     return x
-
-
-# ImageNet statistics of the mmdet configs (img_norm_cfg)
-IMAGENET_MEAN = (123.675, 116.28, 103.53)
-IMAGENET_STD = (58.395, 57.12, 57.375)
 
 
 def normalize_image(img: torch.Tensor, mean=IMAGENET_MEAN, std=IMAGENET_STD,

@@ -1,7 +1,8 @@
-"""Detection drawing, the port's copy of
+"""Detection drawing, the port's counterpart of
 ``glsdet_tpu.utils.visualize.draw_detections`` (``Detector.detect_image``
-draws with it).  OpenCV is imported when it draws: the GPU machine has
-none, and serving does not need it."""
+and ``run_eval(show_dir=...)`` draw with it).  It draws in numpy, since
+the GPU machine has no OpenCV: each box's outline in its class's colour,
+without the label text (there is no font to draw it with)."""
 
 from __future__ import annotations
 
@@ -22,24 +23,25 @@ def draw_detections(image: np.ndarray, boxes: np.ndarray,
                     class_names: Optional[Sequence[str]] = None,
                     score_thr: float = 0.3,
                     thickness: int = 2) -> np.ndarray:
-    """Draw xyxy detections on an RGB uint8 image; returns a copy."""
-    import cv2
-
+    """Draw xyxy detections on an RGB uint8 image; returns a copy.  The
+    class shows as the outline's colour; ``class_names`` is taken for the
+    JAX signature and not drawn."""
     out = image.copy()
+    h, w = out.shape[:2]
+    t = max(int(thickness), 1)
+
+    def band(r0, r1, c0, c1, color):
+        out[max(r0, 0):max(min(r1, h), 0),
+            max(c0, 0):max(min(c1, w), 0)] = color
+
     for box, score, label in zip(boxes, scores, labels):
         if score < score_thr:
             continue
         color = _PALETTE[int(label) % len(_PALETTE)]
         x1, y1, x2, y2 = (int(v) for v in box)
-        cv2.rectangle(out, (x1, y1), (x2, y2), color, thickness)
-        name = (class_names[int(label)] if class_names
-                else str(int(label)))
-        txt = f"{name} {score:.2f}"
-        (tw, th), _ = cv2.getTextSize(txt, cv2.FONT_HERSHEY_SIMPLEX,
-                                      0.5, 1)
-        cv2.rectangle(out, (x1, max(y1 - th - 4, 0)),
-                      (x1 + tw, y1), color, -1)
-        cv2.putText(out, txt, (x1, max(y1 - 2, th)),
-                    cv2.FONT_HERSHEY_SIMPLEX, 0.5, (255, 255, 255), 1,
-                    cv2.LINE_AA)
+        x1, x2, y1, y2 = min(x1, x2), max(x1, x2), min(y1, y2), max(y1, y2)
+        band(y1, y1 + t, x1, x2 + 1, color)
+        band(y2 - t + 1, y2 + 1, x1, x2 + 1, color)
+        band(y1, y2 + 1, x1, x1 + t, color)
+        band(y1, y2 + 1, x2 - t + 1, x2 + 1, color)
     return out

@@ -422,3 +422,26 @@ def test_rescale_detections_matches_jax():
     np.testing.assert_allclose(got["boxes"].numpy(),
                                np.asarray(want["boxes"]), rtol=1e-6)
     assert torch.equal(got["scores"], torch.from_numpy(dets["scores"]))
+
+
+def test_draw_detections_outlines_without_opencv(monkeypatch):
+    """run_eval(show_dir=...) and Detector.detect_image draw with no
+    OpenCV: each box above the threshold outlined in its class colour,
+    the edges outside the image left out, the rest of the image as it
+    was."""
+    from glsdet_tpu_torch.utils import visualize
+
+    monkeypatch.setitem(__import__("sys").modules, "cv2", None)
+    img = np.random.RandomState(3).randint(0, 255, (40, 60, 3), np.uint8)
+    boxes = np.array([[5, 6, 20, 30], [50, 30, 90, 70], [1, 1, 9, 9]],
+                     np.float32)
+    out = visualize.draw_detections(img, boxes, np.array([0.9, 0.5, 0.1]),
+                                    np.array([1, 14, 0]), thickness=2)
+    want = img.copy()
+    ring = np.zeros(img.shape[:2], bool)
+    ring[6:31, 5:21] = True
+    ring[8:29, 7:19] = False
+    want[ring] = visualize._PALETTE[1]
+    want[30:32, 50:] = want[30:, 50:52] = visualize._PALETTE[14 % 12]
+    np.testing.assert_array_equal(out, want)
+    assert not np.array_equal(img, out) and out is not img
