@@ -231,7 +231,29 @@ Phases, in the order they run, each printing one line:
      every stage-2 group equal to mosaic_inputs_plain (timed per bucket
      and batch), B3 launched 40 times per int8 group and, on the inputs
      the path gave it, within +-1 code of its plain version, timed.
-     Printed as one {"eval": ...} line.
+     Printed as one {"eval": ...} line;
+ 23. inputs, what users bring, at full width: encode_jpeg and
+     decode_jpeg of three fixed frames against the two sha256 digests
+     OpenCV gave on the CPU test machine (this machine has no OpenCV);
+     phase 21's 64 frames written as quality-95 JPEGs (encode_jpeg, 8
+     threads) and, per size, JPEG decode and encode ms a frame beside PNG
+     decode; reference-named checkpoints of the seeded coarse_det
+     (yolox-drone naming) and mp_det_res50 (mmdet naming in an mmcv
+     wrapper, with the BoIW buffers and integral.project) converted by
+     tools/import_torch_weights.py: main, equal to the originals, and
+     TwoStageDetectors from both files giving equal detections on 8
+     decoded 765x1360 frames (B1 and B2 held against plain); one
+     sustained window of 256 raw JPEG bodies (each frame tagged with its
+     request id in grey blocks, encoded before the clock) from 8 clients
+     to make_server, every answer equal to its batch's detect_batch
+     replay on the frames the service decoded, every B2 keep mask and
+     B1 group equal to plain, beside phase 14's JSON-array windows;
+     run_eval coarse_det (bf16) and ufpmp_det_eval (bf16, --fuse-global)
+     over 16 JPEG val frames (8 of each size) and over PNGs of the pixels
+     decoded from them: equal detections and stats, B2 and B1 checked as
+     in phase 22; one epoch (8 steps) of train(coarse_det) reading the
+     JPEGs, and the loader alone at 4 workers; collect_env().  Printed as
+     one {"inputs": ...} line.
 Then one JSON line of per-kernel results (each with its bound: the bytes
 it must move at 3.35 TB/s or its operations at the card's peak for their
 type, whichever is longer) and, last, the device line.  A kernel's ``ms``
@@ -272,6 +294,40 @@ STAGES = {"layer1": (288, 64, 2), "layer2": (144, 128, 3),
           "layer3": (72, 256, 5), "layer4": (36, 512, 2)}
 # NVIDIA H100 SXM, dense: HBM bytes/s, bf16 tensor-core and f32 FLOP/s
 PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
+
+
+# the JPEG digests the card machine's build must give: sha256 of the
+# bytes encode_jpeg writes for digest_frames() at quality 95, and of the
+# pixels (RGB) that cv2.imdecode reads from them on the CPU test machine
+# (tests/test_torch_jpeg.py recomputes both there)
+JPEG_DIGEST_HW = ((77, 131), (96, 160), (8, 8))
+JPEG_BYTES_SHA256 = ("e2f635ac773bb948cdce45a4623df8da"
+                     "9ec34b96b3e9df82ee7629eecd48429a")
+JPEG_PIXELS_SHA256 = ("ee849ebfb40e29f77b4e902adbdafae7"
+                      "2a416977404b8f6b9a51e2d0b4726d23")
+
+
+def digest_frames() -> list:
+    """Fixed seeded frames for the JPEG digests: blocky colour fields
+    with noise, at sizes off the 16-pixel MCU."""
+    rs = np.random.RandomState(12)
+    frames = []
+    for h, w in JPEG_DIGEST_HW:
+        coarse = rs.randint(30, 226, (h // 8 + 2, w // 8 + 2, 3))
+        img = np.kron(coarse, np.ones((8, 8, 1), np.int64))[:h, :w]
+        img = img + rs.randint(-20, 21, (h, w, 3))
+        frames.append(np.clip(img, 0, 255).astype(np.uint8))
+    return frames
+
+
+def sha256(chunks) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for c in chunks:
+        h.update(c if isinstance(c, bytes) else
+                 np.ascontiguousarray(c).tobytes())
+    return h.hexdigest()
 
 
 def log(phase: str, **kw) -> None:
@@ -698,9 +754,10 @@ def phase_paint(pipe, dev_frames) -> dict:
             "replaced_route_graph_ms": t["replaced_route_graph_ms"]}
 
 
-def check_results(results, n_frames) -> int:
+def check_results(results, n_frames, in_frame=True) -> int:
     """Per-frame detections are well formed; returns how many there are.
-    Raises (not ``assert``: the checks must survive ``python -O``)."""
+    Raises (not ``assert``: the checks must survive ``python -O``).
+    ``in_frame=False`` drops the position check (phase 23's frames)."""
     if len(results) != n_frames:
         raise AssertionError(f"{len(results)} results for {n_frames} frames")
     total = 0
@@ -715,9 +772,9 @@ def check_results(results, n_frames) -> int:
             "labels in [0, 10)": ((lab >= 0) & (lab < 10)).all(),
             "x2 >= x1, y2 >= y1": ((b[:, 2] >= b[:, 0])
                                    & (b[:, 3] >= b[:, 1])).all(),
-            "overlaps the frame": ((b[:, 0] < FRAME_HW[1]) & (b[:, 2] > 0)
-                                   & (b[:, 1] < FRAME_HW[0])
-                                   & (b[:, 3] > 0)).all(),
+            "overlaps the frame": not in_frame or (
+                (b[:, 0] < FRAME_HW[1]) & (b[:, 2] > 0)
+                & (b[:, 1] < FRAME_HW[0]) & (b[:, 3] > 0)).all(),
         }
         failed = [name for name, ok in checks.items() if not ok]
         if failed:
@@ -1485,9 +1542,9 @@ def capture_serving(facade, frames):
     return res, launches, len(h.chunks), groups, nms_calls, fusions
 
 
-def check_served(results, n_frames, score_thr) -> int:
+def check_served(results, n_frames, score_thr, in_frame=True) -> int:
     """check_results, and every score at least the facade's threshold."""
-    n = check_results(results, n_frames)
+    n = check_results(results, n_frames, in_frame)
     low = [i for i, r in enumerate(results)
            if len(r["scores"]) and r["scores"].min() < score_thr]
     if low:
@@ -1561,16 +1618,27 @@ import numpy as np
 
 url, path = sys.argv[1], sys.argv[2]
 clients, first, n = (int(a) for a in sys.argv[3:6])
-frames = np.load(path)
-codes = [base64.b64encode(f.tobytes()[3:]) for f in frames]
-tail = ('", "shape": %s, "dtype": "uint8"}'
-        % json.dumps(list(frames.shape[1:]))).encode()
+if path.endswith(".npy"):      # JSON raw arrays, the id in pixel (0, 0)
+    frames = np.load(path)
+    codes = [base64.b64encode(f.tobytes()[3:]) for f in frames]
+    tail = ('", "shape": %s, "dtype": "uint8"}'
+            % json.dumps(list(frames.shape[1:]))).encode()
+else:                          # raw bodies, one per request, end offsets
+    with open(path, "rb") as f:
+        blob = f.read()
+    ends = np.load(path + ".ends.npy")
+
+
+def body_of(rid):
+    if path.endswith(".npy"):
+        return (b'{"image": "' + base64.b64encode(rid.to_bytes(3, "big"))
+                + codes[rid % len(frames)] + tail)
+    k = rid - first
+    return blob[(ends[k - 1] if k else 0):ends[k]]
 
 
 def post(rid):
-    body = (b'{"image": "' + base64.b64encode(rid.to_bytes(3, "big"))
-            + codes[rid % len(frames)] + tail)
-    req = urllib.request.Request(url, data=body, method="POST")
+    req = urllib.request.Request(url, data=body_of(rid), method="POST")
     t0 = time.perf_counter()
     try:
         with urllib.request.urlopen(req, timeout=300) as r:
@@ -1604,11 +1672,13 @@ def tagged(frames, rid: int) -> np.ndarray:
     return im
 
 
-def http_runs(service, name, frames, tmp, runs):
+def http_runs(service, name, frames, tmp, runs, path=None):
     """make_server on 127.0.0.1 (a free port) in a thread; for each
     (first id, requests) of ``runs`` one client process posting that many
-    concurrent POST /predictions/<name> with JSON raw-array bodies from
-    HTTP_CLIENTS threads (bodies' codes made before the clock starts); then
+    concurrent POST /predictions/<name> with JSON raw-array bodies of
+    ``frames`` or, given ``path`` (raw bodies, one per request from the
+    run's first id, and their end offsets in ``path + ".ends.npy"``), those
+    bodies, from HTTP_CLIENTS threads (bodies made before the clock); then
     /ping, /models and /metrics.  Returns each run's output (``answers``
     as [id, status, answer], ``latency_s``, ``wall_s``) and the metrics
     text; the server is shut down before it returns."""
@@ -1617,8 +1687,9 @@ def http_runs(service, name, frames, tmp, runs):
 
     from glsdet_tpu_torch.serve import make_server
 
-    path = os.path.join(tmp, "http_frames.npy")
-    np.save(path, np.stack(frames))
+    if path is None:
+        path = os.path.join(tmp, "http_frames.npy")
+        np.save(path, np.stack(frames))
     server = make_server(service, "127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -1673,7 +1744,7 @@ def same_as_served(served, direct) -> bool:
                             atol=6e-7))
 
 
-def check_answers(out, first, n, score_thr) -> dict:
+def check_answers(out, first, n, score_thr, in_frame=True) -> dict:
     """One client run: ids first..first+n-1 each answered 200, well
     formed (check_served); returns id -> detections and the run's
     requests/s and latency quantiles (ms)."""
@@ -1684,7 +1755,7 @@ def check_answers(out, first, n, score_thr) -> dict:
     if bad:
         raise AssertionError(f"requests answered otherwise than 200: {bad}")
     served = {r: served_dets(items) for r, _, items in out["answers"]}
-    check_served(list(served.values()), n, score_thr)
+    check_served(list(served.values()), n, score_thr, in_frame)
     lat_ms = np.sort(1e3 * np.asarray(out["latency_s"]))
     q = lambda p: float(lat_ms[min(int(p * len(lat_ms)),  # noqa: E731
                                    len(lat_ms) - 1)])
@@ -3253,7 +3324,7 @@ def loop_card_vs_cpu(ds, tmp) -> dict:
     return out
 
 
-def loader_rates(ds, reps=12) -> dict:
+def loader_rates(ds, reps=12, workers=None, caches=(False, True)) -> dict:
     """The loader alone at coarse_det's recipe (mosaic, mixup, device
     colour keys, batch 8, pinned): samples/s over ``reps`` batches after
     two, at 4 workers and at os.cpu_count(), the decode cache off and
@@ -3262,8 +3333,8 @@ def loader_rates(ds, reps=12) -> dict:
     from glsdet_tpu_torch.data.loader import TrainPipeline, train_loader
 
     out = {}
-    for workers in (4, os.cpu_count()):
-        for cache in (False, True):
+    for workers in workers or (4, os.cpu_count()):
+        for cache in caches:
             data = CocoDataset(ds["ann_file"], ds["img_root"],
                                filter_empty=True, cache_images=cache)
             pipe = TrainPipeline(data, COARSE_HW, YOLOX_MAX_GT,
@@ -3564,7 +3635,8 @@ def check_stats(res, what) -> list:
     return stats
 
 
-def eval_single(name, val, model, family, cfg, batch, tta=False) -> dict:
+def eval_single(name, val, model, family, cfg, batch, tta=False,
+                out_json=None) -> dict:
     """run_eval (or run_eval_tta) of ``model`` over ``val`` on the card:
     a warm pass over one batch, then the timed pass with B2's launches
     captured and checked."""
@@ -3586,7 +3658,8 @@ def eval_single(name, val, model, family, cfg, batch, tta=False) -> dict:
     torch.cuda.reset_peak_memory_stats()
     with capture_path() as cap:
         t0 = time.perf_counter()
-        res, stats = fn(val, model, family, hw, n_cls, **kw)
+        res, stats = fn(val, model, family, hw, n_cls, out_json=out_json,
+                        **kw)
         seconds = time.perf_counter() - t0
     launches = cap["launches"]
     if launches["nms"] < 1 or launches["nms"] != len(cap["nms"]):
@@ -3752,6 +3825,542 @@ def phase_eval(smi: str, ds, tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 23. inputs: JPEG frames, reference .pth weights, raw JPEG request bodies
+
+JPEG_QUALITY = 95
+INPUT_VAL = 8                # val frames of each size in the JPEG split
+TAG_BITS, TAG_BLOCK = 24, 16  # a raw body's request id: 24 grey blocks
+
+# the reference repos' key naming: the inverse of the JAX package's
+# rewrites (glsdet_tpu/utils/torch_import.py), as tests/torch_port_util.py
+# has it (tests/test_torch_weights_import.py holds it to them)
+_PAFPN = {"reduce5": "lateral_conv0", "reduce4": "reduce_conv1",
+          "td_csp4": "C3_p4", "td_csp3": "C3_p3", "bu_down3": "bu_conv2",
+          "bu_csp4": "C3_n3", "bu_down4": "bu_conv1", "bu_csp5": "C3_n4"}
+
+
+def _undw(rest):
+    return re.sub(r"^pw\.", "pconv.", re.sub(r"^dw\.", "dconv.", rest))
+
+
+def _uncsp(rest):
+    for port, ref in (("main_conv.", "conv1."), ("short_conv.", "conv2."),
+                      ("final_conv.", "conv3.")):
+        if rest.startswith(port):
+            return ref + rest[len(port):]
+    rest = re.sub(r"^block(\d+)\.conv2_dw\.dw\.", r"m.\1.conv2.dconv.", rest)
+    rest = re.sub(r"^block(\d+)\.conv2_dw\.pw\.", r"m.\1.conv2.pconv.", rest)
+    return re.sub(r"^block(\d+)\.", r"m.\1.", rest)
+
+
+def yolox_drone_key(key):
+    """A port YOLOX key -> the yolox-drone ``YoloBody`` key."""
+    m = re.match(r"^backbone\.stem\.conv\.(.*)$", key)
+    if m:
+        return f"backbone.backbone.stem.conv.{m[1]}"
+    m = re.match(r"^backbone\.dark(\d)_down\.(.*)$", key)
+    if m:
+        return f"backbone.backbone.dark{m[1]}.0.{_undw(m[2])}"
+    m = re.match(r"^backbone\.spp\.(.*)$", key)
+    if m:
+        return f"backbone.backbone.dark5.1.{m[1]}"
+    m = re.match(r"^backbone\.dark(\d)_csp\.(.*)$", key)
+    if m:
+        return (f"backbone.backbone.dark{m[1]}."
+                f"{2 if m[1] == '5' else 1}.{_uncsp(m[2])}")
+    m = re.match(r"^neck\.([A-Za-z0-9_]+)\.(.*)$", key)
+    if m:
+        rest = _uncsp(m[2]) if "csp" in m[1] else _undw(m[2])
+        return f"backbone.{_PAFPN[m[1]]}.{rest}"
+    m = re.match(r"^head\.stem(\d+)\.(.*)$", key)
+    if m:
+        return f"head.stems.{m[1]}.{m[2]}"
+    m = re.match(r"^head\.(cls|reg)(\d+)_(\d+)\.(.*)$", key)
+    if m:
+        return f"head.{m[1]}_convs.{m[2]}.{m[3]}.{_undw(m[4])}"
+    m = re.match(r"^head\.(cls|reg|obj)_pred(\d+)\.(.*)$", key)
+    if m:
+        return f"head.{m[1]}_preds.{m[2]}.{m[3]}"
+    raise KeyError(key)
+
+
+_MMDET = (
+    (r"^backbone\.stem\.conv\.", "backbone.conv1."),
+    (r"^backbone\.stem\.bn\.", "backbone.bn1."),
+    (r"^backbone\.layer(\d)_(\d+)\.conv(\d)\.conv\.",
+     r"backbone.layer\1.\2.conv\3."),
+    (r"^backbone\.layer(\d)_(\d+)\.conv(\d)\.bn\.",
+     r"backbone.layer\1.\2.bn\3."),
+    (r"^backbone\.layer(\d)_(\d+)\.down\.conv\.",
+     r"backbone.layer\1.\2.downsample.0."),
+    (r"^backbone\.layer(\d)_(\d+)\.down\.bn\.",
+     r"backbone.layer\1.\2.downsample.1."),
+    (r"^neck\.lateral(\d+)\.", r"neck.lateral_convs.\1.conv."),
+    (r"^neck\.fpn_conv(\d+)\.", r"neck.fpn_convs.\1.conv."),
+    (r"^head\.(cls|reg)_conv(\d+)\.", r"bbox_head.\1_convs.\2."),
+    (r"^head\.scale(\d+)\.scale$", r"bbox_head.scales.\1.scale"),
+    (r"^head\.", "bbox_head."),
+)
+
+
+def mmdet_key(key):
+    """A port MP-Det/GFL key -> the mmdet key (FPN extra convs follow
+    the three per-level ones in ``fpn_convs``)."""
+    m = re.match(r"^neck\.extra_conv(\d+)\.(.*)$", key)
+    if m:
+        return f"neck.fpn_convs.{int(m[1]) + 3}.conv.{m[2]}"
+    for pat, rep in _MMDET:
+        if re.match(pat, key):
+            return re.sub(pat, rep, key)
+    raise KeyError(key)
+
+
+def reference_checkpoint(state_dict, family, boiw=None, reg_max=16):
+    """What a reference repo saves for a port model: yolox-drone naming
+    as a bare state dict (``family="yolox"``), or mmdet naming wrapped as
+    mmcv ``{"meta", "state_dict"}`` with ``integral.project`` and, given
+    ``boiw`` (a ``BoIWState``), MPHead's dictionary buffers
+    (``family="mpdet"``)."""
+    name = yolox_drone_key if family == "yolox" else mmdet_key
+    ref = {name(k): v.detach().clone() for k, v in state_dict.items()}
+    if family == "yolox":
+        return ref
+    ref["bbox_head.integral.project"] = torch.linspace(0, reg_max,
+                                                       reg_max + 1)
+    if boiw is not None:
+        ref["bbox_head._embedding"] = boiw.embedding.detach().clone()
+        ref["bbox_head._pos_embedding_ptr"] = boiw.ptr.detach().clone()
+        ref["bbox_head._proxies_prob"] = boiw.proxies_prob.detach().clone()
+    return {"meta": {"epoch": 12, "mmdet_version": "2.x"},
+            "state_dict": ref}
+
+
+def check_digests() -> dict:
+    """The card machine's build of encode_jpeg / decode_jpeg against the
+    digests the CPU test machine's OpenCV gave (JPEG_*_SHA256)."""
+    from glsdet_tpu_torch.data.image_io import decode_jpeg, encode_jpeg
+
+    data = [encode_jpeg(f, JPEG_QUALITY) for f in digest_frames()]
+    got = (sha256(data), sha256([decode_jpeg(d) for d in data]))
+    if got != (JPEG_BYTES_SHA256, JPEG_PIXELS_SHA256):
+        raise AssertionError(f"JPEG digests {got} differ from OpenCV's "
+                             f"({JPEG_BYTES_SHA256}, {JPEG_PIXELS_SHA256})")
+    return {"frames": len(data), "bytes_sha256": got[0],
+            "pixels_sha256": got[1], "equal_to_cpu_opencv": True}
+
+
+def write_jpeg_split(ds, root) -> dict:
+    """The loop dataset's 64 frames as quality-95 JPEGs (encode_jpeg),
+    its json pointing at them; INPUT_VAL frames of each size as val
+    splits twice, the JPEGs and PNGs of the pixels the port decoded from
+    them; encode and decode ms per frame at both sizes (4 frames each,
+    one thread), PNG decode beside."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from glsdet_tpu_torch.data.coco import CocoDataset
+    from glsdet_tpu_torch.data.image_io import (encode_jpeg, read_image,
+                                                write_png)
+
+    with open(ds["ann_file"]) as f:
+        coco = json.load(f)
+    jdir, pdir = os.path.join(root, "jpeg"), os.path.join(root, "png")
+    os.makedirs(jdir)
+    os.makedirs(pdir)
+
+    def jpg(name):
+        return os.path.splitext(name)[0] + ".jpg"
+
+    def encode(im):
+        img = read_image(os.path.join(ds["img_root"], im["file_name"]))
+        data = encode_jpeg(img, JPEG_QUALITY)
+        with open(os.path.join(jdir, jpg(im["file_name"])), "wb") as f:
+            f.write(data)
+        return len(data)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(LOOP_WORKERS) as pool:
+        sizes = list(pool.map(encode, coco["images"]))
+    encode_s = time.perf_counter() - t0
+    by_hw = {}
+    for im in coco["images"]:
+        by_hw.setdefault((im["height"], im["width"]), []).append(im)
+    val = [im for ims in by_hw.values() for im in ims[:INPUT_VAL]]
+
+    def to_png(im):
+        img = read_image(os.path.join(jdir, jpg(im["file_name"])))
+        write_png(os.path.join(pdir, im["file_name"]), img)
+
+    with ThreadPoolExecutor(LOOP_WORKERS) as pool:
+        list(pool.map(to_png, val))
+    timing = {}
+    for (h, w), ims in by_hw.items():
+        names = [im["file_name"] for im in ims[:4]]
+        row = {}
+        for what, fn in (
+                ("jpeg_decode_ms", lambda n: read_image(
+                    os.path.join(jdir, jpg(n)))),
+                ("png_decode_ms", lambda n: read_image(
+                    os.path.join(ds["img_root"], n))),
+                ("jpeg_encode_ms", lambda n: encode_jpeg(read_image(
+                    os.path.join(ds["img_root"], n)), JPEG_QUALITY))):
+            t1 = time.perf_counter()
+            for n in names:
+                fn(n)
+            row[what] = 1e3 * (time.perf_counter() - t1) / len(names)
+        row["jpeg_encode_ms"] -= row["png_decode_ms"]   # net of the read
+        timing[f"{h}x{w}"] = row
+    ids = {im["id"] for im in val}
+    splits = {}
+    for name, img_root, rename in (("jpeg", jdir, jpg),
+                                   ("png", pdir, lambda n: n)):
+        d = os.path.join(root, f"{name}_val")
+        os.makedirs(d)
+        ann = os.path.join(d, "val.json")
+        with open(ann, "w") as f:
+            json.dump(dict(coco, images=[
+                dict(im, file_name=rename(im["file_name"])) for im in val],
+                annotations=[a for a in coco["annotations"]
+                             if a["image_id"] in ids]), f)
+        splits[name] = {"ann": ann, "img_root": img_root,
+                        "data": CocoDataset(ann, img_root)}
+    full = os.path.join(root, "jpeg.json")
+    with open(full, "w") as f:
+        json.dump(dict(coco, images=[dict(im, file_name=jpg(
+            im["file_name"])) for im in coco["images"]]), f)
+    return {"train": {"ann_file": full, "img_root": jdir}, "val": splits,
+            "val_frames": [im["file_name"] for im in val],
+            "line": {"frames": len(sizes), "val_frames": len(val),
+                     "quality": JPEG_QUALITY, "bytes_on_disk": sum(sizes),
+                     "encode_s_8_threads": encode_s, "per_frame": timing}}
+
+
+def same_dump(a_path, b_path, what) -> int:
+    with open(a_path) as f:
+        a = json.load(f)
+    with open(b_path) as f:
+        b = json.load(f)
+    key = lambda d: (d["image_id"], d["category_id"], -d["score"],  # noqa
+                     d["bbox"])
+    if sorted(a, key=key) != sorted(b, key=key):
+        raise AssertionError(f"{what}: the JPEG split's detections differ "
+                             "from the PNG split's")
+    return len(a)
+
+
+def inputs_eval(split, root) -> dict:
+    """run_eval coarse_det and ufpmp_det_eval (bf16) over the JPEG val
+    split and over the PNG split of its decoded pixels: equal detections
+    and stats; B2 (and B1 in the two-stage runs) held against their
+    plain versions by eval_single / eval_two_stage."""
+    from glsdet_tpu_torch.config import get_config
+
+    coarse, mp, paths = eval_models(root)
+    del mp
+    c_cfg = get_config("coarse_det")
+    y16 = coarse.to(DEVICE, torch.bfloat16).eval()
+    out = {}
+    for name in ("jpeg", "png"):
+        sp = split["val"][name]
+        d = os.path.dirname(sp["ann"])
+        out[f"coarse_{name}"] = eval_single(
+            f"coarse_det {name}", sp["data"], y16, "yolox", c_cfg,
+            c_cfg.data.batch_size,
+            out_json=os.path.join(d, "coarse.json"))
+        out[f"ufpmp_{name}"] = eval_two_stage(
+            {"img_root": sp["img_root"]}, sp["ann"], paths, False)
+    dirs = {n: os.path.dirname(split["val"][n]["ann"])
+            for n in ("jpeg", "png")}
+    for run, file in (("coarse", "coarse.json"), ("ufpmp", "ufpmp_bf16.json")):
+        n = same_dump(os.path.join(dirs["jpeg"], file),
+                      os.path.join(dirs["png"], file), run)
+        if out[f"{run}_jpeg"]["stats"] != out[f"{run}_png"]["stats"]:
+            raise AssertionError(f"{run}: stats differ between the splits")
+        out[f"{run}_detections_equal"] = n
+    del y16
+    torch.cuda.empty_cache()
+    return out
+
+
+def inputs_weights(root, frames) -> tuple:
+    """Reference-named checkpoints of the seeded models (yolox-drone for
+    coarse_det; mmdet in an mmcv wrapper, with the BoIW buffers and
+    integral.project, for mp_det_res50), converted by
+    tools/import_torch_weights.py: main; the converted state dicts equal
+    to the originals, and TwoStageDetectors from both files giving equal
+    detections on ``frames`` (B1 and B2 held against plain).  Returns
+    (its line, the converted paths)."""
+    from glsdet_tpu_torch.config import get_config
+    from glsdet_tpu_torch.tools import import_torch_weights
+    from glsdet_tpu_torch.train.boiw import init_boiw
+
+    own = write_seeded_models(root)
+    cfg = get_config("mp_det_res50").model
+    boiw = init_boiw(torch.Generator().manual_seed(5), cfg.num_classes,
+                     cfg.num_words, cfg.feat_channels, cfg.proxies_list,
+                     device="cpu")
+    out, converted = {}, []
+    for path, family, name in ((own[0], "yolox", "coarse_det"),
+                               (own[1], "mpdet", "mp_det_res50")):
+        sd = torch.load(path, weights_only=True)
+        src = os.path.join(root, f"reference_{name}.pth")
+        dst = os.path.join(root, f"imported_{name}.pt")
+        torch.save(reference_checkpoint(sd, family, boiw=boiw
+                                        if family == "mpdet" else None), src)
+        t0 = time.perf_counter()
+        written, report = import_torch_weights.main(
+            [src, dst, "--arch", family, "--config", name])
+        seconds = time.perf_counter() - t0
+        got = written["model"] if "boiw" in written else written
+        if set(got) != set(sd) or not all(torch.equal(got[k], sd[k])
+                                          for k in sd):
+            raise AssertionError(f"{name}: the imported state dict differs "
+                                 "from the original")
+        if family == "mpdet" and not all(torch.equal(
+                written["boiw"][f], getattr(boiw, f))
+                for f in ("embedding", "ptr", "proxies_prob")):
+            raise AssertionError("the imported BoIW buffers differ")
+        out[name] = {"report": report.summary(), "tensors": len(got),
+                     "cli_s": seconds, "equal": True,
+                     "boiw": family == "mpdet"}
+        converted.append(dst)
+    dets, facades = [], []
+    with capture_path(False) as cap:
+        for paths in (own, converted):
+            facade = make_facade(paths)
+            facades.append(facade)
+            dets.append(facade.detect_batch(frames))
+    facades[0].close()
+    for a, b in zip(*dets):
+        if not all(np.array_equal(np.asarray(a[k]), np.asarray(b[k]))
+                   for k in ("boxes", "scores", "labels")):
+            raise AssertionError("the imported weights' detections differ")
+    all_captured(cap, "imported facade")
+    out["facade"] = {"frames": len(frames), "detections_equal": True,
+                     "launches": cap["launches"],
+                     "nms": check_nms_calls(cap["nms"], "imported facade"),
+                     "paint": check_paint_groups(cap["groups"])}
+    return out, facades[1]
+
+
+def all_captured(cap, what) -> None:
+    """Every B2 launch and every B1 group of a captured run is held
+    against its plain version: as many captured as launched."""
+    n = cap["launches"]
+    if (len(cap["nms"]) != n["nms"] or len(cap["groups"]) != n["paint_inputs"]
+            or n["nms"] < 1 or n["paint_inputs"] < 1):
+        raise AssertionError(f"{what}: launches {n}, captured "
+                             f"{len(cap['nms'])} B2 and "
+                             f"{len(cap['groups'])} B1")
+
+
+def check_nms_masks(calls, what) -> dict:
+    """Every captured B2 launch's keep mask equal to nms_sorted_plain's;
+    the first launch of each shape timed beside its plain version."""
+    from glsdet_tpu_torch.ops.nms import nms_sorted_plain
+
+    shapes = {}
+    for bx, vd, thr, off, keep in calls:
+        if not torch.equal(keep, nms_sorted_plain(bx, vd, thr, off)):
+            raise AssertionError(f"{what} NMS {tuple(bx.shape)}: keep mask "
+                                 "differs from nms_sorted_plain")
+        key = f"{bx.shape[0]}x{bx.shape[1]}"
+        if key not in shapes:
+            shapes[key] = {"launches": 0, **nms_times(bx, vd, thr, off),
+                           **nms_bound(bx, vd, keep)}
+        shapes[key]["launches"] += 1
+    return {"launches_checked": len(calls), "masks_equal": True,
+            "max_abs_err": 0.0, "shapes": shapes}
+
+
+def outside_frame(served) -> dict:
+    """Served boxes that do not overlap the frame, and how many have zero
+    area: on the smooth VisDrone-like frames the seeded weights serve
+    zero-area chip boxes in regions that overhang the frame, so phase 23
+    counts them instead of failing on them."""
+    h, w = FRAME_HW
+    out = zero = total = 0
+    for d in served.values():
+        b = d["boxes"]
+        off = ~((b[:, 0] < w) & (b[:, 2] > 0) & (b[:, 1] < h) & (b[:, 3] > 0))
+        out += int(off.sum())
+        zero += int((off & ((b[:, 2] <= b[:, 0]) | (b[:, 3] <= b[:, 1])))
+                    .sum())
+        total += len(b)
+    return {"boxes": total, "outside_frame": out,
+            "outside_frame_zero_area": zero}
+
+
+def served_error(served, direct) -> dict:
+    """How far an HTTP answer lies from the direct result: the box
+    difference beyond what the JSON's two decimals and the float32 of
+    the comparison allow (0.005 plus one float32 step at the coordinate:
+    a box corner past 65536 px has steps of 0.0078), and the score
+    difference beyond the six decimals' 5e-7."""
+    db = np.asarray(direct["boxes"], np.float32)
+    ds, dl = np.asarray(direct["scores"]), np.asarray(direct["labels"])
+    if len(served["scores"]) != len(ds) or not np.array_equal(
+            served["labels"], dl):
+        return {"count_or_labels": True}
+    slack = 0.0051 + np.spacing(np.abs(db))
+    over = np.abs(served["boxes"] - db) - slack
+    return {"box_over": float(over.max(initial=-1.0)),
+            "largest_coordinate": float(np.abs(db).max(initial=0.0)),
+            "score_over": float((np.abs(served["scores"] - ds) - 6e-7)
+                                .max(initial=-1.0))}
+
+
+def jpeg_tagged(frame, rid: int) -> np.ndarray:
+    """``frame`` with request id ``rid`` in its top row of TAG_BITS
+    grey TAG_BLOCK-pixel blocks (black 0, white 1), which survive JPEG."""
+    im = frame.copy()
+    for b in range(TAG_BITS):
+        im[:TAG_BLOCK, b * TAG_BLOCK:(b + 1) * TAG_BLOCK] = \
+            255 if (rid >> b) & 1 else 0
+    return im
+
+
+def jpeg_request_id(image) -> int:
+    centre = np.asarray(image[TAG_BLOCK // 2, TAG_BLOCK // 2::TAG_BLOCK]
+                        [:TAG_BITS], np.int32).mean(-1)
+    return sum(1 << b for b in range(TAG_BITS) if centre[b] > 127)
+
+
+def inputs_http(facade, frames, root, json_windows) -> dict:
+    """One sustained window of HTTP_WINDOW requests from HTTP_CLIENTS
+    clients with raw JPEG bodies (``frames`` tagged with each request's id
+    and encoded before the clock starts) to make_server: every answer 200
+    and equal to its batch's detect_batch replay on the frames the
+    service decoded; B1 and B2 held against plain at every launch."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from glsdet_tpu_torch.data.image_io import encode_jpeg
+    from glsdet_tpu_torch.serve import (AsyncDetector, DetectionService,
+                                        _decode_image)
+
+    first, n = 1, HTTP_WINDOW
+    with ThreadPoolExecutor(LOOP_WORKERS) as pool:
+        bodies = list(pool.map(lambda r: encode_jpeg(jpeg_tagged(
+            frames[r % len(frames)], r), JPEG_QUALITY),
+            range(first, first + n)))
+    path = os.path.join(root, "http_bodies.bin")
+    with open(path, "wb") as f:
+        f.write(b"".join(bodies))
+    np.save(path + ".ends.npy", np.cumsum([len(b) for b in bodies]))
+    service = DetectionService()
+    adet = AsyncDetector(facade, max_batch=SERVE_MAX_BATCH, pipeline_depth=2)
+    service.register("glsdet", adet)
+    batches = []
+    submit = facade.submit_batch
+    facade.submit_batch = lambda images: (batches.append(
+        [(jpeg_request_id(im), im) for im in images]), submit(images))[1]
+    try:
+        with capture_path(False) as cap:
+            outs, metrics = http_runs(service, "glsdet", None, root,
+                                      [(first, n)], path=path)
+    finally:
+        adet.close()
+        del facade.submit_batch
+    all_captured(cap, "raw HTTP")
+    if 'glsdet_errors_total{model="glsdet"} 0' not in metrics:
+        raise AssertionError("/metrics counts errors")
+    served, stats = check_answers(outs[0], first, n, facade.score_thr,
+                                  in_frame=False)
+    ids = sorted(r for b in batches for r, _ in b)
+    if ids != sorted(served):
+        raise AssertionError(f"the batches held ids {ids[:8]}..., "
+                             f"{len(served)} requests were answered")
+    large = 0
+    for batch in batches:
+        direct = facade.detect_batch([im for _, im in batch])
+        for (r, _), d in zip(batch, direct):
+            if same_as_served(served[r], d):
+                continue
+            err = served_error(served[r], d)
+            if err.get("count_or_labels") or err["box_over"] > 0 \
+                    or err["score_over"] > 0:
+                raise AssertionError(f"raw request {r}: its answer differs "
+                                     f"from its batch's replay: {err}")
+            large += 1
+    t0 = time.perf_counter()
+    for _ in range(5):
+        _decode_image(bodies[0])
+    decode_ms = 1e3 * (time.perf_counter() - t0) / 5
+    sizes = [len(b) for b in batches]
+    return {"window": {**stats, "batches": len(batches),
+                       "mean_batch": float(np.mean(sizes))},
+            "served": outside_frame(served),
+            "json_array_windows": json_windows,
+            "requests_replayed": len(ids), "batches_replayed": len(batches),
+            "answers_with_corners_past_65536": large,
+            "request_bytes_mean": float(np.mean([len(b) for b in bodies])),
+            "decode_ms_per_request": decode_ms,
+            "launches": cap["launches"],
+            "nms": check_nms_masks(cap["nms"], "raw HTTP"),
+            "paint": check_paint_groups(cap["groups"])}
+
+
+def inputs_train(split, tmp) -> dict:
+    """One epoch of train(coarse_det) at full width reading the JPEG
+    frames (8 steps), then the loader alone at 4 workers, cache off."""
+    work = os.path.join(tmp, "inputs_train")
+    cfg = loop_cfg("coarse_det", split, work, **{
+        "train.epochs": 1, "train.warmup_epochs": 1,
+        "train.num_last_epochs": 0})
+    state, logs, gaps, run = run_train(cfg)
+    if state.step != 64 // YOLOX_B or len(logs) != state.step:
+        raise AssertionError(f"train from JPEG: {state.step} steps, "
+                             f"{len(logs)} log entries")
+    return {"steps": state.step, "host_ms_per_step": float(np.mean(gaps)),
+            "loss_last": logs[-1]["loss"], **run,
+            "loader": loader_rates(split, workers=(4,), caches=(False,))}
+
+
+def phase_inputs(smi: str, ds, tmp: str, json_windows) -> dict:
+    """What users bring, at full width (module docstring, phase 23)."""
+    from glsdet_tpu_torch.data.image_io import read_image
+    from glsdet_tpu_torch.utils.observe import collect_env
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "inputs")
+    os.makedirs(root)
+    out = {"card": smi, "digests": check_digests()}
+    split = write_jpeg_split(ds, root)
+    out["frames"] = split["line"]
+    jdir = split["train"]["img_root"]
+    http_frames = [read_image(os.path.join(jdir, os.path.splitext(n)[0]
+                                           + ".jpg"))
+                   for n in split["val_frames"][:INPUT_VAL]]
+    out["weights"], facade = inputs_weights(root, http_frames)
+    try:
+        out["http_raw_jpeg"] = inputs_http(facade, http_frames, root,
+                                           json_windows)
+    finally:
+        facade.close()
+    out["eval"] = inputs_eval(split, root)
+    out["train"] = inputs_train(split["train"], tmp)
+    out["env"] = collect_env()
+    runs = {"facade": out["weights"]["facade"]["launches"],
+            "http": out["http_raw_jpeg"]["launches"],
+            **{k: v["launches"] for k, v in out["eval"].items()
+               if isinstance(v, dict)}}
+    out["launches"] = {k: {"nms": v["nms"], "paint_inputs":
+                           v["paint_inputs"]} for k, v in runs.items()}
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"inputs": out}), flush=True)
+    return out
+
+
+def inputs_checked(inp, kernel) -> int:
+    """B2 launches (``kernel="nms"``) or B1 groups (``"paint"``) of the
+    inputs phase held against their plain versions."""
+    runs = [inp["weights"]["facade"], inp["http_raw_jpeg"],
+            *(v for v in inp["eval"].values() if isinstance(v, dict))]
+    if kernel == "nms":
+        return sum(r["nms"]["launches_checked"] for r in runs)
+    return sum(t["groups"] for r in runs for t in r.get("paint", []))
+
+
 def main() -> None:
     # float32 products of the plain versions stay float32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3793,6 +4402,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         _, loop_ds = phase_train_loop(smi, yolox, tmp)
         ev = phase_eval(smi, loop_ds, tmp)
+        inp = phase_inputs(smi, loop_ds, tmp, serve["windows"])
     launches = bf16["launches"]
     eval_nms = {run: ev[run]["nms"] for run in
                 ("coarse_det", "mp_det_res50", "tta", "ufpmp_bf16",
@@ -3827,7 +4437,11 @@ def main() -> None:
          "eval_bound_ms": {run: r["per_run"]["bound_ms"]
                            for run, r in eval_nms.items()},
          "eval_max_abs_err": max(r["max_abs_err"]
-                                 for r in eval_nms.values())},
+                                 for r in eval_nms.values()),
+         "inputs_launches": {run: n["nms"]
+                             for run, n in inp["launches"].items()},
+         "inputs_checked": inputs_checked(inp, "nms"),
+         "inputs_max_abs_err": 0.0},
         {"name": "paint_mosaic", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/paint.cu",
          "replaces": "glsdet_tpu/ufp/pallas_paint.py:368",
@@ -3843,7 +4457,11 @@ def main() -> None:
          "ufpmp_eval_plain_ms": {f"{t['hw']}x{t['batch']}": t["plain_ms"]
                                  for t in ev["ufpmp_bf16"]["paint"]},
          "ufpmp_eval_bound_ms": {f"{t['hw']}x{t['batch']}": t["bound_ms"]
-                                 for t in ev["ufpmp_bf16"]["paint"]}},
+                                 for t in ev["ufpmp_bf16"]["paint"]},
+         "inputs_launches": {run: n["paint_inputs"]
+                             for run, n in inp["launches"].items()},
+         "inputs_groups_checked": inputs_checked(inp, "paint"),
+         "inputs_max_abs_err": 0.0},
         {"name": "gn_relu_quant", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/gn_quant.cu",
          "replaces": "glsdet_tpu/ops/pallas_gn.py:173",

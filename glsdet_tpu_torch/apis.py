@@ -53,7 +53,10 @@ def init_detector(config_name: str, checkpoint: Optional[str] = None,
     on ``device``, with the checkpoint's weights or, without one, the
     seeded initialisation of ``models/build.py``.  A state-dict file
     loads strictly (a mismatch raises ``ValueError``).  A training
-    checkpoint loads as the JAX package's does: shape-matched through
+    checkpoint, or a file of weight sections (``{"model": ...[,
+    "ema_params", "boiw"]}``, what ``tools/ckpt_tool.py strip`` and
+    ``tools/import_torch_weights.py`` write), loads as the JAX package's
+    does: shape-matched through
     ``train/loop.py: load_weights`` (mismatched tensors keep their
     initialisation, no match at all raises ``ValueError``), then the
     parameters are the checkpoint's EMA with ``use_ema`` and its raw
@@ -70,7 +73,7 @@ def init_detector(config_name: str, checkpoint: Optional[str] = None,
     if not checkpoint:
         return cfg, model, model.state_dict()
     raw = restore_raw(checkpoint)
-    if not ("model" in raw and "step" in raw):
+    if "model" not in raw:          # a bare state dict, loaded strictly
         try:
             model.load_state_dict(raw, strict=True)
         except RuntimeError as e:

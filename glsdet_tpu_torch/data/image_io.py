@@ -1,31 +1,50 @@
-"""Reading and writing training frames without OpenCV or PIL.
+"""Reading and writing frames without OpenCV or PIL.
 
 The JAX package reads frames with ``cv2.imread`` + ``cvtColor(BGR2RGB)``
-(``data/coco.py``) and their sizes with PIL (``data/visdrone.py``); the
-GPU machine has neither, so the port reads them itself:
+(``data/coco.py``), request bodies with ``cv2.imdecode`` (``serve.py``)
+and sizes with PIL (``data/visdrone.py``); the GPU machine has none of
+them, so the port reads them itself, equal to ``cv2.imread(path)`` (and
+``cv2.imdecode``) after BGR -> RGB value for value:
 
-- PNG, 8-bit grey, RGB or RGBA, not interlaced (what ``cv2.imwrite``
-  writes for uint8 images): the IDAT stream inflates with the standard
-  library's ``zlib`` and its rows are unfiltered in C++
-  (``native/png.cpp``, built with g++ into ``glsdet_tpu_torch/_build/``
-  at first use: Average and Paeth depend on the pixel to the left, a
-  Python loop would take seconds a frame).  The result is what
-  ``cv2.imread(path)`` returns after BGR -> RGB: grey is replicated into
-  three channels, alpha is dropped (not composited).  Other PNGs raise
-  ``NotImplementedError``;
+- JPEG: Huffman sequential (baseline and extended, SOF0/SOF1), 8-bit,
+  grey or three components, any integral sampling (4:4:4, 4:2:2, 4:2:0,
+  4:4:0, 4:1:1), restart intervals, decoded as libjpeg-turbo decodes by
+  default (``native/jpeg.cpp``: the islow IDCT, fancy upsampling, its
+  YCbCr tables), with the EXIF orientation of the first APP1 segment
+  applied as ``IMREAD_COLOR`` applies it.  Progressive, arithmetic-coded,
+  lossless, hierarchical, 12-bit and CMYK/YCCK files raise
+  ``NotImplementedError`` naming ROADMAP.md queue A item 16.  Bytes cut
+  short raise ``ValueError`` where ``cv2.imdecode`` returns ``None``;
+  a file cut short inside its scan reads as ``cv2.imread`` reads it (mid
+  grey from the block where the data ran out).  Entropy data libjpeg
+  would decode only with warnings and substitutes (a bad Huffman code, a
+  restart marker out of sequence) raises ``ValueError`` (ROADMAP.md
+  section C);
+- PNG, every colour type (grey, RGB, palette, grey+alpha, RGBA), bit
+  depths 1, 2, 4, 8 and 16, interlaced (Adam7) or not: the IDAT stream
+  inflates with the standard library's ``zlib`` and its rows are
+  unfiltered in C++ (``native/png.cpp``: Average and Paeth depend on the
+  pixel to the left, a Python loop would take seconds a frame).  Grey is
+  replicated into three channels (samples of 1, 2 and 4 bits scaled to
+  8), a palette is looked up (indices past it are black, ``tRNS``
+  ignored), alpha is dropped (not composited) and 16-bit samples keep
+  their high byte, as libpng's ``strip_16`` under ``IMREAD_COLOR``;
 - ``.npy`` arrays, (H, W, 3) uint8 RGB as they are stored, or (H, W)
   grey replicated;
 - sizes from a PNG's ``IHDR`` or a JPEG's ``SOF`` header, for the
   dataset converters.
 
-Decoding a JPEG raises ``NotImplementedError``: no decoder on the GPU
-machine reproduces ``cv2.imread``'s libjpeg output bit for bit
-(ROADMAP.md, queue A item 16).
+Both native sources build with g++ into ``glsdet_tpu_torch/_build/`` at
+first use and are called through ctypes, which releases the GIL, so
+loader and HTTP threads decode in parallel.
 
 :func:`encode_png` writes 8-bit PNGs with per-row adaptive filters (the
 filter whose residuals have the least sum of absolute values), so every
-filter type occurs; ``chip_smoke.py`` writes its synthetic dataset with
-it.
+filter type occurs.  :func:`encode_jpeg` writes what
+``cv2.imencode(".jpg", ...)`` writes at OpenCV's defaults (4:2:0, the
+standard Huffman tables, a JFIF header) and the given quality: the same
+quantised coefficients, so any decoder reads the same pixels from both.
+``chip_smoke.py`` writes its synthetic datasets with them.
 """
 
 from __future__ import annotations
@@ -41,17 +60,23 @@ import numpy as np
 
 from glsdet_tpu_torch.native.build import build_shared
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "native", "png.cpp")
+_NATIVE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "native")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-JPEG_EXTS = (".jpg", ".jpeg")
-_JPEG_ITEM = ("decoding JPEG frames is not ported (ROADMAP.md, queue A "
-              "item 16); convert them to PNG")
-# samples per pixel of the PNG colour types read: grey, RGB, RGBA
-_CHANNELS = {0: 1, 2: 3, 6: 4}
+JPEG_SIGNATURE = b"\xff\xd8"
+_JPEG_ITEM = "ROADMAP.md, queue A item 16"
+# samples per pixel of the PNG colour types: grey, RGB, palette,
+# grey+alpha, RGBA, and the bit depths each allows
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+_MSG = 256
 
 
 def _get_lib() -> ctypes.CDLL:
@@ -59,14 +84,101 @@ def _get_lib() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build_shared(
-                "png", [_SRC], ["g++", "-O3", "-fPIC", "-std=c++17"],
-                ["g++", "-shared"]))
+                "image_io", [os.path.join(_NATIVE, "png.cpp"),
+                             os.path.join(_NATIVE, "jpeg.cpp")],
+                ["g++", "-O3", "-fPIC", "-std=c++17"], ["g++", "-shared"]))
             lib.png_unfilter.restype = ctypes.c_int
             lib.png_unfilter.argtypes = [
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p]
+            lib.jpeg_header.restype = ctypes.c_int
+            lib.jpeg_header.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
+            lib.jpeg_decode.restype = ctypes.c_int
+            lib.jpeg_decode.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_size_t, ctypes.c_char_p,
+                ctypes.c_int]
+            lib.jpeg_encode.restype = ctypes.c_void_p
+            lib.jpeg_encode.argtypes = [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.POINTER(ctypes.c_size_t)]
+            lib.jpeg_free.restype = None
+            lib.jpeg_free.argtypes = [ctypes.c_void_p]
             _lib = lib
     return _lib
+
+
+def _jpeg_status(rc: int, msg) -> None:
+    if rc == 1:
+        raise ValueError(f"cannot decode JPEG: {msg.value.decode()}")
+    if rc == 2:
+        raise NotImplementedError(
+            f"{msg.value.decode()} is not decoded ({_JPEG_ITEM})")
+
+
+def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
+    """OpenCV's ``ApplyExifOrientation`` (EXIF orientations 2-8)."""
+    if orientation >= 5:
+        img = img.transpose(1, 0, 2)
+    if orientation in (2, 3, 6, 7):
+        img = img[:, ::-1]
+    if orientation in (3, 4, 7, 8):
+        img = img[::-1]
+    return np.ascontiguousarray(img)
+
+
+def decode_jpeg(data: bytes, file_mode: bool = False) -> np.ndarray:
+    """A JPEG file's bytes -> (H, W, 3) uint8 RGB, EXIF orientation
+    applied (module docstring).  Bytes that end before the image does
+    are refused as ``cv2.imdecode`` refuses them; with ``file_mode`` they
+    decode as ``cv2.imread`` decodes a file cut short (what is missing is
+    mid grey)."""
+    data = bytes(data)
+    lib = _get_lib()
+    dims = np.zeros(4, np.int32)
+    msg = ctypes.create_string_buffer(_MSG)
+    _jpeg_status(lib.jpeg_header(data, len(data), int(file_mode),
+                                 dims.ctypes.data, msg, _MSG), msg)
+    w, h, _, orientation = (int(v) for v in dims)
+    out = np.empty((h, w, 3), np.uint8)
+    _jpeg_status(lib.jpeg_decode(data, len(data), int(file_mode),
+                                 out.ctypes.data, out.nbytes, msg, _MSG),
+                 msg)
+    return _orient(out, orientation)
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
+    """(H, W) grey or (H, W, 3) RGB uint8 -> the JPEG ``cv2.imencode(".jpg",
+    BGR, [IMWRITE_JPEG_QUALITY, quality])`` writes (module docstring)."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or not (
+            img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"expected uint8 (H, W) or (H, W, 3), got "
+                         f"{img.dtype} {img.shape}")
+    if img.shape[0] < 1 or img.shape[1] < 1 or max(img.shape[:2]) > 65500:
+        raise ValueError(f"cannot encode a {img.shape[:2]} JPEG")
+    lib = _get_lib()
+    n = ctypes.c_size_t()
+    ptr = lib.jpeg_encode(img.ctypes.data, img.shape[1], img.shape[0],
+                          1 if img.ndim == 2 else 3, int(quality),
+                          ctypes.byref(n))
+    if not ptr:
+        raise MemoryError("jpeg_encode")
+    try:
+        return ctypes.string_at(ptr, n.value)
+    finally:
+        lib.jpeg_free(ptr)
+
+
+def write_jpeg(path: str, img: np.ndarray, quality: int = 95) -> int:
+    """Write :func:`encode_jpeg` of ``img`` to ``path``; returns the bytes
+    written."""
+    data = encode_jpeg(img, quality)
+    with open(path, "wb") as f:
+        f.write(data)
+    return len(data)
 
 
 def _chunks(data: bytes):
@@ -86,52 +198,101 @@ def _chunks(data: bytes):
     raise ValueError("PNG ends before IEND")
 
 
+def _unpack(raw: np.ndarray, rows: int, cols: int, depth: int,
+            stride: int) -> np.ndarray:
+    """(rows, stride) unfiltered bytes -> (rows, cols) samples, 8-bit."""
+    b = raw.reshape(rows, stride)
+    if depth == 8:
+        return b[:, :cols]
+    if depth == 16:
+        return b[:, 0:2 * cols:2]                 # high byte (strip_16)
+    per = 8 // depth
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    s = (b[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return s.reshape(rows, stride * per)[:, :cols]
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """A PNG file's bytes -> (H, W, 3) uint8 RGB (module docstring)."""
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError("not a PNG file")
     header = None
+    palette = None
     idat = []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
     if header is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, ctype, _comp, _filt, interlace = header
-    if interlace:
-        raise NotImplementedError("interlaced PNG")
-    if ctype not in _CHANNELS or depth != 8:
-        raise NotImplementedError(
-            f"PNG colour type {ctype} at bit depth {depth}")
+    if ctype not in _CHANNELS or depth not in _DEPTHS[ctype] \
+            or interlace > 1:
+        raise ValueError(f"bad PNG header: colour type {ctype}, bit depth "
+                         f"{depth}, interlace {interlace}")
+    if ctype == 3 and palette is None:
+        raise ValueError("palette PNG without PLTE")
     ch = _CHANNELS[ctype]
-    stride = w * ch
-    raw = zlib.decompress(b"".join(idat))
-    if len(raw) < h * (stride + 1):
-        raise ValueError("PNG image data too short")
-    src = np.frombuffer(raw, np.uint8)
-    out = np.empty((h, stride), np.uint8)
-    bad = _get_lib().png_unfilter(src.ctypes.data, h, stride, ch,
-                                  out.ctypes.data)
-    if bad:
-        raise ValueError(f"PNG row {-bad - 1}: unknown filter type")
-    px = out.reshape(h, w, ch)
-    if ch == 1:
-        return np.repeat(px, 3, axis=2)
+    bpp = max(1, ch * depth // 8)
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    lib = _get_lib()
+    samples = np.empty((h, w * ch), np.uint8)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    pos = 0
+    for x0, y0, dx, dy in passes:
+        pw = (w - x0 + dx - 1) // dx if w > x0 else 0
+        ph = (h - y0 + dy - 1) // dy if h > y0 else 0
+        if pw == 0 or ph == 0:
+            continue
+        stride = (pw * ch * depth + 7) // 8
+        need = ph * (stride + 1)
+        if len(raw) < pos + need:
+            raise ValueError("PNG image data too short")
+        out = np.empty((ph, stride), np.uint8)
+        bad = lib.png_unfilter(raw[pos:].ctypes.data, ph, stride, bpp,
+                               out.ctypes.data)
+        if bad:
+            raise ValueError(f"PNG row {-bad - 1}: unknown filter type")
+        pos += need
+        px = _unpack(out, ph, pw * ch, depth, stride).reshape(ph, pw, ch)
+        samples.reshape(h, w, ch)[y0::dy, x0::dx] = px
+    px = samples.reshape(h, w, ch)
+    if ctype == 3:
+        lut = np.zeros((256, 3), np.uint8)
+        lut[:len(palette)] = palette[:256]
+        return lut[px[..., 0]]
+    if ctype in (0, 4):
+        grey = px[..., 0]
+        if depth < 8:
+            grey = grey * np.uint8(255 // ((1 << depth) - 1))
+        return np.repeat(grey[..., None], 3, axis=2)
     return np.ascontiguousarray(px[..., :3])
 
 
+def decode_image(data: bytes) -> np.ndarray:
+    """A PNG or JPEG file's bytes -> (H, W, 3) uint8 RGB, as
+    ``cv2.imdecode(..., IMREAD_COLOR)`` after BGR -> RGB.  Bytes that are
+    neither raise ``ValueError``."""
+    if data[:8] == PNG_SIGNATURE:
+        return decode_png(data)
+    if data[:2] == JPEG_SIGNATURE:
+        return decode_jpeg(data)
+    raise ValueError("neither a PNG nor a JPEG file")
+
+
 def read_image(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of a PNG or ``.npy`` frame, as
-    ``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)`` gives it for a
-    PNG.  A missing file raises ``FileNotFoundError``, a JPEG
-    ``NotImplementedError``."""
+    """(H, W, 3) uint8 RGB of a PNG, JPEG or ``.npy`` frame, as
+    ``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)`` gives it.  A
+    file that is missing or that ``cv2.imread`` could not read (where it
+    returns ``None``) raises ``FileNotFoundError``, as the JAX loader
+    does; a JPEG form the port does not decode raises
+    ``NotImplementedError`` (module docstring)."""
     ext = os.path.splitext(path)[1].lower()
     if not os.path.exists(path):
         raise FileNotFoundError(path)
-    if ext in JPEG_EXTS:
-        raise NotImplementedError(f"{path}: {_JPEG_ITEM}")
     if ext == ".npy":
         img = np.load(path)
         if img.dtype != np.uint8 or img.ndim not in (2, 3):
@@ -140,7 +301,13 @@ def read_image(path: str) -> np.ndarray:
             img = np.repeat(img[..., None], 3, axis=2)
         return np.ascontiguousarray(img)
     with open(path, "rb") as f:
-        return decode_png(f.read())
+        data = f.read()
+    try:
+        if data[:2] == JPEG_SIGNATURE:
+            return decode_jpeg(data, file_mode=True)
+        return decode_image(data)
+    except ValueError as e:
+        raise FileNotFoundError(f"{path}: {e}") from e
 
 
 def _jpeg_size(f) -> Tuple[int, int]:

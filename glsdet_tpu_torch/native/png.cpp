@@ -7,7 +7,8 @@
 // in:  height rows of (1 + stride) bytes, each a filter-type byte then the
 //      filtered row, as zlib inflates them from the IDAT chunks;
 // out: height * stride bytes, the reconstructed rows;
-// bpp: bytes per complete pixel (1 grey, 3 RGB, 4 RGBA).
+// bpp: bytes per complete pixel, at least 1 (the filter unit of section
+//      9.2: 1 for bit depths below 8, 2 per sample at depth 16).
 // Returns 0, or -(row + 1) of the first row with an unknown filter type.
 
 #include <cstdint>

@@ -35,6 +35,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from glsdet_tpu_torch.apis import Detector, TwoStageDetector
+from glsdet_tpu_torch.data.image_io import decode_image
 
 ARCHIVE_MANIFEST = "MANIFEST.json"
 ARCHIVE_SUFFIX = ".gtar"
@@ -350,8 +351,11 @@ async def async_inference_detector(detector, image: np.ndarray) -> dict:
 
 def _decode_image(body: bytes) -> np.ndarray:
     """Decode request bytes: raw JPEG/PNG, or JSON {"image": base64,
-    "shape" [h, w, 3] + "dtype" for raw arrays}.  Raw arrays need only
-    the standard library and numpy; encoded images need OpenCV."""
+    "shape" [h, w, 3] + "dtype" for raw arrays}.  JPEG and PNG decode
+    with the port's own decoders (``data/image_io.py``), equal to
+    ``cv2.imdecode(..., IMREAD_COLOR)`` after BGR -> RGB; a body that is
+    neither, or that ``cv2.imdecode`` could not read, raises
+    ``ValueError``."""
     import base64
 
     if body[:1] in (b"{", b"["):
@@ -362,18 +366,9 @@ def _decode_image(body: bytes) -> np.ndarray:
             return arr.reshape(payload["shape"]).copy()
         body = data
     try:
-        import cv2
-    except ImportError as e:
-        raise ValueError(
-            "decoding an encoded image needs OpenCV (cv2), which is not "
-            "installed here: send JSON with a raw array instead "
-            '({"image": base64 bytes, "shape": [h, w, 3], "dtype": '
-            '"uint8"})') from e
-
-    arr = cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR)
-    if arr is None:
-        raise ValueError("request body is not a decodable image")
-    return cv2.cvtColor(arr, cv2.COLOR_BGR2RGB)
+        return decode_image(body)
+    except ValueError as e:
+        raise ValueError("request body is not a decodable image") from e
 
 
 class DetectionService:

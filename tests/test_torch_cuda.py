@@ -58,6 +58,12 @@ geometric warp within one code; ``ops/image.py: warp_affine_u8`` and
 ``resize_linear_u8`` equal to the CPU; and ``train/loop.py: train()``
 from a PNG dataset on disk, whose steps make no host sync between the
 loop's own reads.
+
+Reading what users bring: ``run_eval`` on the card over JPEG frames gives
+the detections it gives over PNGs of the pixels the port decodes from
+them, and a ``TwoStageDetector`` built from reference-named checkpoints
+that ``tools/import_torch_weights.py`` converted serves the detections of
+one built from the port's own state-dict files.
 """
 
 import functools
@@ -1462,3 +1468,104 @@ def test_tta_detect_union_above_2048_on_the_card(card):
     want = tta_detect(detect, img, scales=scales, device="cpu")
     for key in ("boxes", "scores", "labels"):
         np.testing.assert_array_equal(got[key], want[key])
+
+
+def test_run_eval_on_jpeg_frames_equals_png_of_their_pixels(card, tmp_path):
+    """run_eval of YOLOX-nano at 64x64 on the card over JPEG frames
+    (encode_jpeg of the PNG set's frames) and over PNGs of the pixels the
+    port decodes from them: the same detections; B2 launched once per
+    batch in each."""
+    from glsdet_tpu_torch.data.coco import CocoDataset
+    from glsdet_tpu_torch.data.image_io import (read_image, write_jpeg,
+                                                write_png)
+    from glsdet_tpu_torch.eval import runner
+    from glsdet_tpu_torch.models import YOLOXDetector
+
+    ann, img_root = _eval_png_set(str(tmp_path))
+    with open(ann) as f:
+        coco = json.load(f)
+    roots = {"jpeg": str(tmp_path / "jpg"), "png": str(tmp_path / "png")}
+    for d in roots.values():
+        os.makedirs(d)
+    for im in coco["images"]:
+        stem = os.path.splitext(im["file_name"])[0]
+        jpg = os.path.join(roots["jpeg"], stem + ".jpg")
+        write_jpeg(jpg, read_image(os.path.join(img_root, im["file_name"])))
+        write_png(os.path.join(roots["png"], stem + ".png"), read_image(jpg))
+    model = YOLOXDetector(10, "nano",
+                          generator=torch.Generator().manual_seed(0)).eval()
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():        # spread the scores off the prior
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=g))
+    model = model.to(card)
+    dumps = {}
+    for kind, ext in (("jpeg", ".jpg"), ("png", ".png")):
+        split = str(tmp_path / f"{kind}.json")
+        with open(split, "w") as f:
+            json.dump(dict(coco, images=[
+                dict(im, file_name=os.path.splitext(im["file_name"])[0]
+                     + ext) for im in coco["images"]]), f)
+        out = str(tmp_path / f"{kind}_dets.json")
+        before = nms_kernel.launches
+        runner.run_eval(CocoDataset(split, roots[kind]), model, "yolox",
+                        (64, 64), 10, batch_size=4, score_thr=0.01,
+                        max_dets=100, verbose=False, device="cuda",
+                        out_json=out)
+        assert nms_kernel.launches == before + 2
+        with open(out) as f:
+            dumps[kind] = json.load(f)
+    assert len(dumps["jpeg"]) > 0 and dumps["jpeg"] == dumps["png"]
+
+
+def test_imported_weights_serve_the_same_detections_on_the_card(card,
+                                                                tmp_path):
+    """TwoStageDetector on the card from reference-named checkpoints
+    converted by tools/import_torch_weights.py gives the detections of
+    one from the port's own state-dict files (YOLOX-nano, MP-Det-18)."""
+    import sys
+
+    from glsdet_tpu_torch.apis import TwoStageDetector
+    from glsdet_tpu_torch.config import apply_overrides, get_config
+    from glsdet_tpu_torch.models.build import build_model
+    from glsdet_tpu_torch.tools import import_torch_weights
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    coarse_opts = {"model.phi": "nano", "data.img_hw": (64, 64),
+                   "eval.coarse_score_thr": 1e-4,
+                   "eval.mosaic_buckets": (128, 256)}
+    mp_opts = {"model.depth": 18}
+    own, conv = [], []
+    for name, family, opts, shape_opts in (
+            ("coarse_det", "yolox", coarse_opts, ["model.phi=nano"]),
+            ("mp_det_res50", "mpdet", mp_opts, ["model.depth=18"])):
+        model = build_model(apply_overrides(get_config(name), opts),
+                            device="cpu")
+        path = str(tmp_path / f"{name}.pt")
+        torch.save(model.state_dict(), path)
+        src = str(tmp_path / f"{name}.pth")
+        torch.save(chip_smoke.reference_checkpoint(model.state_dict(),
+                                                   family), src)
+        dst = str(tmp_path / f"{name}_imported.pt")
+        import_torch_weights.main([src, dst, "--arch", family, "--config",
+                                   name, "--cfg-options", *shape_opts])
+        own.append(path)
+        conv.append(dst)
+    rs = np.random.RandomState(0)
+    frames = [rs.randint(0, 255, (64, 96, 3), np.uint8) for _ in range(3)]
+    dets = []
+    for paths in (own, conv):
+        det = TwoStageDetector("coarse_det", paths[0], "mp_det_res50",
+                               paths[1], coarse_options=coarse_opts,
+                               mp_options=mp_opts, device="cuda")
+        try:
+            dets.append(det.detect_batch(frames))
+        finally:
+            det.close()
+    for a, b in zip(*dets):
+        for k in ("boxes", "scores", "labels"):
+            np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))

@@ -4,8 +4,11 @@
   value for value on files that ``cv2.imwrite`` wrote (RGB, grey, RGBA,
   odd widths, compression levels that give different filter choices)
   and on files the port's own writer wrote (every filter type); sizes
-  from PNG and JPEG headers equal what OpenCV decodes; a JPEG and a
-  16-bit PNG raise ``NotImplementedError``.
+  from PNG and JPEG headers equal what OpenCV decodes; a progressive
+  JPEG raises ``NotImplementedError``; a 16-bit PNG reads as
+  ``cv2.imread`` reads it and a PNG header no PNG may have raises.
+  (``tests/test_torch_jpeg.py`` and ``test_torch_png_forms.py`` cover the
+  JPEG reader and the other PNG forms.)
 - ``data/visdrone.py``, ``data/coco.py``, ``data/wrappers.py``: the json,
   records, ignore regions, images and batches equal the JAX package's.
 """
@@ -59,13 +62,24 @@ def test_png_reader_equals_cv2_imread(tmp_path, shape, level):
 
 
 def test_png_reader_rejects_what_it_does_not_read(tmp_path):
-    """16-bit PNGs (cv2.imwrite of uint16) raise rather than guess."""
+    """16-bit PNGs (cv2.imwrite of uint16) read as cv2.imread reads them
+    (the high byte); a header no PNG may have (RGB at 4 bits) and bytes
+    that are not a PNG raise rather than guess."""
     img = np.random.RandomState(0).randint(0, 65536, (11, 13, 3)).astype(
         np.uint16)
     path = str(tmp_path / "b16.png")
     cv2.imwrite(path, img)
-    with pytest.raises(NotImplementedError, match="bit depth 16"):
-        image_io.read_image(path)
+    np.testing.assert_array_equal(image_io.read_image(path), cv_rgb(path))
+    data = bytearray(open(path, "rb").read())
+    ihdr = data.index(b"IHDR") + 4
+    data[ihdr + 8] = 4                                 # RGB at bit depth 4
+    import struct
+    import zlib
+
+    data[ihdr + 13:ihdr + 17] = struct.pack(
+        ">I", zlib.crc32(bytes(data[ihdr - 4:ihdr + 13])))
+    with pytest.raises(ValueError, match="bit depth 4"):
+        image_io.decode_png(bytes(data))
     with pytest.raises(ValueError, match="not a PNG"):
         image_io.decode_png(b"GIF89a")
 
@@ -93,9 +107,12 @@ def test_png_writer_uses_every_filter_and_reads_back(tmp_path, c):
 
 
 def test_jpeg_size_from_header_and_decode_raises(tmp_path):
+    """A baseline JPEG decodes now (``tests/test_torch_jpeg.py``); a
+    progressive one still raises naming item 16."""
     path = str(tmp_path / "f.jpg")
     cv2.imwrite(path, np.random.RandomState(0).randint(0, 256, (37, 53, 3),
-                                                       np.uint8))
+                                                       np.uint8),
+                [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     assert image_io.image_size(path) == (53, 37)
     with pytest.raises(NotImplementedError, match="queue A item 16"):
         image_io.read_image(path)

@@ -54,7 +54,13 @@ def test_every_port_module_imports_without_jax():
                  "glsdet_tpu_torch.eval.ignore",
                  "glsdet_tpu_torch.eval.tta",
                  "glsdet_tpu_torch.eval.runner",
-                 "glsdet_tpu_torch.tools.ufpmp_det_eval"):
+                 "glsdet_tpu_torch.tools.ufpmp_det_eval",
+                 "glsdet_tpu_torch.data.uavdt",
+                 "glsdet_tpu_torch.data.voc",
+                 "glsdet_tpu_torch.utils.torch_import",
+                 "glsdet_tpu_torch.utils.observe",
+                 "glsdet_tpu_torch.tools.import_torch_weights",
+                 "glsdet_tpu_torch.tools.ckpt_tool"):
         assert name in modules
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
@@ -62,3 +68,22 @@ def test_every_port_module_imports_without_jax():
     assert out.returncode == 0, out.stderr[-4000:]
     n, bad = json.loads(out.stdout.splitlines()[-1])
     assert bad == [] and n == len(modules), (n, bad)
+
+
+def test_no_port_module_imports_opencv():
+    """The GPU machine has no OpenCV: no source of the port imports cv2
+    (the probe above imports every module; a lazy import inside a
+    function would only fail when called, so the sources are read)."""
+    import re
+
+    pat = re.compile(r"^\s*(import cv2|from cv2 )", re.M)
+    pkg = os.path.dirname(glsdet_tpu_torch.__file__)
+    bad = []
+    for dirpath, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(dirpath, name)) as f:
+                    if pat.search(f.read()):
+                        bad.append(os.path.relpath(
+                            os.path.join(dirpath, name), pkg))
+    assert bad == []

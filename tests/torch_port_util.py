@@ -10,6 +10,7 @@ and reach torch through ``utils/flax_import.py``.
 from __future__ import annotations
 
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -230,3 +231,109 @@ def write_png_dataset(root):
                    "categories": [{"id": k, "name": str(k)}
                                   for k in range(3)]}, f)
     return ann_file, img_root
+
+
+# ── reference naming (the inverse of the JAX package's key rewrites) ──
+# The same helper lives in chip_smoke.py, which cannot import this module
+# (it imports jax); tests/test_torch_weights_import.py holds it against
+# ``_map_yolox_drone`` / ``_map_mpdet`` of the JAX package.
+
+_PAFPN = {"reduce5": "lateral_conv0", "reduce4": "reduce_conv1",
+          "td_csp4": "C3_p4", "td_csp3": "C3_p3", "bu_down3": "bu_conv2",
+          "bu_csp4": "C3_n3", "bu_down4": "bu_conv1", "bu_csp5": "C3_n4"}
+
+
+def _undw(rest):
+    return re.sub(r"^pw\.", "pconv.", re.sub(r"^dw\.", "dconv.", rest))
+
+
+def _uncsp(rest):
+    for port, ref in (("main_conv.", "conv1."), ("short_conv.", "conv2."),
+                      ("final_conv.", "conv3.")):
+        if rest.startswith(port):
+            return ref + rest[len(port):]
+    rest = re.sub(r"^block(\d+)\.conv2_dw\.dw\.", r"m.\1.conv2.dconv.", rest)
+    rest = re.sub(r"^block(\d+)\.conv2_dw\.pw\.", r"m.\1.conv2.pconv.", rest)
+    return re.sub(r"^block(\d+)\.", r"m.\1.", rest)
+
+
+def yolox_drone_key(key):
+    """A port YOLOX key -> the yolox-drone ``YoloBody`` key."""
+    m = re.match(r"^backbone\.stem\.conv\.(.*)$", key)
+    if m:
+        return f"backbone.backbone.stem.conv.{m[1]}"
+    m = re.match(r"^backbone\.dark(\d)_down\.(.*)$", key)
+    if m:
+        return f"backbone.backbone.dark{m[1]}.0.{_undw(m[2])}"
+    m = re.match(r"^backbone\.spp\.(.*)$", key)
+    if m:
+        return f"backbone.backbone.dark5.1.{m[1]}"
+    m = re.match(r"^backbone\.dark(\d)_csp\.(.*)$", key)
+    if m:
+        return (f"backbone.backbone.dark{m[1]}."
+                f"{2 if m[1] == '5' else 1}.{_uncsp(m[2])}")
+    m = re.match(r"^neck\.([A-Za-z0-9_]+)\.(.*)$", key)
+    if m:
+        rest = _uncsp(m[2]) if "csp" in m[1] else _undw(m[2])
+        return f"backbone.{_PAFPN[m[1]]}.{rest}"
+    m = re.match(r"^head\.stem(\d+)\.(.*)$", key)
+    if m:
+        return f"head.stems.{m[1]}.{m[2]}"
+    m = re.match(r"^head\.(cls|reg)(\d+)_(\d+)\.(.*)$", key)
+    if m:
+        return f"head.{m[1]}_convs.{m[2]}.{m[3]}.{_undw(m[4])}"
+    m = re.match(r"^head\.(cls|reg|obj)_pred(\d+)\.(.*)$", key)
+    if m:
+        return f"head.{m[1]}_preds.{m[2]}.{m[3]}"
+    raise KeyError(key)
+
+
+_MMDET = (
+    (r"^backbone\.stem\.conv\.", "backbone.conv1."),
+    (r"^backbone\.stem\.bn\.", "backbone.bn1."),
+    (r"^backbone\.layer(\d)_(\d+)\.conv(\d)\.conv\.",
+     r"backbone.layer\1.\2.conv\3."),
+    (r"^backbone\.layer(\d)_(\d+)\.conv(\d)\.bn\.",
+     r"backbone.layer\1.\2.bn\3."),
+    (r"^backbone\.layer(\d)_(\d+)\.down\.conv\.",
+     r"backbone.layer\1.\2.downsample.0."),
+    (r"^backbone\.layer(\d)_(\d+)\.down\.bn\.",
+     r"backbone.layer\1.\2.downsample.1."),
+    (r"^neck\.lateral(\d+)\.", r"neck.lateral_convs.\1.conv."),
+    (r"^neck\.fpn_conv(\d+)\.", r"neck.fpn_convs.\1.conv."),
+    (r"^head\.(cls|reg)_conv(\d+)\.", r"bbox_head.\1_convs.\2."),
+    (r"^head\.scale(\d+)\.scale$", r"bbox_head.scales.\1.scale"),
+    (r"^head\.", "bbox_head."),
+)
+
+
+def mmdet_key(key):
+    """A port MP-Det/GFL key -> the mmdet key (FPN extra convs follow
+    the three per-level ones in ``fpn_convs``)."""
+    m = re.match(r"^neck\.extra_conv(\d+)\.(.*)$", key)
+    if m:
+        return f"neck.fpn_convs.{int(m[1]) + 3}.conv.{m[2]}"
+    for pat, rep in _MMDET:
+        if re.match(pat, key):
+            return re.sub(pat, rep, key)
+    raise KeyError(key)
+
+
+def reference_checkpoint(state_dict, family, boiw=None, reg_max=16):
+    """What a reference repo saves for a port model: yolox-drone naming
+    as a bare state dict (``family="yolox"``), or mmdet naming wrapped as
+    mmcv ``{"meta", "state_dict"}`` with ``integral.project`` and, given
+    ``boiw`` (a ``BoIWState``), MPHead's dictionary buffers
+    (``family="mpdet"``)."""
+    name = yolox_drone_key if family == "yolox" else mmdet_key
+    ref = {name(k): v.detach().clone() for k, v in state_dict.items()}
+    if family == "yolox":
+        return ref
+    ref["bbox_head.integral.project"] = torch.linspace(0, reg_max,
+                                                       reg_max + 1)
+    if boiw is not None:
+        ref["bbox_head._embedding"] = boiw.embedding.detach().clone()
+        ref["bbox_head._pos_embedding_ptr"] = boiw.ptr.detach().clone()
+        ref["bbox_head._proxies_prob"] = boiw.proxies_prob.detach().clone()
+    return {"meta": {"epoch": 12, "mmdet_version": "2.x"},
+            "state_dict": ref}
