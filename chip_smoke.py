@@ -253,7 +253,35 @@ Phases, in the order they run, each printing one line:
      decoded from them: equal detections and stats, B2 and B1 checked as
      in phase 22; one epoch (8 steps) of train(coarse_det) reading the
      JPEGs, and the loader alone at 4 workers; collect_env().  Printed as
-     one {"inputs": ...} line.
+     one {"inputs": ...} line;
+ 24. variants, the zoo of models/variants (no kernel of its own; B2 runs
+     in their postprocess).  yolox_ffa at full width (FFAYoloBody, phi s,
+     640x640, 10 classes, four levels at strides 4-32, 34,000 anchors),
+     seeded weights with jitter_: the float32 forward of 2 frames on the
+     card against the CPU's (TF32 off; every output within 1e-4 of its
+     max), then the card's bf16 forward against its float32 one (within
+     0.1); run_eval (family "ffa", bf16, batch 8) over phase 21's 64 val
+     frames as phase 22 runs it (img/s, host share, COCO stats, B2 at
+     FFA's shapes, every keep mask equal to nms_sorted_plain's and timed);
+     3 make_yolox_train_step steps with the adam_step recipe after a
+     warm-up (bf16 autocast, batch 8, max_gt 300, VisDrone-like boxes:
+     ms/step, img/s, peak memory, GTs per image, one profiled step's
+     launches and idle share); two train(yolox_ffa) steps from phase 21's
+     PNG files.  Then each of the six coarse_det variants (lsk, evc, se,
+     mscam, nonlocal, fg_fpn; YOLOX-s at 640x640, seeded and jittered),
+     and the plain coarse_det beside them:
+     its float32 forward on the card against the CPU's (within 1e-4),
+     apis.Detector from a state-dict file on the 16 frames (B2's launches
+     captured, keep masks equal to plain and timed, detections well
+     formed, img/s); lsk also under quant8=True, where LSK's three 7x7
+     dilation-3 depthwise convs must be int8 (the dilated int8 route),
+     with the share of its bf16 detections it matches.  Last, DyHead (2
+     stages, 256 channels at 80/40/20) and BatchFormer (dim 256, batch 8,
+     training, dropout 0) on the card against the CPU (DyHead within
+     1e-3: its gather taps sit on floor boundaries), DyHead's time, and
+     BatchFormer's dropout drawn from a card generator.  Printed as one
+     {"variants": ...} line; B2's entry of the kernel line adds its
+     launches, shapes and times (variants_*).
 Then one JSON line of per-kernel results (each with its bound: the bytes
 it must move at 3.35 TB/s or its operations at the card's peak for their
 type, whichever is longer) and, last, the device line.  A kernel's ``ms``
@@ -4361,6 +4389,255 @@ def inputs_checked(inp, kernel) -> int:
     return sum(t["groups"] for r in runs for t in r.get("paint", []))
 
 
+# ---------------------------------------------------------------------------
+# 24. variants: the FFA 4-level model and the YOLOX variant zoo
+
+VARIANTS = ("lsk", "evc", "se", "mscam", "nonlocal", "fg_fpn")
+F32_TOL = 1e-4       # card vs CPU float32 forward, of each output's max
+DYHEAD_TOL = 1e-3    # ... DyHead: its gather taps sit on floor boundaries
+BF16_TOL = 0.1       # bf16 vs float32 forward on the card (phase 7's)
+FFA_TRAIN_STEPS = 3
+
+
+def seeded_model(cfg, seed=0):
+    """build_model(cfg) on the CPU from ``seed``, float32, its constant
+    leaves jittered (jitter_)."""
+    from glsdet_tpu_torch.models.build import build_model
+
+    return jitter_(build_model(cfg, device="cpu", generator=torch.Generator(
+        ).manual_seed(seed)), seed + 1).eval()
+
+
+def card_vs_cpu(model, inputs, tol, what, bf16=False) -> dict:
+    """``model`` (float32, on the CPU) applied to ``inputs`` on the CPU
+    and on the card (TF32 off, as main sets it): the largest error of an
+    output over that output's max, within ``tol``; with ``bf16`` also the
+    card's bf16 forward against its float32 one, within BF16_TOL."""
+    def flat(out):
+        if isinstance(out, torch.Tensor):
+            return [out]
+        return [t for o in out for t in flat(o)]
+
+    def errs(got, ref):
+        out = []
+        for g, r in zip(flat(got), flat(ref)):
+            g, r = g.float().cpu(), r.float().cpu()
+            if g.shape != r.shape or not torch.isfinite(g).all():
+                raise AssertionError(f"{what}: bad output {tuple(g.shape)}")
+            out.append(float((g - r).abs().max() / r.abs().max()))
+        return out
+
+    with torch.inference_mode():
+        ref = model(*inputs)
+        card = copy.deepcopy(model).to(DEVICE)
+        dev_in = [t.to(DEVICE) if isinstance(t, torch.Tensor)
+                  else [u.to(DEVICE) for u in t] for t in inputs]
+        got = card(*dev_in)
+        out = {"max_rel_err": max(errs(got, ref)), "tol": tol}
+        if out["max_rel_err"] > tol:
+            raise AssertionError(f"{what} card vs CPU: {out}")
+        if bf16:
+            half = card.to(torch.bfloat16)(*[t.to(torch.bfloat16)
+                                             for t in dev_in])
+            out["bf16_max_rel_err"] = max(errs(half, got))
+            out["bf16_tol"] = BF16_TOL
+            if out["bf16_max_rel_err"] > BF16_TOL:
+                raise AssertionError(f"{what} bf16 vs f32: {out}")
+    return out
+
+
+def ffa_train_steps(cfg) -> dict:
+    """FFA_TRAIN_STEPS make_yolox_train_step steps at yolox_ffa's full
+    width (strides 4-32, the adam_step recipe, bf16 autocast, VisDrone-like
+    batches at max_gt 300) after one warm-up: ms/step, peak memory, then
+    one profiled step (launches, busy share)."""
+    from glsdet_tpu_torch.train.loop import family_strides
+    from glsdet_tpu_torch.train.schedules import ScheduledAdam
+    from glsdet_tpu_torch.train.steps import make_yolox_train_step
+
+    hw, b = tuple(cfg.data.img_hw), cfg.data.batch_size
+    rs = np.random.RandomState(0)
+    batches = [train_batch(rs, b, hw, cfg.data.max_gt, DEVICE,
+                           boxes="visdrone") for _ in range(2)]
+    state = train_state(cfg, DEVICE)
+    if not isinstance(state.optimizer, ScheduledAdam):
+        raise AssertionError(f"yolox_ffa optimizer {state.optimizer}")
+    step = make_yolox_train_step(state.model, hw,
+                                 strides=family_strides("ffa"),
+                                 normalize=True, dtype=torch.bfloat16)
+    state, _ = step(state, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(2 * FFA_TRAIN_STEPS)]
+    ms = []
+    for i in range(FFA_TRAIN_STEPS):
+        ev[2 * i].record()
+        state, m = step(state, batches[i % 2])
+        ev[2 * i + 1].record()
+        ms.append(m)
+    torch.cuda.synchronize()
+    step_ms = [ev[2 * i].elapsed_time(ev[2 * i + 1])
+               for i in range(FFA_TRAIN_STEPS)]
+    out = {"steps": FFA_TRAIN_STEPS, "step_ms": step_ms,
+           "ms_per_step": sum(step_ms) / FFA_TRAIN_STEPS,
+           "img_per_s": b * 1e3 * FFA_TRAIN_STEPS / sum(step_ms),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "gts_per_image": [int(v) for bt in batches
+                             for v in bt["gt_valid"].sum(1).cpu()],
+           "first": floats(ms[0]), "last": floats(ms[-1])}
+    for k in ("first", "last"):
+        check_finite("yolox_ffa step", out[k], ("num_fg",))
+    out["profile"] = profile_step(lambda: step(state, batches[1]))
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def detector_run(name, path, frames, quant8=False) -> dict:
+    """apis.Detector("coarse_det", variant ``name``; "plain": none) from
+    the state-dict
+    file ``path``, coarse threshold 1e-4: one warm detect_batch of the
+    frames, one with B2's launches captured (each keep mask equal to
+    nms_sorted_plain's, timed), well formed, then img/s.  Returns that
+    summary, the Detector and the captured batch's detections."""
+    from glsdet_tpu_torch.apis import Detector
+
+    variant = "" if name == "plain" else name
+    det = Detector("coarse_det", path, score_thr=1e-4, quant8=quant8,
+                   options={"model.variant": variant}, device=DEVICE)
+    det.detect_batch(frames)
+    with capture_path() as cap:
+        res = det.detect_batch(frames)
+    launches = cap["launches"]
+    if launches["nms"] < 1 or launches["nms"] != len(cap["nms"]):
+        raise AssertionError(f"Detector {name}: B2 launches {launches}, "
+                             f"{len(cap['nms'])} captured")
+    out = {"detections": check_served(res, len(frames), det.score_thr),
+           "launches": launches,
+           "nms": check_nms_calls(cap["nms"], f"Detector {name}"),
+           "img_per_s": batch_img_per_s(det, frames)}
+    return out, det, res
+
+
+def zoo_modules() -> dict:
+    """DyHead (2 stages, 256 channels over levels of 80, 40, 20) and
+    BatchFormer (dim 256, batch 8, training mode, dropout 0) on the card
+    against the CPU, and BatchFormer's dropout drawn from a card
+    generator (the batch doubled, its first half the input)."""
+    from glsdet_tpu_torch.models.layers import flax_init_
+    from glsdet_tpu_torch.models.variants import BatchFormer, DyHead
+
+    g = torch.Generator().manual_seed(0)
+    dy = flax_init_(DyHead(256), g).eval()
+    feats = [torch.randn(2, 256, s, s, generator=g) for s in (80, 40, 20)]
+    out = {"dyhead": card_vs_cpu(dy, [feats], DYHEAD_TOL, "DyHead")}
+    dev = copy.deepcopy(dy).to(DEVICE)
+    dev_feats = [f.to(DEVICE) for f in feats]
+    with torch.inference_mode():
+        out["dyhead"]["ms"] = cuda_ms(lambda: dev(dev_feats))
+    bf = flax_init_(BatchFormer(256, dropout=0.0), g).train()
+    x = torch.randn(8, 256, generator=g)
+    out["batchformer"] = card_vs_cpu(bf, [x], F32_TOL, "BatchFormer")
+    drop = flax_init_(BatchFormer(256), g).train().to(DEVICE)
+    with torch.inference_mode():
+        y = drop(x.to(DEVICE), torch.Generator(DEVICE).manual_seed(0))
+    if y.shape != (16, 256) or not torch.equal(y[:8].cpu(), x):
+        raise AssertionError(f"BatchFormer dropout: {tuple(y.shape)}")
+    return out
+
+
+def phase_variants(smi: str, ds, tmp: str, frames) -> dict:
+    """The variant zoo on the card (module docstring, phase 24)."""
+    from glsdet_tpu_torch.config import apply_overrides, get_config
+    from glsdet_tpu_torch.ops.quant import DynamicQuantConv2d
+
+    t0 = time.perf_counter()
+    out = {"card": smi}
+    root = os.path.join(tmp, "variants")
+    os.makedirs(root)
+    cfg = get_config("yolox_ffa")
+    assert (tuple(cfg.data.img_hw), cfg.model.phi, cfg.data.batch_size) == (
+        COARSE_HW, PHI, YOLOX_B), cfg
+    ffa = seeded_model(cfg)
+    x = torch.from_numpy(np.random.RandomState(1).randn(
+        2, 3, *COARSE_HW).astype(np.float32))
+    out["ffa_forward"] = card_vs_cpu(ffa, [x], F32_TOL, "yolox_ffa",
+                                     bf16=True)
+    log("variants_ffa_forward", **out["ffa_forward"])
+    f16 = copy.deepcopy(ffa).to(DEVICE, torch.bfloat16).eval()
+    out["ffa_eval"] = eval_single("yolox_ffa", eval_split(ds, root, "val"),
+                                  f16, "ffa", cfg, cfg.data.batch_size)
+    del f16
+    log("variants_ffa_eval", **{k: v for k, v in out["ffa_eval"].items()
+                                if k != "nms"})
+    out["ffa_train_step"] = ffa_train_steps(cfg)
+    log("variants_ffa_train_step", **out["ffa_train_step"])
+    work = os.path.join(root, "train")
+    state, logs, gaps, info = run_train(
+        loop_cfg("yolox_ffa", ds, work, **{"train.epochs": 1}),
+        max_steps=2)
+    if state.step != 2 or len(logs) != 2:
+        raise AssertionError(f"train(yolox_ffa): {state.step}, {logs}")
+    out["ffa_train_loop"] = {"steps": state.step, "logs": logs,
+                             "host_gap_ms": gaps, **info}
+    del state
+    torch.cuda.empty_cache()
+    log("variants_ffa_train_loop", **out["ffa_train_loop"])
+
+    out["variants"] = {}
+    for i, name in enumerate(("plain",) + VARIANTS):
+        vcfg = apply_overrides(get_config("coarse_det"), {
+            "model.variant": "" if name == "plain" else name})
+        model = seeded_model(vcfg, seed=10 + i)
+        path = os.path.join(root, f"{name}.pt")
+        torch.save(model.state_dict(), path)
+        row = {"forward": card_vs_cpu(model, [x[:1]], F32_TOL, name)}
+        summary, det, ref = detector_run(name, path, frames)
+        row.update(summary)
+        del det
+        if name == "lsk":
+            q, det, res = detector_run(name, path, frames, quant8=True)
+            dilated = sorted(n for n, m in det._net.named_modules()
+                             if isinstance(m, DynamicQuantConv2d)
+                             and n.endswith("conv_spatial"))
+            if dilated != [f"lsk{j}.lsk.conv_spatial" for j in range(3)]:
+                raise AssertionError(f"lsk int8: dilated convs {dilated}")
+            row["quant8"] = {**q, "dilated_int8": dilated,
+                             "matched_share_vs_bf16": matched_share(ref,
+                                                                    res)}
+            del det
+        out["variants"][name] = row
+        log(f"variants_{name}", **{k: v for k, v in row.items()
+                                   if k not in ("nms", "quant8")},
+            nms_per_run=row["nms"]["per_run"])
+        del model
+        torch.cuda.empty_cache()
+    out["modules"] = zoo_modules()
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"variants": out}), flush=True)
+    return out
+
+
+def variants_nms(var) -> dict:
+    """B2 in phase 24: launches, shapes and per-run times (eager, plain,
+    bound) of yolox_ffa's run_eval and of each variant's Detector."""
+    runs = {"yolox_ffa_eval": var["ffa_eval"],
+            **{f"{n}_detector": r for n, r in var["variants"].items()},
+            "lsk_int8_detector": var["variants"]["lsk"]["quant8"]}
+    return {
+        "variants_launches": {k: r["launches"]["nms"]
+                              for k, r in runs.items()},
+        "variants_shapes": {k: [[t["batch"], t["k"]] for t in r["nms"][
+            "shapes"]] for k, r in runs.items()},
+        "variants_ms": {k: r["nms"]["per_run"]["ms"] for k, r in runs.items()},
+        "variants_plain_ms": {k: r["nms"]["per_run"]["plain_ms"]
+                              for k, r in runs.items()},
+        "variants_bound_ms": {k: r["nms"]["per_run"]["bound_ms"]
+                              for k, r in runs.items()},
+        "variants_max_abs_err": 0.0}
+
+
 def main() -> None:
     # float32 products of the plain versions stay float32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4403,6 +4680,7 @@ def main() -> None:
         _, loop_ds = phase_train_loop(smi, yolox, tmp)
         ev = phase_eval(smi, loop_ds, tmp)
         inp = phase_inputs(smi, loop_ds, tmp, serve["windows"])
+        var = phase_variants(smi, loop_ds, tmp, frames)
     launches = bf16["launches"]
     eval_nms = {run: ev[run]["nms"] for run in
                 ("coarse_det", "mp_det_res50", "tta", "ufpmp_bf16",
@@ -4441,7 +4719,8 @@ def main() -> None:
          "inputs_launches": {run: n["nms"]
                              for run, n in inp["launches"].items()},
          "inputs_checked": inputs_checked(inp, "nms"),
-         "inputs_max_abs_err": 0.0},
+         "inputs_max_abs_err": 0.0,
+         **variants_nms(var)},
         {"name": "paint_mosaic", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/paint.cu",
          "replaces": "glsdet_tpu/ufp/pallas_paint.py:368",

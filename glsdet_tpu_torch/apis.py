@@ -118,7 +118,9 @@ class Detector:
     serves with ``int8_scales`` (a saved-scales JSON path or the scales
     dict) when there are any; else the first ``detect``/``detect_batch``
     calibrates on its own inputs and, when ``int8_scales`` names a path
-    that does not exist yet, saves the scales there."""
+    that does not exist yet, saves the scales there.  Serves the
+    ``yolox`` family with any ``variant``, ``mpdet`` and ``gfl``; family
+    ``ffa`` raises ``ValueError``, as the JAX facade fails on it."""
 
     # class-level default so hand-assembled instances (built with
     # ``__new__``) skip the lazy int8 calibration
@@ -137,6 +139,13 @@ class Detector:
         # float32 on the CPU: the int8 copies are made from it there
         cfg, model, _ = init_detector(config_name, checkpoint, use_ema,
                                       options, "cpu")
+        if cfg.model.family == "ffa":
+            # the JAX facade decodes every family but yolox as (cls, reg)
+            # and so fails on the 4-level model's (cls, reg, obj)
+            raise ValueError(
+                f"{config_name}: family 'ffa' is not served by Detector, as "
+                "in the JAX package; evaluate it with eval/runner.py: "
+                "run_eval(..., family='ffa')")
         self.quant8 = quant8
         self.cfg = cfg
         self.class_names = list(class_names or VISDRONE_CLASSES)

@@ -16,6 +16,7 @@ import torch
 
 from glsdet_tpu_torch.config import Config
 from glsdet_tpu_torch.models.detectors import GFLDet, MPDet, YOLOXDetector
+from glsdet_tpu_torch.models.variants.ffa_model import FFAYoloBody
 
 
 def resolve_device(device) -> torch.device:
@@ -34,19 +35,15 @@ def build_model(cfg: Config, device="cuda",
                 ) -> torch.nn.Module:
     """The model ``cfg.model`` names, float32, in eval mode, on
     ``device``.  Weights come from ``generator`` (default:
-    ``torch.Generator().manual_seed(0)``).  Families ``yolox`` (no
-    ``variant``), ``mpdet`` and ``gfl``; ``ffa`` and the YOLOX variants
-    are still to be ported."""
+    ``torch.Generator().manual_seed(0)``).  Families ``yolox`` (with its
+    ``variant``), ``ffa``, ``mpdet`` and ``gfl``."""
     dev = resolve_device(device)
     m = cfg.model
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    if m.family == "yolox" and m.variant:
-        raise NotImplementedError(
-            f"yolox variant {m.variant!r}: the variant zoo is not ported "
-            "yet (ROADMAP.md, queue A item 13)")
     if m.family == "yolox":
-        model = YOLOXDetector(m.num_classes, m.phi, generator=generator)
+        model = YOLOXDetector(m.num_classes, m.phi, m.variant,
+                              generator=generator)
     elif m.family == "mpdet":
         model = MPDet(m.num_classes, m.depth, m.feat_channels,
                       proxies_list=m.proxies_list, gamma=m.gamma,
@@ -55,9 +52,7 @@ def build_model(cfg: Config, device="cuda",
         model = GFLDet(m.num_classes, m.depth, m.feat_channels,
                        remat=m.remat, generator=generator)
     elif m.family == "ffa":
-        raise NotImplementedError(
-            "family 'ffa': the variant zoo is not ported yet (ROADMAP.md, "
-            "queue A item 13)")
+        model = FFAYoloBody(m.num_classes, m.phi, generator=generator)
     else:
         raise ValueError(m.family)
     return model.to(dev).eval()

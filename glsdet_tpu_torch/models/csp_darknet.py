@@ -10,7 +10,7 @@ Stages (base widths; depth = round(3 * depth_mult) except stage 1):
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 from torch import nn
 
@@ -41,11 +41,14 @@ def scaled_depths(depth_mult: float) -> Tuple[int, ...]:
 
 
 class CSPDarknet(nn.Module):
-    """YOLOX backbone; returns the (P3, P4, P5) features."""
+    """YOLOX backbone; returns the features of ``out_indices`` over (stem
+    0, dark2 1, dark3 2, dark4 3, dark5 4), by default (P3, P4, P5)."""
 
     def __init__(self, depth_mult: float = 0.33, width_mult: float = 0.50,
-                 depthwise: bool = False, act: str = "silu"):
+                 depthwise: bool = False, act: str = "silu",
+                 out_indices: Sequence[int] = (2, 3, 4)):
         super().__init__()
+        self.out_indices = tuple(out_indices)
         chans = scaled_channels(width_mult)
         depths = scaled_depths(depth_mult)
         self.stem = Focus(3, chans[0], 3, act=act)
@@ -64,12 +67,12 @@ class CSPDarknet(nn.Module):
 
     def forward(self, x):
         x = self.stem(x)
-        outs = []
+        outs = [x] if 0 in self.out_indices else []
         for stage in (2, 3, 4, 5):
             x = getattr(self, f"dark{stage}_down")(x)
             if stage == 5:
                 x = self.spp(x)
             x = getattr(self, f"dark{stage}_csp")(x)
-            if stage >= 3:
+            if stage - 1 in self.out_indices:
                 outs.append(x)
         return tuple(outs)

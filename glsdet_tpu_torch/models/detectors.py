@@ -1,7 +1,7 @@
 """Detector assemblies, the counterparts of ``glsdet_tpu.models.detectors``.
 
 - ``YOLOXDetector``: CSPDarknet -> PAFPN -> decoupled head (the coarse
-  detector of the two-stage path; no attention variants yet).
+  detector of the two-stage path), with the zoo's ``variant`` plugins.
 - ``MPDet``: ResNet -> FPN (5 levels) -> MPHead.
 - ``GFLDet``: ResNet -> FPN (5 levels) -> GFLHead (the plain GFL
   single-stage detector, MP-Det's ablation baseline).
@@ -18,6 +18,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from glsdet_tpu_torch.models import variants as v
 from glsdet_tpu_torch.models.csp_darknet import (PHI_TABLE, CSPDarknet,
                                                  scaled_channels,
                                                  scaled_depths)
@@ -32,24 +33,66 @@ from glsdet_tpu_torch.models.yolox_head import YOLOXHead
 YOLOX_STRIDES = (8, 16, 32)
 GFL_STRIDES = (8, 16, 32, 64, 128)
 
+# YOLOX variants with one module per level: (name prefix, module of width)
+_PER_LEVEL = {"lsk": ("lsk", v.LSKAttention), "se": ("se", v.SEBlock),
+              "mscam": ("mscam", v.MSCAM),
+              "nonlocal": ("nl", lambda c: v.PatchNonLocal(c, patch=4))}
+
 
 class YOLOXDetector(nn.Module):
-    """YOLOX coarse detector; ``phi`` selects width and depth."""
+    """YOLOX coarse detector; ``phi`` selects width and depth.
 
-    def __init__(self, num_classes: int = 10, phi: str = "s", *,
-                 generator: torch.Generator):
+    ``variant`` plugs in a module of the zoo (``models/variants``), named
+    as the JAX package names it:
+
+    - ``"lsk"``: ``LSKAttention`` after each backbone output (``lsk{i}``);
+    - ``"evc"``: ``EVCBlock`` on the deepest backbone output (``evc``);
+    - ``"se"`` / ``"mscam"`` / ``"nonlocal"``: ``SEBlock`` /
+      ``MSCAM`` / ``PatchNonLocal(patch=4)`` on each neck output
+      (``se{i}``, ``mscam{i}``, ``nl{i}``);
+    - ``"fg_fpn"``: ``FeatureGroupFPN`` after the neck (``fg_fpn``).
+
+    Any other string builds the plain detector, as in the JAX package."""
+
+    def __init__(self, num_classes: int = 10, phi: str = "s",
+                 variant: str = "", *, generator: torch.Generator):
         super().__init__()
         depth_mult, width_mult, depthwise = PHI_TABLE[phi]
         chans = scaled_channels(width_mult)
+        levels = chans[2:5]
+        self.variant = variant
         self.backbone = CSPDarknet(depth_mult, width_mult, depthwise)
-        self.neck = YOLOXPAFPN(chans[2:5], scaled_depths(depth_mult)[0],
+        if variant in _PER_LEVEL:
+            prefix, make = _PER_LEVEL[variant]
+            for i, c in enumerate(levels):
+                self.add_module(f"{prefix}{i}", make(c))
+        elif variant == "evc":
+            self.evc = v.EVCBlock(levels[-1])
+        elif variant == "fg_fpn":
+            self.fg_fpn = v.FeatureGroupFPN(levels)
+        self.neck = YOLOXPAFPN(levels, scaled_depths(depth_mult)[0],
                                depthwise)
-        self.head = YOLOXHead(num_classes, chans[2:5],
+        self.head = YOLOXHead(num_classes, levels,
                               feat_channels=chans[2], depthwise=depthwise)
         flax_init_(self, generator)
 
+    def _each_level(self, feats):
+        prefix = _PER_LEVEL[self.variant][0]
+        return tuple(getattr(self, f"{prefix}{i}")(f)
+                     for i, f in enumerate(feats))
+
     def forward(self, images):
-        return self.head(self.neck(self.backbone(images)))
+        feats = self.backbone(images)
+        if self.variant == "lsk":
+            feats = self._each_level(feats)
+        elif self.variant == "evc":
+            feats = (*feats[:-1], self.evc(feats[-1]))
+        feats = self.neck(feats)
+        if self.variant in ("se", "mscam", "nonlocal"):
+            feats = self._each_level(feats)
+        elif self.variant == "fg_fpn":
+            feats = self.fg_fpn(feats)
+        return self.head(feats)
 
 
 class MPDet(nn.Module):

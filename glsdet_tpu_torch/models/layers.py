@@ -120,10 +120,11 @@ class Conv2d(nn.Conv2d):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int, stride: int = 1, padding: int = 0,
                  groups: int = 1, bias: bool = True,
-                 kernel_init="lecun", bias_value: float = 0.0):
+                 kernel_init="lecun", bias_value: float = 0.0,
+                 dilation: int = 1):
         super().__init__(in_channels, out_channels, kernel_size,
                          stride=stride, padding=padding, groups=groups,
-                         bias=bias)
+                         bias=bias, dilation=dilation)
         self.kernel_init = kernel_init
         self.bias_value = bias_value
 
@@ -143,6 +144,18 @@ class Conv2d(nn.Conv2d):
                                   generator=generator)
         if self.bias is not None:
             self.bias.fill_(self.bias_value)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` initialised as flax's ``nn.Dense``: lecun normal
+    (variance_scaling(1, fan_in, truncated normal)) and zero bias."""
+
+    def flax_init(self, generator: torch.Generator) -> None:
+        std = math.sqrt(1.0 / self.in_features) / _TRUNC_STD
+        nn.init.trunc_normal_(self.weight, 0.0, std, -2 * std, 2 * std,
+                              generator=generator)
+        if self.bias is not None:
+            self.bias.zero_()
 
 
 ACTIVATIONS = {

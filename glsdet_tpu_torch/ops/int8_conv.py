@@ -65,20 +65,23 @@ def _pair(v) -> Tuple[int, int]:
 
 
 def im2col(q_x: torch.Tensor, kh: int, kw: int, stride: Tuple[int, int],
-           padding: Tuple[int, int]) -> Tuple[torch.Tensor, int, int]:
+           padding: Tuple[int, int], dilation: Tuple[int, int] = (1, 1)
+           ) -> Tuple[torch.Tensor, int, int]:
     """(B, H, W, C) int8 -> (B * Ho * Wo, kh * kw * C) patches, columns in
-    (kh, kw, cin) order; zero padding (the zero code)."""
+    (kh, kw, cin) order, taps ``dilation`` apart; zero padding (the zero
+    code)."""
     b, h, w, c = q_x.shape
-    (sh, sw), (ph, pw) = stride, padding
-    ho = (h + 2 * ph - kh) // sh + 1
-    wo = (w + 2 * pw - kw) // sw + 1
+    (sh, sw), (ph, pw), (dh, dw) = stride, padding, dilation
+    ho = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+    wo = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
     if kh == kw == 1 and ph == pw == 0:
         x = q_x if sh == sw == 1 else q_x[:, ::sh, ::sw, :]
         return x.reshape(b * ho * wo, c), ho, wo
     x = F.pad(q_x, (0, 0, pw, pw, ph, ph)).contiguous()
     s = x.stride()
     patches = x.as_strided((b, ho, wo, kh, kw, c),
-                           (s[0], sh * s[1], sw * s[2], s[1], s[2], s[3]))
+                           (s[0], sh * s[1], sw * s[2], dh * s[1], dw * s[2],
+                            s[3]))
     return patches.reshape(b * ho * wo, kh * kw * c), ho, wo
 
 
@@ -101,21 +104,23 @@ def _mm_int32(a: torch.Tensor, w_t: torch.Tensor,
 
 
 def _depthwise_int32(q_x: torch.Tensor, q_w: torch.Tensor,
-                     stride: Tuple[int, int], padding: Tuple[int, int]
-                     ) -> torch.Tensor:
+                     stride: Tuple[int, int], padding: Tuple[int, int],
+                     dilation: Tuple[int, int] = (1, 1)) -> torch.Tensor:
     """Depthwise (C, 1, kh, kw) int8 kernel over (B, H, W, C) int8 codes:
-    an exact int32 sum over the taps."""
+    an exact int32 sum over the taps, ``dilation`` apart."""
     b, h, w, c = q_x.shape
     _, _, kh, kw = q_w.shape
-    (sh, sw), (ph, pw) = stride, padding
-    ho = (h + 2 * ph - kh) // sh + 1
-    wo = (w + 2 * pw - kw) // sw + 1
+    (sh, sw), (ph, pw), (dh, dw) = stride, padding, dilation
+    ho = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+    wo = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
     x = F.pad(q_x, (0, 0, pw, pw, ph, ph)).to(torch.int32)
     wt = q_w.to(torch.int32)
     acc = torch.zeros((b, ho, wo, c), dtype=torch.int32, device=q_x.device)
     for i in range(kh):
         for j in range(kw):
-            tap = x[:, i:i + sh * (ho - 1) + 1:sh, j:j + sw * (wo - 1) + 1:sw]
+            y0, x0 = i * dh, j * dw
+            tap = x[:, y0:y0 + sh * (ho - 1) + 1:sh,
+                    x0:x0 + sw * (wo - 1) + 1:sw]
             acc += tap * wt[:, 0, i, j]
     return acc
 
@@ -127,16 +132,18 @@ class Int8Conv2d(nn.Module):
     groups 1: the weight is kept as an (N8, K8) matrix, the (kh, kw, cin)
     columns of ``q_w.permute(0, 2, 3, 1)`` zero-padded to multiples of 8,
     and passed to the GEMM transposed (column-major, the layout cuBLASLt's
-    int8 kernels take).  groups = Cin = Cout: depthwise taps."""
+    int8 kernels take).  groups = Cin = Cout: depthwise taps.  Taps are
+    ``dilation`` apart on both routes."""
 
     def __init__(self, q_w: torch.Tensor, stride=1, padding=0,
-                 groups: int = 1):
+                 groups: int = 1, dilation=1):
         super().__init__()
         if q_w.dtype != torch.int8 or q_w.dim() != 4:
             raise TypeError("expected an int8 OIHW kernel")
         cout, cin_g, kh, kw = q_w.shape
         self.out_channels, self.kernel = cout, (kh, kw)
         self.stride, self.padding = _pair(stride), _pair(padding)
+        self.dilation = _pair(dilation)
         self.groups = groups
         if groups == 1:
             k = kh * kw * cin_g
@@ -156,10 +163,11 @@ class Int8Conv2d(nn.Module):
             raise TypeError("expected (B, H, W, C) int8 codes")
         if self.groups != 1:
             return _depthwise_int32(q_x, self.weight, self.stride,
-                                    self.padding)
+                                    self.padding, self.dilation)
         b = q_x.shape[0]
         kh, kw = self.kernel
-        cols, ho, wo = im2col(q_x, kh, kw, self.stride, self.padding)
+        cols, ho, wo = im2col(q_x, kh, kw, self.stride, self.padding,
+                              self.dilation)
         k8 = self.weight.shape[1]
         if cols.shape[1] != k8:
             cols = F.pad(cols, (0, k8 - cols.shape[1]))
@@ -169,10 +177,10 @@ class Int8Conv2d(nn.Module):
 
 
 def conv2d_int8(q_x: torch.Tensor, q_w: torch.Tensor, stride=1, padding=0,
-                groups: int = 1) -> torch.Tensor:
+                groups: int = 1, dilation=1) -> torch.Tensor:
     """(B, H, W, Cin) int8 codes * (Cout, Cin/groups, kh, kw) int8 kernel
     -> (B, Ho, Wo, Cout) int32, exact.  groups is 1 or Cin (depthwise)."""
-    return Int8Conv2d(q_w, stride, padding, groups)(q_x)
+    return Int8Conv2d(q_w, stride, padding, groups, dilation)(q_x)
 
 
 class Int8Module(nn.Module):

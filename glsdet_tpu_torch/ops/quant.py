@@ -8,8 +8,10 @@ int8 x int8 -> int32 (``ops/int8_conv.py``), then dequantizes in float32,
 adds the bias and returns the compute dtype.  :func:`quantize_dynamic`
 replaces every eligible ``Conv2d`` of a copy of the model, once: at least
 ``min_channels`` in and out channels, a kernel area of at least
-``min_kernel_area``, groups 1 or depthwise, no dilation.  The norms and
-activations around the convolutions stay as they are.  Inference only.
+``min_kernel_area``, groups 1 or depthwise, any dilation (LSK's 7x7
+depthwise conv at dilation 3 among them), as the JAX interceptor
+(``quant.py:_make_interceptor``) takes them.  The norms and activations
+around the convolutions stay as they are.  Inference only.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ class DynamicQuantConv2d(Int8Module):
     def __init__(self, m: nn.Conv2d):
         super().__init__()
         q_w, s_w = quantize_weight(m.weight)
-        self.conv = Int8Conv2d(q_w, m.stride, m.padding, m.groups)
+        self.conv = Int8Conv2d(q_w, m.stride, m.padding, m.groups,
+                               m.dilation)
         self.register_buffer("s_w", s_w)
         self.register_buffer("bias", None if m.bias is None
                              else m.bias.detach().float().clone())
@@ -56,7 +59,7 @@ def _eligible(m: nn.Module, min_channels: int, min_kernel_area: int) -> bool:
     return (m.in_channels >= min_channels and m.out_channels >= min_channels
             and m.groups in (1, m.in_channels)
             and (m.groups == 1 or m.out_channels == m.in_channels)
-            and kh * kw >= min_kernel_area and tuple(m.dilation) == (1, 1))
+            and kh * kw >= min_kernel_area)
 
 
 def _rewrite(module: nn.Module, min_channels: int,

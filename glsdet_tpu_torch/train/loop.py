@@ -16,11 +16,12 @@ test_torch_train_loop.py`` compares the two loops' event sequences with
 their steps stubbed).  The loop reads the card only where the JAX loop
 does: the loss every 10 steps and the metrics at ``log_interval``.
 
-Not ported yet, each raising ``NotImplementedError``: scan groups of
-``train.steps_per_call > 1`` (ROADMAP.md, queue A item 12: one CUDA graph
-per group would be their counterpart), more than one process (item 14),
-and the ``ffa`` family and YOLOX variants (item 13, from
-``models/build.py``).
+Every model family trains: ``yolox`` (with its ``variant``), ``ffa``
+(the 4-level model at strides 4-32, the ``adam_step`` recipe), ``mpdet``
+and ``gfl``.  Not ported yet, each raising ``NotImplementedError``: scan
+groups of ``train.steps_per_call > 1`` (ROADMAP.md, queue A item 12: one
+CUDA graph per group would be their counterpart) and more than one
+process (item 14).
 """
 
 from __future__ import annotations

@@ -5,10 +5,18 @@ walk: ``{"params": {"backbone": {"stem": {"conv": {"conv": {"kernel":
 ...}}}}}}`` becomes ``backbone.stem.conv.conv.weight``.  Leaf renames:
 
 - conv ``kernel`` (HWIO) -> ``weight`` (OIHW), depthwise included;
-- norm (``bn``/``gn``) ``scale``/``bias`` -> ``weight``/``bias``;
+- ``Dense`` ``kernel`` (in, out) -> ``weight`` (out, in); the
+  ``DenseGeneral`` kernels of flax's ``MultiHeadDotProductAttention``
+  flatten their head axes first: ``query``/``key``/``value`` (D, heads,
+  head_dim) and ``out`` (heads, head_dim, D), their (heads, head_dim)
+  biases to one axis;
+- norm (BatchNorm, GroupNorm, LayerNorm) ``scale``/``bias`` ->
+  ``weight``/``bias``: a 1-D ``scale`` is always a norm's;
 - BN batch stats ``mean``/``var`` -> ``running_mean``/``running_var``,
   plus the ``num_batches_tracked`` counter torch keeps;
-- ``Scale.scale`` and ``MPHead.proxies`` keep their names.
+- the 0-D ``Scale.scale``, ``MPHead.proxies`` and the variants' own
+  parameters (``codebook``, ``smooth``, ``ls1``, ``ls2``) keep their
+  names.
 
 :func:`train_state_from_flax` carries a whole JAX ``TrainState`` across
 (the MP-Det and GFL recipes' ``mp_det_sgd``, the YOLOX recipe's
@@ -33,7 +41,7 @@ from torch import nn
 from glsdet_tpu_torch.train.boiw import BoIWState
 from glsdet_tpu_torch.train.state import TrainState
 
-_NORMS = ("bn", "gn")
+_KEPT = ("bias", "scale", "proxies", "codebook", "smooth", "ls1", "ls2")
 
 
 def _walk(tree: Mapping, prefix: Tuple[str, ...] = ()
@@ -53,14 +61,23 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
         *mods, leaf = path
         parent = mods[-1] if mods else ""
         if leaf == "kernel":
-            if arr.ndim != 4:
-                raise ValueError(f"{'/'.join(path)}: expected a conv "
-                                 f"kernel, got shape {arr.shape}")
-            arr = arr.transpose(3, 2, 0, 1)            # HWIO -> OIHW
+            if arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)        # HWIO -> OIHW
+            elif arr.ndim == 3 and parent == "out":    # (heads, hd, D)
+                arr = arr.reshape(-1, arr.shape[-1]).T
+            elif arr.ndim == 3:                        # (D, heads, hd)
+                arr = arr.reshape(arr.shape[0], -1).T
+            elif arr.ndim == 2:                        # Dense (in, out)
+                arr = arr.T
+            else:
+                raise ValueError(f"{'/'.join(path)}: unexpected kernel "
+                                 f"shape {arr.shape}")
             leaf = "weight"
-        elif leaf == "scale" and parent in _NORMS:
+        elif leaf == "scale" and arr.ndim == 1:
             leaf = "weight"
-        elif leaf not in ("bias", "scale", "proxies"):
+        elif leaf == "bias" and arr.ndim == 2:         # (heads, hd)
+            arr = arr.reshape(-1)
+        elif leaf not in _KEPT:
             raise ValueError(f"unmapped flax parameter {'/'.join(path)}")
         out[".".join(mods + [leaf])] = torch.from_numpy(
             np.array(arr, np.float32))

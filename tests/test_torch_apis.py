@@ -36,7 +36,8 @@ from glsdet_tpu.train.loop import build_model as jbuild_model
 from glsdet_tpu_torch import apis
 from glsdet_tpu_torch.config import apply_overrides, get_config
 from glsdet_tpu_torch.eval.two_stage import TwoStagePipeline, pack_detections
-from glsdet_tpu_torch.models import GFLDet
+from glsdet_tpu_torch.models import GFLDet, YOLOXDetector
+from glsdet_tpu_torch.models.variants import FFAYoloBody
 from glsdet_tpu_torch.models.build import build_model
 from glsdet_tpu_torch.ops.image import resize_linear_u8
 from glsdet_tpu_torch.utils.flax_import import state_dict_from_flax
@@ -269,23 +270,29 @@ def test_init_detector_checkpoint_and_errors(weights, tmp_path):
         apis.init_detector("nope", device="cpu")
 
 
-@pytest.mark.parametrize("family,item", [("gfl", "item 5"),
-                                         ("ffa", "item 13")])
-def test_build_model_families_still_to_port_raise(family, item):
-    """A family still to port raises, naming its ROADMAP item; gfl (item
-    5) is ported and builds a GFLDet."""
-    cfg = get_config("coarse_det")
-    cfg.model.family = family
+# the ids (and the name) are those of the test when these families still
+# raised, so that a run's results line up with earlier runs'
+@pytest.mark.parametrize("family", ["gfl", "ffa"],
+                         ids=["gfl-item 5", "ffa-item 13"])
+def test_build_model_families_still_to_port_raise(family):
+    """Every family of the JAX package builds: gfl a GFLDet, ffa an
+    FFAYoloBody, and coarse_det with ``variant="lsk"`` a YOLOXDetector
+    with its LSK blocks; without a card the default device raises."""
+    cfg = get_config("yolox_ffa" if family == "ffa" else "coarse_det")
+    cfg.model.family, cfg.model.phi = family, "nano"
     if family == "gfl":
         cfg.model.depth, cfg.model.feat_channels = 18, 64
         assert type(build_model(cfg, device="cpu")) is GFLDet
     else:
-        with pytest.raises(NotImplementedError, match=item):
-            build_model(cfg, device="cpu")
-    cfg = get_config("coarse_det")
-    cfg.model.variant = "lsk"
-    with pytest.raises(NotImplementedError, match="item 13"):
-        build_model(cfg, device="cpu")
+        assert type(build_model(cfg, device="cpu")) is FFAYoloBody
+    variant = get_config("coarse_det")
+    variant.model.phi, variant.model.variant = "nano", "lsk"
+    model = build_model(variant, device="cpu")
+    assert type(model) is YOLOXDetector and hasattr(model, "lsk2")
+    if not torch.cuda.is_available():
+        for c in (cfg, variant):
+            with pytest.raises(RuntimeError, match="no GPU"):
+                build_model(c)
 
 
 def test_devices_and_cuda_without_a_card_raise():

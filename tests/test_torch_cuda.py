@@ -59,6 +59,12 @@ geometric warp within one code; ``ops/image.py: warp_affine_u8`` and
 from a PNG dataset on disk, whose steps make no host sync between the
 loop's own reads.
 
+The variant zoo: the FFA 4-level model and the coarse YOLOX with each of
+its six variants, YOLOX-nano width at 64x96, float32 on the card against
+the CPU (TF32 off): every output map within 1e-4 of its max.  The int8
+convolution with taps ``dilation`` apart (LSK's 7x7 depthwise at 3, a
+dense 3x3 at 2) equals its float64 version on the card.
+
 Reading what users bring: ``run_eval`` on the card over JPEG frames gives
 the detections it gives over PNGs of the pixels the port decodes from
 them, and a ``TwoStageDetector`` built from reference-named checkpoints
@@ -1569,3 +1575,60 @@ def test_imported_weights_serve_the_same_detections_on_the_card(card,
     for a, b in zip(*dets):
         for k in ("boxes", "scores", "labels"):
             np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))
+
+
+
+def _card_vs_cpu(card, make, x):
+    """``make(generator)``'s float32 forward on ``x`` on the CPU and on
+    the card (TF32 off): every output map within 1e-4 of its max."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        model = make(torch.Generator().manual_seed(0)).eval()
+        with torch.no_grad():
+            for name, t in model.named_buffers():
+                if name.endswith("running_var"):
+                    t.uniform_(0.7, 1.7)
+            want = model(x)
+            got = model.to(card)(x.to(card))
+        for gs, ws in zip(got, want):
+            for g, w in zip(gs, ws):
+                err = float((g.cpu() - w).abs().max())
+                assert err <= 1e-4 * float(w.abs().max()), err
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+
+def test_ffa_forward_on_the_card_matches_the_cpu(card):
+    from glsdet_tpu_torch.models.variants import FFAYoloBody
+
+    x = torch.randn(2, 3, 64, 96, generator=torch.Generator().manual_seed(1))
+    _card_vs_cpu(card, lambda g: FFAYoloBody(10, "nano", generator=g), x)
+
+
+@pytest.mark.parametrize("variant", ["lsk", "evc", "se", "mscam",
+                                     "nonlocal", "fg_fpn"])
+def test_variant_forward_on_the_card_matches_the_cpu(card, variant):
+    from glsdet_tpu_torch.models import YOLOXDetector
+
+    x = torch.randn(2, 3, 128, 128,
+                    generator=torch.Generator().manual_seed(1))
+    _card_vs_cpu(card, lambda g: YOLOXDetector(10, "nano", variant,
+                                               generator=g), x)
+
+
+@pytest.mark.parametrize("groups,k,dilation", [(64, 7, 3), (1, 3, 2)])
+def test_dilated_int8_conv_on_the_card_is_exact(card, groups, k, dilation):
+    g = torch.Generator(card).manual_seed(k)
+    x = torch.randint(-127, 128, (2, 20, 24, 64), dtype=torch.int8,
+                      device=card, generator=g)
+    q_w = torch.randint(-127, 128, (64, 64 // groups, k, k),
+                        dtype=torch.int8, device=card, generator=g)
+    conv = Int8Conv2d(q_w, 1, dilation * (k // 2), groups, dilation)
+    got = conv(x)
+    want = Int8Conv2d(q_w.cpu(), 1, dilation * (k // 2), groups,
+                      dilation)(x.cpu())
+    assert torch.equal(got.cpu(), want)

@@ -60,7 +60,16 @@ def test_every_port_module_imports_without_jax():
                  "glsdet_tpu_torch.utils.torch_import",
                  "glsdet_tpu_torch.utils.observe",
                  "glsdet_tpu_torch.tools.import_torch_weights",
-                 "glsdet_tpu_torch.tools.ckpt_tool"):
+                 "glsdet_tpu_torch.tools.ckpt_tool",
+                 "glsdet_tpu_torch.models.variants.attention",
+                 "glsdet_tpu_torch.models.variants.batchformer",
+                 "glsdet_tpu_torch.models.variants.blocks",
+                 "glsdet_tpu_torch.models.variants.cfp",
+                 "glsdet_tpu_torch.models.variants.dyhead",
+                 "glsdet_tpu_torch.models.variants.ffa",
+                 "glsdet_tpu_torch.models.variants.ffa_model",
+                 "glsdet_tpu_torch.models.variants.lsk",
+                 "glsdet_tpu_torch.models.variants.necks"):
         assert name in modules
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,

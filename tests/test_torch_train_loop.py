@@ -44,6 +44,7 @@ from glsdet_tpu.config import get_config as j_get_config
 from glsdet_tpu.data import loader as jl
 from glsdet_tpu_torch import apis
 from glsdet_tpu_torch.config import apply_overrides, get_config
+from glsdet_tpu_torch.train import schedules
 from glsdet_tpu_torch.train.state import state_dict
 
 from torch_port_util import write_png_dataset
@@ -293,6 +294,7 @@ def test_multiscale_size_equals_jax():
 
 def cfg_for(name, tmp_path, dataset, **over):
     small = {"coarse_det": {"model.phi": "nano"},
+             "yolox_ffa": {"model.phi": "nano"},
              "mp_det_res50": {"model.depth": 18, "model.feat_channels": 64,
                               "model.num_words": 16}}[name]
     return apply_overrides(get_config(name), {
@@ -465,10 +467,15 @@ def test_unsupported_and_invalid_recipes_raise(tmp_path, dataset, over, err):
 
 
 def test_variant_families_and_the_card_without_gpu(tmp_path, dataset):
-    cfg = apply_overrides(cfg_for("coarse_det", tmp_path, dataset),
-                          {"model.family": "ffa"})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tloop.train(cfg, device="cpu")
+    """yolox_ffa (the 4-level FFA model, the adam_step recipe) trains a
+    step on the CPU; without a card the default device raises."""
+    cfg = cfg_for("yolox_ffa", tmp_path, dataset, **{"train.epochs": 1})
+    state = tloop.train(cfg, max_steps=1, device="cpu")
+    assert state.step == 1
+    assert isinstance(state.optimizer, schedules.ScheduledAdam)
+    with open(tmp_path / "train.log.json") as f:
+        logs = [json.loads(line) for line in f]
+    assert len(logs) == 1 and np.isfinite(logs[0]["loss"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no GPU"):
             tloop.train(cfg_for("coarse_det", tmp_path, dataset))
