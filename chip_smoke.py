@@ -282,6 +282,37 @@ Phases, in the order they run, each printing one line:
      BatchFormer's dropout drawn from a card generator.  Printed as one
      {"variants": ...} line; B2's entry of the kernel line adds its
      launches, shapes and times (variants_*).
+ 25. orbax: the JAX package's orbax checkpoints read without JAX.  The
+     zstd decoder (glsdet_tpu_torch/native/zstd.cpp) built with this
+     machine's host compiler (seconds taken); the committed fixture
+     tests/torch_fixtures/orbax/trainstate (a small TrainState written by
+     the JAX package's save_checkpoint: OCDBT, zarr v2, zstd; float32,
+     bfloat16, int32 and uint32 leaves, lists, None) read by
+     utils/orbax_read.py: read_orbax, the sha256 of every leaf's bytes and
+     of the tree's key/dtype/shape list equal to the constants below
+     (tests/test_torch_orbax.py recomputes them from the JAX package's
+     restore_raw); every float leaf moved to the card and back unchanged
+     (bfloat16 stays bfloat16); the checkpoint loaded by train/loop.py:
+     restore_checkpoint into a port TrainState on the card (a model with
+     the fixture's parameter names, yolox_sgd, a BoIW dictionary), every
+     tensor equal to the conversion on the CPU.  Then the committed JAX
+     two-stage archive tests/torch_fixtures/orbax/two_stage.gtar
+     (serve.archive_model of the JAX ckpt_tool's stripped coarse_det and
+     mp_det_res50 at full width, weights of low entropy but for one noise
+     kernel) unpacked by serve.load_archive, both trees held to their
+     digests; apis.init_detector of each tree in float32 on the card
+     against the CPU (coarse_det at 640, mp_det_res50 at 256; each output
+     within 1e-3 of its max); load_weights of the coarse_det tree into
+     coarse_det's TrainState on the card, every tensor equal to the CPU's
+     conversion; apis.Detector("coarse_det", tree) in float32 on the card,
+     through B2, matching the CPU's answers on two frames; the archive
+     registered with serve.DetectionService on the card (TwoStageDetector
+     in its default bfloat16) answering 4 requests, through B1 and B2.
+     Last, the decoder's throughput on this machine's host (MB of
+     decompressed data a second, each timing at least 0.5 s) over the
+     weight-like chunks (the archive's noise kernel and the small
+     fixture's noise leaves) and, apart, over the 3 largest low-entropy
+     chunks.  Printed as one {"orbax": ...} line.
 Then one JSON line of per-kernel results (each with its bound: the bytes
 it must move at 3.35 TB/s or its operations at the card's peak for their
 type, whichever is longer) and, last, the device line.  A kernel's ``ms``
@@ -4638,6 +4669,409 @@ def variants_nms(var) -> dict:
         "variants_max_abs_err": 0.0}
 
 
+# ---------------------------------------------------------------------------
+# 25. reading the JAX package's orbax checkpoints
+
+ORBAX_FIXTURE = os.path.join("tests", "torch_fixtures", "orbax", "trainstate")
+ORBAX_ARCHIVE = os.path.join("tests", "torch_fixtures", "orbax",
+                             "two_stage.gtar")
+ORBAX_DECODE_S = 0.5         # each of the decoder's timings runs this long
+ORBAX_DECODE_CHUNKS = 3      # the largest low-entropy chunks it decodes
+ORBAX_WEIGHT_LIKE = 0.5      # compressed / decoded of a weight-like chunk
+ORBAX_F32 = {"model.dtype": "float32"}
+ORBAX_THR = 1e-4             # the archive's score_thr, and the Detector's
+ORBAX_FORWARD_TOL = 1e-3     # float32 on the card vs the CPU, of each max
+ORBAX_DETECTOR_SHARE = 0.9   # matched_share of the card's Detector answers
+ORBAX_SERVE_FRAMES = 4
+# tests/torch_fixtures/make_orbax_fixture.py prints these; the tier-1
+# tests/test_torch_orbax.py recomputes them from the JAX restore_raw
+ORBAX_FIXTURE_TREE = "00f75f4f00199120bbaa734768a58dd3d541b82e90e0acd1f9c432a90457df8e"
+ORBAX_FIXTURE_LEAVES = {
+    "/batch_stats/body/bn/mean": "5341e6b2646979a70e57653007a1f310169421ec9bdd9f1a5648f75ade005af1",
+    "/batch_stats/body/bn/var": "2f20cd03c9cd392a406c56232b0ff93a15f6d6d7da79086bfa14f55d4a4031b0",
+    "/batch_stats/stem/bn/mean": "f5a5fd42d16a20302798ef6ed309979b43003d2320d9f0e8ea9831a92759fb4b",
+    "/batch_stats/stem/bn/var": "9628e545ed3ac074e5a6cbf542a642b62482fbfca9b4cb3ea4743a1874256e37",
+    "/boiw/beta": "df3f619804a92fdb4057192dc43dd748ea778adc52bc498ce80524c014b81119",
+    "/boiw/embedding": "0c5cc90b079d0d9c1ded1376357d23a9782a704a83e01731f50ccd162e246492",
+    "/boiw/proxies_prob": "80b8fd6d60fa85fd14a38b5295cb92abd80dfec5ca406c9f969609a79d36809d",
+    "/boiw/ptr": "15ec7bf0b50732b49f8228e07d24365338f9e3ab994b00af08e5a3bffe55fd8b",
+    "/ema_params/body/bn/bias": "5341e6b2646979a70e57653007a1f310169421ec9bdd9f1a5648f75ade005af1",
+    "/ema_params/body/bn/scale": "cd01c78eb615e7d0cabe7b908ebee598832de4309858c312a2c2003219dfe676",
+    "/ema_params/body/conv/kernel": "e33b04416ff9d48a08ecb5ac3070be030cf35e117988272a5b9f0910488da300",
+    "/ema_params/head/bias": "2c34ce1df23b838c5abf2a7f6437cca3d3067ed509ff25f11df6b11b582b51eb",
+    "/ema_params/head/kernel": "294c2cb80abb814c49c3428bf0839767d32cdf9c2bfda3402fc167c4a805e252",
+    "/ema_params/scale": "f08458f60ba2c5bb53f087190980a16385970934485c7ba907a9894ad6ae7bcb",
+    "/ema_params/stem/bn/bias": "f5a5fd42d16a20302798ef6ed309979b43003d2320d9f0e8ea9831a92759fb4b",
+    "/ema_params/stem/bn/scale": "2e54067ff23ae425ce1efe5734b9c3df708356f49a5baa53edca7212fde33dbc",
+    "/ema_params/stem/conv/kernel": "f49e6dc1c9c43daad80122930963ce518757d9325e53a52dbd9f6fd351c40400",
+    "/opt_state/1/0/trace/body/bn/bias": "5341e6b2646979a70e57653007a1f310169421ec9bdd9f1a5648f75ade005af1",
+    "/opt_state/1/0/trace/body/bn/scale": "202780c431c3fcae529f757dfb1d4385428c038892fd6b5c84491e2a9dae6de3",
+    "/opt_state/1/0/trace/body/conv/kernel": "b5deb24f54690091737426114b6446f4b553b6b3e31c41444b167f7063325c29",
+    "/opt_state/1/0/trace/head/bias": "de47c9b27eb8d300dbb5f2c353e632c393262cf06340c4fa7f1b40c4cbd36f90",
+    "/opt_state/1/0/trace/head/kernel": "74bb3d123fc281a7de88ff28e84f0b54e2e66dac702cbcd03a3915ecdadcad7a",
+    "/opt_state/1/0/trace/scale": "8a6576d1f83777dafdb4a9c02c9bd9d0efae92234b8fff7516017d6e7d1eec0b",
+    "/opt_state/1/0/trace/stem/bn/bias": "f5a5fd42d16a20302798ef6ed309979b43003d2320d9f0e8ea9831a92759fb4b",
+    "/opt_state/1/0/trace/stem/bn/scale": "a609376944326008ac63326484985afc703527c28b236aa0500aaf806d5ae35c",
+    "/opt_state/1/0/trace/stem/conv/kernel": "955bb1ff6c998f1ad4192928e953c63b4896bac768efd0c2c384e1948c3afefa",
+    "/opt_state/1/1/count": "26b25d457597a7b0463f9620f666dd10aa2c4373a505967c7c8d70922a2d6ece",
+    "/params/body/bn/bias": "5341e6b2646979a70e57653007a1f310169421ec9bdd9f1a5648f75ade005af1",
+    "/params/body/bn/scale": "a66b5da424df7ecb58a69b8976cddc933fb74c3271f6988930eb9e5acbd67e2b",
+    "/params/body/conv/kernel": "0287dcb65f7031bb3ed2b9796e63d91551e058c9fd365262625673816a954f08",
+    "/params/head/bias": "de47c9b27eb8d300dbb5f2c353e632c393262cf06340c4fa7f1b40c4cbd36f90",
+    "/params/head/kernel": "79490d204e6de6ab2e21f887b089f8cf20dede7f4238b6fa891e9890626dd890",
+    "/params/scale": "cc7353c4c0021b4527ca0d72caa735570f6b0b070ab821910a290aa7199bae64",
+    "/params/stem/bn/bias": "f5a5fd42d16a20302798ef6ed309979b43003d2320d9f0e8ea9831a92759fb4b",
+    "/params/stem/bn/scale": "14b629fa43098642bc516b8f52a461336e59e89f51b0317c4f4d8ed261132fb9",
+    "/params/stem/conv/kernel": "b807236724d70eba248fa3372ce02014dc6e716f92e2861fa746e07ad978e4e2",
+    "/rng": "af5570f5a1810b7af78caf4bc70a660f0df51e42baf91d4de5b2328de0e83dfc",
+    "/step": "26b25d457597a7b0463f9620f666dd10aa2c4373a505967c7c8d70922a2d6ece",
+}
+
+
+# make_orbax_fixture.py: archive_digests; [the key/dtype/shape list's
+# sha256, the sha256 of the "<path> <leaf sha256>" lines], per stage
+ORBAX_ARCHIVE_DIGESTS = {
+    "coarse": ["ea98386655ab532895deed1f01c591e33d4c7dca6c918c89dfd994934dd8c669", "932d665d9ec23eeb3ae0308f923372e1fa67c89b10f1246a7e41441fbdc06803"],
+    "mp": ["a5bc40051b29b30e16c5fbaa2f928c40165dbf6544a9d1eb58af188eeea24ee4", "0fbcb99f0450470ad3559cd30322de89f5a94998e4107369c263e033344efccb"],
+}
+
+
+def orbax_digests(tree) -> tuple:
+    """(sha256 of the tree's key/dtype/shape list, {key path: sha256 of
+    the leaf's bytes}) of a ``read_orbax`` tree, bfloat16 leaves by their
+    16-bit patterns."""
+    lines, leaves = [], {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            lines.append(f"{path} dict")
+            for k in sorted(node):
+                walk(node[k], f"{path}/{k}")
+        elif isinstance(node, list):
+            lines.append(f"{path} list")
+            for i, v in enumerate(node):
+                walk(v, f"{path}/{i}")
+        elif node is None:
+            lines.append(f"{path} None")
+        else:
+            if torch.is_tensor(node):
+                dtype = str(node.dtype).replace("torch.", "")
+                data = node.contiguous().view(torch.int16).numpy()
+            else:
+                dtype, data = node.dtype.name, node
+            lines.append(f"{path} {dtype} {tuple(node.shape)}")
+            leaves[path] = sha256([data])
+
+    walk(tree, "")
+    return sha256(["\n".join(lines).encode()]), leaves
+
+
+def orbax_tree_digests(tree) -> list:
+    """A ``read_orbax`` tree's entry of ORBAX_ARCHIVE_DIGESTS."""
+    digest, leaves = orbax_digests(tree)
+    lines = "\n".join(f"{k} {v}" for k, v in sorted(leaves.items()))
+    return [digest, sha256([lines.encode()])]
+
+
+class OrbaxFixtureNet(torch.nn.Module):
+    """The port's module of the fixture's parameters (flax names: stem and
+    body ``conv`` + ``bn``, the Dense ``head``, a 0-d ``scale``)."""
+
+    def __init__(self):
+        super().__init__()
+        for name, cin, c in (("stem", 3, 16), ("body", 64, 64)):
+            block = torch.nn.Module()
+            block.conv = torch.nn.Conv2d(cin, c, 3, bias=False)
+            block.bn = torch.nn.BatchNorm2d(c)
+            setattr(self, name, block)
+        self.head = torch.nn.Linear(64, 10)
+        self.scale = torch.nn.Parameter(torch.ones(()))
+
+
+def orbax_leaves(tree, path=""):
+    """(key path, leaf) of every array leaf of a ``read_orbax`` tree."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from orbax_leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from orbax_leaves(v, f"{path}/{i}")
+    elif tree is not None:
+        yield path, tree
+
+
+def check_same(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+    if got.dtype != want.dtype or not torch.equal(got.cpu(), want):
+        raise AssertionError(f"orbax: {what} differs from the CPU's "
+                             f"conversion")
+
+
+def orbax_decode_rate(roots) -> dict:
+    """MB of decompressed data a second of the native zstd decoder on
+    this machine's host, over the chunks of the OCDBT stores ``roots``:
+    the weight-like ones (noise weights: compressed to at least
+    ORBAX_WEIGHT_LIKE of their size, 1 KiB or more decoded), and apart
+    the ORBAX_DECODE_CHUNKS largest low-entropy ones."""
+    from glsdet_tpu_torch.native import zstd_decompress, zstd_decompress_into
+    from glsdet_tpu_torch.utils.orbax_read import OcdbtStore
+
+    chunks = []
+    for root in roots:
+        with OcdbtStore(root) as store:
+            chunks += [(len(zstd_decompress(f)), f) for f in (
+                store.get(k.decode()) for k in store.keys()
+                if not k.endswith(b".zarray"))]
+    weights = [(n, f) for n, f in chunks
+               if n >= 1024 and len(f) >= ORBAX_WEIGHT_LIKE * n]
+    low = sorted((c for c in chunks if c not in weights),
+                 key=lambda t: -t[0])[:ORBAX_DECODE_CHUNKS]
+    out = {}
+    for name, group in (("weights", weights), ("low_entropy", low)):
+        if not group:
+            raise AssertionError(f"orbax: no {name} chunk to time")
+        bufs = [np.empty(n, np.uint8) for n, _ in group]
+        reps, total, t0 = 0, 0, time.perf_counter()
+        while time.perf_counter() - t0 < ORBAX_DECODE_S:
+            for (n, f), buf in zip(group, bufs):
+                total += zstd_decompress_into(f, buf)
+            reps += 1
+        seconds = time.perf_counter() - t0
+        out[f"decode_{name}_mb_per_s"] = total / seconds / 1e6
+        out[f"decode_{name}_chunk_bytes"] = sum(n for n, _ in group)
+        out[f"decode_{name}_compressed_bytes"] = sum(len(f) for _, f in group)
+        out[f"decode_{name}_chunks"] = len(group)
+        out[f"decode_{name}_reps"] = reps
+    return out
+
+
+def orbax_forward(name: str, ckpt: str, hw: int) -> float:
+    """``apis.init_detector(name, checkpoint=ckpt)`` in float32 on the
+    card and on the CPU, one input: the largest error of an output map
+    over that map's max, within ORBAX_FORWARD_TOL."""
+    from glsdet_tpu_torch.apis import init_detector
+
+    x = torch.from_numpy(np.random.RandomState(1).randn(
+        1, 3, hw, hw).astype(np.float32))
+    outs = []
+    for device in (DEVICE, "cpu"):
+        _, model, _ = init_detector(name, checkpoint=ckpt, options=ORBAX_F32,
+                                    device=device)
+        with torch.inference_mode():
+            outs.append([t.float().cpu() for maps in model(x.to(device))
+                         for t in maps])
+        del model
+    errs = []
+    for g, r in zip(*outs):
+        if g.shape != r.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"orbax: {name} bad output {g.shape}")
+        errs.append(float((g - r).abs().max() / r.abs().max()))
+    if not errs or max(errs) > ORBAX_FORWARD_TOL:
+        raise AssertionError(f"orbax: {name} card vs CPU rel err {errs}")
+    return max(errs)
+
+
+def orbax_train_state(ckpt: str) -> int:
+    """``train/loop.py: load_weights`` of the stripped ``coarse_det`` into
+    its TrainState on the card: every model tensor and the EMA (seeded
+    from the parameters: the artifact has none) equal to the conversion
+    on the CPU, nothing skipped.  Returns the tensors loaded."""
+    from glsdet_tpu_torch.config import get_config
+    from glsdet_tpu_torch.models.build import build_model
+    from glsdet_tpu_torch.train.loop import (build_optimizer, load_weights,
+                                             make_state_template)
+    from glsdet_tpu_torch.utils.flax_import import checkpoint_from_flax
+    from glsdet_tpu_torch.utils.orbax_read import read_orbax
+
+    cfg = get_config("coarse_det")
+    model = build_model(cfg, DEVICE)
+    state = make_state_template(cfg, model, build_optimizer(cfg, 1000, model),
+                                torch.Generator(device=DEVICE))
+    state, n_loaded, skipped = load_weights(ckpt, state)
+    want = checkpoint_from_flax(read_orbax(ckpt))["model"]
+    sd = model.state_dict()
+    if skipped or sorted(sd) != sorted(want):
+        raise AssertionError(f"orbax: coarse_det TrainState skipped "
+                             f"{skipped[:5]}")
+    for k, v in sd.items():
+        check_same(v, want[k], f"coarse_det model {k}")
+    for k, v in state.ema_params.items():
+        check_same(v, want[k], f"coarse_det ema {k}")
+    if n_loaded != len(sd) + len(state.ema_params):
+        raise AssertionError(f"orbax: {n_loaded} tensors loaded")
+    del state, model
+    return n_loaded
+
+
+def orbax_detector(ckpt: str, frames) -> dict:
+    """``apis.Detector("coarse_det", ckpt)`` in float32 on the card
+    against the same on the CPU, two frames: the card's answers well
+    formed, through B2, and matching the CPU's (matched_share >=
+    ORBAX_DETECTOR_SHARE)."""
+    from glsdet_tpu_torch.apis import Detector
+
+    kw = {"score_thr": ORBAX_THR, "options": ORBAX_F32}
+    card = Detector("coarse_det", ckpt, device=DEVICE, **kw)
+    card.detect_batch(frames[:2])
+    torch.cuda.synchronize()
+    reset_launches()
+    got = card.detect_batch(frames[:2])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = Detector("coarse_det", ckpt, device="cpu", **kw).detect_batch(
+        frames[:2])
+    n = check_served(got, 2, ORBAX_THR)
+    share = matched_share(want, got)
+    if launches["nms"] < 1 or n == 0 or share < ORBAX_DETECTOR_SHARE:
+        raise AssertionError(f"orbax: Detector launches {launches}, "
+                             f"{n} detections, matched {share}")
+    return {"launches": launches, "detections": n, "matched_share": share}
+
+
+def orbax_serve(path: str, frames) -> dict:
+    """The JAX two-stage archive registered with the port's
+    ``DetectionService`` on the card (``serve.load_archive``, then
+    ``TwoStageDetector`` on its two orbax trees) and asked for
+    ORBAX_SERVE_FRAMES frames: answers well formed, through B1 and B2."""
+    import base64
+
+    from glsdet_tpu_torch.serve import DetectionService
+
+    svc = DetectionService()
+    t0 = time.perf_counter()
+    name = svc.register_archive(path, device=DEVICE)
+    build_s = time.perf_counter() - t0
+    det, manifest = svc.models[name]
+    try:
+        bodies = [json.dumps({"image": base64.b64encode(f.tobytes()).decode(),
+                              "shape": list(f.shape), "dtype": "uint8"}
+                             ).encode() for f in frames[:ORBAX_SERVE_FRAMES]]
+        svc.predict(name, bodies[0])
+        torch.cuda.synchronize()
+        reset_launches()
+        answers = [svc.predict(name, b) for b in bodies]
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        det.close()
+    results = [{"boxes": np.array([a["bbox"] for a in ans],
+                                  np.float32).reshape(-1, 4),
+                "scores": np.array([a["score"] for a in ans], np.float32),
+                "labels": np.array([a["class_label"] for a in ans], np.int64)}
+               for ans in answers]
+    n = check_served(results, len(bodies), manifest["score_thr"])
+    if launches["nms"] < 1 or launches["paint"] < 1 or n == 0:
+        raise AssertionError(f"orbax: served launches {launches}, {n} "
+                             f"detections")
+    return {"detector": type(det).__name__, "build_s": build_s,
+            "requests": len(bodies), "detections": n, "launches": launches}
+
+
+def phase_orbax(smi: str, frames) -> dict:
+    """The committed JAX checkpoints read, digested, and run on the card
+    through the port's entry points (module docstring, phase 25)."""
+    from glsdet_tpu_torch import native
+    from glsdet_tpu_torch.serve import load_archive
+    from glsdet_tpu_torch.train.boiw import BoIWState
+    from glsdet_tpu_torch.train.loop import restore_checkpoint
+    from glsdet_tpu_torch.train.schedules import yolox_sgd, yolox_warm_cos
+    from glsdet_tpu_torch.train.state import TrainState
+    from glsdet_tpu_torch.utils.flax_import import checkpoint_from_flax
+    from glsdet_tpu_torch.utils.orbax_read import read_orbax
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, ORBAX_FIXTURE)
+    t0 = time.perf_counter()
+    native.zstd_lib()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree = read_orbax(root)
+    read_ms = 1e3 * (time.perf_counter() - t0)
+    digest, leaves = orbax_digests(tree)
+    if digest != ORBAX_FIXTURE_TREE:
+        raise AssertionError(f"orbax: tree digest {digest}")
+    bad = sorted(k for k in set(leaves) | set(ORBAX_FIXTURE_LEAVES)
+                 if leaves.get(k) != ORBAX_FIXTURE_LEAVES.get(k))
+    if bad:
+        raise AssertionError(f"orbax: leaves differ from the digests: {bad}")
+    # every float leaf to the card and back, bf16 staying bf16
+    on_card, bf16 = 0, 0
+    for path, leaf in orbax_leaves(tree):
+        t = leaf if torch.is_tensor(leaf) else torch.from_numpy(leaf)
+        if not t.is_floating_point():
+            continue
+        dev = t.to(DEVICE)
+        if dev.dtype != t.dtype or not torch.equal(dev.cpu(), t):
+            raise AssertionError(f"orbax: {path} changed on the card")
+        on_card += 1
+        bf16 += t.dtype == torch.bfloat16
+    if bf16 == 0:
+        raise AssertionError("orbax: the fixture has no bfloat16 leaf")
+    # the checkpoint into a port TrainState on the card
+    want = checkpoint_from_flax(tree)
+    model = OrbaxFixtureNet().to(DEVICE)
+    opt = yolox_sgd(model.parameters(), yolox_warm_cos(0.01, 10, 100, 10))
+    boiw = BoIWState(**{k: torch.zeros_like(v, device=DEVICE)
+                        for k, v in want["boiw"].items()})
+    state = TrainState.create(model, opt, torch.Generator(
+        device=DEVICE).manual_seed(0), boiw=boiw)
+    t0 = time.perf_counter()
+    state = restore_checkpoint(root, state)
+    torch.cuda.synchronize()
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    if state.step != want["step"] or opt.count != \
+            want["optimizer"]["count"]:
+        raise AssertionError(f"orbax: step {state.step}, count {opt.count}")
+    for k, v in model.state_dict().items():
+        check_same(v, want["model"][k], f"model {k}")
+    named = dict(model.named_parameters())
+    for k, v in want["ema_params"].items():
+        check_same(state.ema_params[k], v, f"ema {k}")
+        check_same(opt.state[named[k]]["momentum_buffer"],
+                   want["optimizer"]["momentum"][k], f"momentum {k}")
+    for k, v in want["boiw"].items():
+        check_same(getattr(state.boiw, k), v, f"boiw {k}")
+    fixture = {"fixture": ORBAX_FIXTURE, "leaves": len(leaves),
+               "float_leaves_on_card": on_card, "bf16_leaves": bf16,
+               "read_ms": read_ms, "restore_ms": restore_ms,
+               "tensors_loaded": len(want["model"])
+               + 2 * len(want["ema_params"]) + len(want["boiw"])}
+    del state, model, opt
+    # the JAX two-stage archive at full width, through the entry points
+    archive = os.path.join(here, ORBAX_ARCHIVE)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _, dirs = load_archive(archive, tmp)
+        unpack_ms = 1e3 * (time.perf_counter() - t0)
+        stages, reads = {}, {}
+        for stage, name, hw in (("coarse", "coarse_det", COARSE_HW[0]),
+                                ("mp", "mp_det_res50", 256)):
+            t0 = time.perf_counter()
+            got = orbax_tree_digests(read_orbax(dirs[stage]))
+            reads[stage] = 1e3 * (time.perf_counter() - t0)
+            if got != ORBAX_ARCHIVE_DIGESTS[stage]:
+                raise AssertionError(f"orbax: archive {stage} digests {got}")
+            stages[name] = {"read_ms": reads[stage],
+                            "max_rel_err": orbax_forward(name, dirs[stage],
+                                                         hw),
+                            "input_hw": hw, "tol": ORBAX_FORWARD_TOL}
+        stages["coarse_det"]["train_state_tensors"] = orbax_train_state(
+            dirs["coarse"])
+        detector = orbax_detector(dirs["coarse"], frames)
+        rate = orbax_decode_rate([root, dirs["coarse"], dirs["mp"]])
+    served = orbax_serve(archive, frames)
+    out = {"nvidia_smi": smi,
+           "fixture_bytes": sum(os.path.getsize(os.path.join(d, f))
+                                for d, _, fs in os.walk(os.path.dirname(root))
+                                for f in fs),
+           "zstd_build_s": build_s, **fixture, "archive": ORBAX_ARCHIVE,
+           "archive_unpack_ms": unpack_ms, "archive_models": stages,
+           "detector": detector, "served": served, **rate,
+           "seconds": time.perf_counter() - t_phase}
+    log("orbax", **out)
+    return out
+
+
 def main() -> None:
     # float32 products of the plain versions stay float32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4681,6 +5115,7 @@ def main() -> None:
         ev = phase_eval(smi, loop_ds, tmp)
         inp = phase_inputs(smi, loop_ds, tmp, serve["windows"])
         var = phase_variants(smi, loop_ds, tmp, frames)
+    phase_orbax(smi, frames)
     launches = bf16["launches"]
     eval_nms = {run: ev[run]["nms"] for run in
                 ("coarse_det", "mp_det_res50", "tta", "ufpmp_bf16",

@@ -14,9 +14,10 @@ models compute in bfloat16, on the CPU in float32.
 A checkpoint is either a file of a model's ``state_dict()``
 (``torch.save``), loaded strictly, or a training checkpoint that
 ``train/loop.py: save_checkpoint`` wrote, loaded shape-matched through
-``load_weights``, whose EMA weights serve when ``use_ema`` is set.  The
-JAX package's orbax directories cannot be read here: converting one is
-ROADMAP.md, queue A item 8.
+``load_weights``, whose EMA weights serve when ``use_ema`` is set, or a
+directory the JAX package's orbax checkpointer wrote (a ``TrainState`` or
+a ``tools/ckpt_tool.py strip`` artifact), read without JAX by
+``utils/orbax_read.py`` and loaded as a training checkpoint.
 """
 
 from __future__ import annotations
@@ -55,16 +56,16 @@ def init_detector(config_name: str, checkpoint: Optional[str] = None,
     loads strictly (a mismatch raises ``ValueError``).  A training
     checkpoint, or a file of weight sections (``{"model": ...[,
     "ema_params", "boiw"]}``, what ``tools/ckpt_tool.py strip`` and
-    ``tools/import_torch_weights.py`` write), loads as the JAX package's
-    does: shape-matched through
+    ``tools/import_torch_weights.py`` write) or a JAX orbax checkpoint
+    directory loads as the JAX package's does: shape-matched through
     ``train/loop.py: load_weights`` (mismatched tensors keep their
     initialisation, no match at all raises ``ValueError``), then the
     parameters are the checkpoint's EMA with ``use_ema`` and its raw
     parameters without; BN statistics are the checkpoint's either
     way."""
-    from glsdet_tpu_torch.train.loop import (build_optimizer, load_weights,
+    from glsdet_tpu_torch.train.loop import (build_optimizer,
                                              make_state_template,
-                                             restore_raw)
+                                             merge_weights, restore_raw)
 
     cfg = get_config(config_name)
     if options:
@@ -83,7 +84,7 @@ def init_detector(config_name: str, checkpoint: Optional[str] = None,
     gen = torch.Generator(device=next(model.parameters()).device)
     state = make_state_template(cfg, model, build_optimizer(cfg, 1000, model),
                                 gen)
-    state, n_loaded, skipped = load_weights(checkpoint, state)
+    state, n_loaded, skipped = merge_weights(raw, state)
     if n_loaded == 0:
         raise ValueError(f"no weight arrays in {checkpoint} match "
                          f"{config_name}: {skipped[:5]}")

@@ -16,13 +16,17 @@ Design notes:
   through the detector's streaming protocol: PyTorch returns from a
   launch before the card finishes, so the next batch's coarse stage is
   queued while the host packs and reads back the previous one.
-- An archive holds state-dict files (``torch.save``) where the JAX
-  package's holds orbax directories, under the same ``MANIFEST.json``.
+- An archive holds the port's checkpoint files (``torch.save``) where
+  the JAX package's holds orbax directories, under the same
+  ``MANIFEST.json``.  ``archive_model`` takes either as its checkpoints
+  (an orbax directory is converted, ``train/loop.py: restore_raw``), and
+  ``load_archive`` opens the JAX package's archives too.
 """
 
 from __future__ import annotations
 
 import collections
+import io
 import json
 import os
 import queue
@@ -33,6 +37,7 @@ from concurrent.futures import Future
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from glsdet_tpu_torch.apis import Detector, TwoStageDetector
 from glsdet_tpu_torch.data.image_io import decode_image
@@ -58,11 +63,13 @@ def archive_model(config_name: str, checkpoint: Optional[str],
                   int8_scales: Optional[str] = None,
                   options: Optional[dict] = None,
                   mp_options: Optional[dict] = None) -> str:
-    """Package a named config + state-dict checkpoint file into a single
-    self-describing zip archive (the ``.mar`` analog).
+    """Package a named config + checkpoint into a single self-describing
+    zip archive (the ``.mar`` analog).
 
     The checkpoint is embedded as ``ckpt.pt`` so the archive is one
-    portable artifact.  Passing ``mp_config`` makes a TWO-STAGE archive
+    portable artifact: a checkpoint file as it is, a JAX package orbax
+    directory converted to the port's form (``train/loop.py:
+    restore_raw``).  Passing ``mp_config`` makes a TWO-STAGE archive
     (``pipeline: "two_stage"``): ``config_name`` is the coarse detector,
     ``mp_config``/``mp_checkpoint`` (embedded as ``ckpt_mp.pt``) the
     stage-2 MP-Det; serving builds a ``TwoStageDetector`` running the full
@@ -106,32 +113,47 @@ def archive_model(config_name: str, checkpoint: Optional[str],
     os.makedirs(os.path.dirname(os.path.abspath(output_path)), exist_ok=True)
     with zipfile.ZipFile(output_path, "w", zipfile.ZIP_DEFLATED) as zf:
         zf.writestr(ARCHIVE_MANIFEST, json.dumps(manifest, indent=2))
-        if checkpoint:
-            zf.write(checkpoint, CKPT)
-        if mp_checkpoint:
-            zf.write(mp_checkpoint, CKPT_MP)
+        for src, name in ((checkpoint, CKPT), (mp_checkpoint, CKPT_MP)):
+            if src and os.path.isdir(src):
+                from glsdet_tpu_torch.train.loop import restore_raw
+
+                buf = io.BytesIO()
+                torch.save(restore_raw(src), buf)
+                zf.writestr(name, buf.getvalue())
+            elif src:
+                zf.write(src, name)
         if int8_scales:
             zf.write(int8_scales, "int8_scales.json")
     return output_path
 
 
 def load_archive(path: str, workdir: Optional[str] = None):
-    """Unpack an archive; returns (manifest dict, checkpoint file|None).
+    """Unpack an archive; returns (manifest dict, checkpoint|None).
 
-    For a two-stage archive (``manifest["pipeline"] == "two_stage"``)
-    the second element is a dict ``{"coarse": file|None, "mp":
-    file|None}``.
+    A checkpoint is the file the port's archives hold or, in an archive
+    of the JAX package's ``serve.archive_model``, the orbax directory it
+    embeds under ``ckpt/`` (``ckpt_mp/``), which ``apis.init_detector``
+    reads.  For a two-stage archive (``manifest["pipeline"] ==
+    "two_stage"``) the second element is a dict ``{"coarse": ckpt|None,
+    "mp": ckpt|None}``.
     """
     import tempfile
 
     workdir = workdir or tempfile.mkdtemp(prefix="glsdet_serve_")
     with zipfile.ZipFile(path) as zf:
         manifest = json.loads(zf.read(ARCHIVE_MANIFEST))
+        names = zf.namelist()
 
         def _extract(name):
-            if name not in zf.namelist():
+            if name in names:
+                return zf.extract(name, workdir)
+            prefix = name[:-len(".pt")] + "/"        # the JAX archive's
+            members = [n for n in names if n.startswith(prefix)]
+            if not members:
                 return None
-            return zf.extract(name, workdir)
+            for n in members:
+                zf.extract(n, workdir)
+            return os.path.join(workdir, prefix[:-1])
 
         ckpt = (_extract(CKPT) if manifest.get("has_checkpoint") else None)
         if manifest.get("has_int8_scales") \

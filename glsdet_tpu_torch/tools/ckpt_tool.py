@@ -8,7 +8,9 @@ messages, on the port's checkpoints (``train/state.py: state_dict``,
 ``ema_params``, ``generator``, ``boiw``):
 
 - ``inspect <ckpt> [-v]``: step and a summary of each section (tensors,
-  elements, bytes); ``-v`` lists every tensor's shape and dtype.
+  elements, bytes); ``-v`` lists every tensor's shape and dtype.  An
+  orbax directory of the JAX package shows its own sections (``params``,
+  ``opt_state``, ``rng``, ...), as the JAX tool shows them.
 - ``restamp <src> <dst> [--step N]``: copy with ``step`` reset (restart
   the schedules from N on resume).
 - ``strip <src> <dst> [--keep-ema/--no-keep-ema]``: a weights-only
@@ -22,6 +24,12 @@ messages, on the port's checkpoints (``train/state.py: state_dict``,
   taken over every tensor's key, dtype, shape and bytes
   (``tools/model_converters/publish_model.py`` analog).
 
+Every command takes an orbax checkpoint directory of the JAX package as
+``src`` (``utils/orbax_read.py``, no JAX needed); the others convert it
+(``utils/flax_import.py: checkpoint_from_flax``) and write the port's
+``.pt``, so ``strip <orbax_dir> out.pt`` is the one-off conversion of a
+JAX checkpoint to a serving artifact.
+
 Run as ``python -m glsdet_tpu_torch.tools.ckpt_tool <command> ...``.
 """
 
@@ -32,6 +40,7 @@ import hashlib
 import os
 from typing import Dict, Iterator, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 WEIGHTS = ("model", "boiw")
@@ -39,8 +48,9 @@ WEIGHTS = ("model", "boiw")
 
 def _leaves(node, prefix: Tuple[str, ...] = ()
             ) -> Iterator[Tuple[Tuple[str, ...], torch.Tensor]]:
-    """(key path, tensor) of every tensor in nested dicts and lists."""
-    if torch.is_tensor(node):
+    """(key path, array) of every tensor or numpy array in nested dicts
+    and lists."""
+    if torch.is_tensor(node) or isinstance(node, np.ndarray):
         yield prefix, node
     elif isinstance(node, dict):
         for k in node:
@@ -51,7 +61,8 @@ def _leaves(node, prefix: Tuple[str, ...] = ()
 
 
 def _section_stats(tree) -> Tuple[int, int, int]:
-    leaves = [t for _, t in _leaves(tree)]
+    leaves = [t if torch.is_tensor(t) else torch.from_numpy(t)
+              for _, t in _leaves(tree)]
     return (len(leaves), sum(t.numel() for t in leaves),
             sum(t.numel() * t.element_size() for t in leaves))
 
@@ -163,8 +174,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[Sequence[str]] = None):
     """Run one command; ``publish`` returns the path it wrote."""
     from glsdet_tpu_torch.train.loop import restore_raw
+    from glsdet_tpu_torch.utils.orbax_read import read_orbax
 
     args = parse_args(argv)
+    if args.cmd == "inspect" and os.path.isdir(args.src):
+        return cmd_inspect(args, read_orbax(args.src))
     raw = restore_raw(args.src)
     if "model" not in raw:                  # a bare state-dict file
         raw = {"model": raw}

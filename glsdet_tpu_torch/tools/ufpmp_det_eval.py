@@ -10,10 +10,9 @@ pipeline over the set and prints COCO metrics with maxDets [10, 100, 500].
         mp_det_res50 none data/val.json data/images --fuse-global
 
 A checkpoint is ``none`` (the seeded initialisation of
-``models/build.py``), a state-dict file or a training checkpoint of
-``train/loop.py`` (its EMA weights), loaded by ``apis.init_detector``.
-The JAX package's orbax directories are converted by ROADMAP.md item 8;
-this tool raises on one.  Frames go through ``TwoStagePipeline.run_batch``
+``models/build.py``), a state-dict file, a training checkpoint of
+``train/loop.py`` or an orbax checkpoint directory of the JAX package
+(their EMA weights), loaded by ``apis.init_detector``.  Frames go through ``TwoStagePipeline.run_batch``
 in chunks of 8; ``--int8-static`` calibrates on the first 4 frames.
 ``--device cuda`` (the default) runs on the card, ``cpu`` on the CPU.
 """
@@ -63,10 +62,6 @@ def _checkpoint(ckpt: str):
     """The checkpoint argument as ``init_detector`` takes it."""
     if not ckpt or ckpt == "none":
         return None
-    if os.path.isdir(ckpt):
-        raise NotImplementedError(
-            f"{ckpt} is a directory (a JAX package orbax checkpoint?): "
-            "converting one is not ported yet (ROADMAP.md, queue A item 8)")
     return ckpt
 
 

@@ -192,14 +192,25 @@ def save_checkpoint(work_dir: str, state: TrainState, epoch: int,
 def restore_raw(path: str) -> Dict:
     """A checkpoint file as saved (tensors on the CPU), or a plain
     state-dict file: the entry of checkpoint tooling and of weights-only
-    loads."""
+    loads.  A directory is read as an orbax checkpoint of the JAX
+    package (``utils/orbax_read.py: read_orbax``: a ``TrainState``, a
+    stripped artifact or a bare ``params`` tree) and given in the port's
+    form (``utils/flax_import.py: checkpoint_from_flax``)."""
+    if os.path.isdir(path):
+        from glsdet_tpu_torch.utils.flax_import import checkpoint_from_flax
+        from glsdet_tpu_torch.utils.orbax_read import read_orbax
+
+        return checkpoint_from_flax(read_orbax(path))
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def restore_checkpoint(path: str, target: TrainState) -> TrainState:
     """Load a :func:`save_checkpoint` file into ``target`` in place:
     step, parameters and BN statistics, optimizer, EMA, generator and
-    BoIW, bit for bit."""
+    BoIW, bit for bit.  A JAX ``TrainState`` written by the JAX
+    package's ``save_checkpoint`` loads as ``utils/flax_import.py:
+    train_state_from_flax`` carries it (the generator stays
+    ``target``'s)."""
     return load_state_dict(target, restore_raw(path))
 
 
@@ -221,9 +232,16 @@ def load_weights(path: str, state: TrainState):
     its value.  A plain state-dict file (``torch.save(model.
     state_dict())``, what ``apis.init_detector`` and ``serve.py`` read)
     is a ``model`` section, and a checkpoint without ``ema_params``
-    seeds the EMA from its parameters.  Returns ``(state, n_loaded,
-    skipped)``, ``skipped`` a list of ``(key, reason)``."""
-    raw = restore_raw(path)
+    seeds the EMA from its parameters.  A JAX orbax checkpoint maps its
+    ``params`` and ``batch_stats`` onto ``model``, its ``ema_params`` and
+    ``boiw`` onto the port's (:func:`restore_raw`).  Returns ``(state,
+    n_loaded, skipped)``, ``skipped`` a list of ``(key, reason)``."""
+    return merge_weights(restore_raw(path), state)
+
+
+def merge_weights(raw: Dict, state: TrainState):
+    """:func:`load_weights` of a checkpoint already read by
+    :func:`restore_raw`."""
     if "model" not in raw:                  # bare state-dict artifact
         raw = {"model": raw}
     if raw.get("ema_params") is None:

@@ -91,17 +91,39 @@ def state_dict(state: TrainState) -> Dict[str, Any]:
 @torch.no_grad()
 def load_state_dict(state: TrainState, sd: Dict[str, Any]) -> TrainState:
     """Restore :func:`state_dict` into ``state`` in place (each tensor
-    onto the device and dtype of the one it replaces) and return it."""
+    onto the device and dtype of the one it replaces) and return it.
+
+    A JAX ``TrainState`` in the port's form (``utils/flax_import.py:
+    checkpoint_from_flax``) loads too: its optimizer is the SGD momentum
+    trace by parameter name (each parameter's ``momentum_buffer``) and
+    the schedule count, and its ``generator`` is None (``state``'s
+    generator stays)."""
+    for key in ("step", "model", "optimizer", "ema_params", "boiw"):
+        if key not in sd:
+            raise ValueError(f"the checkpoint has no {key!r}: not a "
+                             "training checkpoint (a weights-only artifact "
+                             "loads through train/loop.py: load_weights)")
+    opt = sd["optimizer"]
+    if opt is None:
+        raise ValueError("the checkpoint's optimizer state cannot be "
+                         "carried (only an SGD momentum trace is)")
     state.step = int(sd["step"])
     state.model.load_state_dict(sd["model"], strict=True)
-    opt = sd["optimizer"]
-    state.optimizer.load_state_dict({"state": opt["state"],
-                                     "param_groups": opt["param_groups"]})
-    if hasattr(state.optimizer, "count"):
+    if "momentum" in opt:
+        named = dict(state.model.named_parameters())
+        for name, buf in opt["momentum"].items():
+            state.optimizer.state[named[name]]["momentum_buffer"] = \
+                buf.to(named[name])
         state.optimizer.count = int(opt["count"])
+    else:
+        state.optimizer.load_state_dict({"state": opt["state"],
+                                         "param_groups": opt["param_groups"]})
+        if hasattr(state.optimizer, "count"):
+            state.optimizer.count = int(opt["count"])
     for k, v in sd["ema_params"].items():
         state.ema_params[k].copy_(v)
-    state.generator.set_state(sd["generator"])
+    if sd["generator"] is not None:
+        state.generator.set_state(sd["generator"])
     if (sd["boiw"] is None) != (state.boiw is None):
         raise ValueError("checkpoint and state disagree on the BoIW "
                          "dictionary")

@@ -18,28 +18,34 @@ walk: ``{"params": {"backbone": {"stem": {"conv": {"conv": {"kernel":
   parameters (``codebook``, ``smooth``, ``ls1``, ``ls2``) keep their
   names.
 
-:func:`train_state_from_flax` carries a whole JAX ``TrainState`` across
-(the MP-Det and GFL recipes' ``mp_det_sgd``, the YOLOX recipe's
-``yolox_sgd`` with its masked weight decay and Nesterov trace):
-parameters and BN statistics, the EMA, the SGD momentum trace of optax's
-``opt_state`` (into the torch optimizer's ``momentum_buffer`` s, whichever
-parameter group holds each), the schedule count, the step and, for
-MP-Det, the BoIW dictionary.
+:func:`checkpoint_from_flax` turns a JAX ``TrainState`` (the object, or
+the raw tree of dicts and lists that ``utils/orbax_read.py: read_orbax``
+gives for an orbax checkpoint, stripped artifacts and bare parameter trees
+included) into the port's checkpoint form (``train/state.py:
+state_dict``), with the optimizer as the SGD momentum trace by parameter
+name and the schedule count; :func:`train_state_from_flax` loads that into
+a port :class:`TrainState` (the MP-Det and GFL recipes' ``mp_det_sgd``,
+the YOLOX recipe's ``yolox_sgd`` with its masked weight decay and Nesterov
+trace): parameters and BN statistics, the EMA, the momentum trace of
+optax's ``opt_state`` (into the torch optimizer's ``momentum_buffer`` s,
+whichever parameter group holds each), the schedule count, the step and,
+for MP-Det, the BoIW dictionary.
 
-Takes numpy arrays (``jax.device_get`` of the variables), so this module
-imports neither jax nor flax.
+Takes numpy arrays (``jax.device_get`` of the variables; bfloat16 leaves
+as ``torch.bfloat16`` tensors, as ``read_orbax`` gives them), so this
+module imports neither jax nor flax.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from glsdet_tpu_torch.train.boiw import BoIWState
-from glsdet_tpu_torch.train.state import TrainState
+from glsdet_tpu_torch.train.state import TrainState, load_state_dict
 
 _KEPT = ("bias", "scale", "proxies", "codebook", "smooth", "ls1", "ls2")
 
@@ -50,7 +56,12 @@ def _walk(tree: Mapping, prefix: Tuple[str, ...] = ()
         if isinstance(v, Mapping):
             yield from _walk(v, prefix + (k,))
         else:
-            yield prefix + (k,), np.asarray(v)
+            yield prefix + (k,), _numpy(v)
+
+
+def _numpy(v) -> np.ndarray:
+    """A leaf as numpy (a bfloat16 tensor as float32, exact)."""
+    return v.float().numpy() if torch.is_tensor(v) else np.asarray(v)
 
 
 def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
@@ -94,11 +105,13 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
 
 def optax_fields(node, name: str) -> list:
     """Every value of field ``name`` in an optax state (nested tuples and
-    NamedTuples), in order."""
+    NamedTuples, or the dicts and lists of its raw checkpoint tree), in
+    order."""
     found = []
     if hasattr(node, "_fields"):
-        for field in node._fields:
-            value = getattr(node, field)
+        node = {f: getattr(node, f) for f in node._fields}
+    if isinstance(node, Mapping):
+        for field, value in node.items():
             if field == name:
                 found.append(value)
             else:
@@ -115,36 +128,69 @@ def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     return state_dict_from_flax({"params": params})
 
 
+def _field(state, name: str):
+    if isinstance(state, Mapping):
+        return state.get(name)
+    return getattr(state, name, None)
+
+
+def checkpoint_from_flax(state) -> Dict[str, Any]:
+    """A JAX ``TrainState`` (or its raw tree, a stripped artifact of
+    ``tools/ckpt_tool.py strip``, or a bare ``params`` tree) in the
+    port's checkpoint form: ``step``, ``model`` (parameters and BN
+    statistics), ``ema_params``, ``boiw``, and ``optimizer`` as
+    ``{"momentum": {name: trace}, "count": n}`` (None when the state has
+    no SGD momentum trace: weights-only artifacts, or Adam's moments,
+    which are not carried).  ``generator`` is None: the JAX key is not
+    carried."""
+    if _field(state, "params") is None:             # bare params tree
+        state = {"params": state}
+    out: Dict[str, Any] = {
+        "model": state_dict_from_flax({
+            "params": _field(state, "params"),
+            "batch_stats": _field(state, "batch_stats") or {}}),
+        "generator": None,
+        "optimizer": None,
+    }
+    step = _field(state, "step")
+    if step is not None:
+        out["step"] = int(_numpy(step))
+    ema = _field(state, "ema_params")
+    if ema is not None:
+        out["ema_params"] = params_from_flax(ema)
+    opt_state = _field(state, "opt_state")
+    traces = optax_fields(opt_state, "trace")
+    if len(traces) == 1:
+        counts = optax_fields(opt_state, "count")
+        out["optimizer"] = {
+            "momentum": params_from_flax(traces[0]),
+            "count": int(_numpy(counts[-1])) if counts else 0}
+    b = _field(state, "boiw")
+    out["boiw"] = None if b is None else {
+        "embedding": torch.from_numpy(np.array(
+            _numpy(_field(b, "embedding")), np.float32)),
+        "ptr": torch.from_numpy(np.array(_numpy(_field(b, "ptr")),
+                                         np.int64)),
+        "proxies_prob": torch.from_numpy(np.array(
+            _numpy(_field(b, "proxies_prob")), np.float32)),
+        "beta": torch.tensor(float(_numpy(_field(b, "beta"))))}
+    return out
+
+
 def train_state_from_flax(state, model: nn.Module,
                           optimizer: torch.optim.Optimizer,
                           generator: torch.Generator) -> TrainState:
     """A port :class:`TrainState` over ``model`` / ``optimizer`` (the
     port's ``mp_det_sgd`` or ``yolox_sgd``) holding a JAX ``TrainState``
-    of numpy leaves: the weights and BN statistics are loaded into
-    ``model``; the momentum trace becomes each parameter's
-    ``momentum_buffer`` and the schedule count ``optimizer.count``.  The
-    JAX key is not carried: ``generator`` takes its place."""
+    (the object of numpy leaves or its raw checkpoint tree): the weights
+    and BN statistics are loaded into ``model``; the momentum trace
+    becomes each parameter's ``momentum_buffer`` and the schedule count
+    ``optimizer.count``.  The JAX key is not carried: ``generator`` takes
+    its place."""
+    sd = checkpoint_from_flax(state)
     dev = next(model.parameters()).device
-    model.load_state_dict(state_dict_from_flax(
-        {"params": state.params, "batch_stats": state.batch_stats}),
-        strict=True)
-    named = dict(model.named_parameters())
-    (trace,) = optax_fields(state.opt_state, "trace")
-    counts = optax_fields(state.opt_state, "count")
-    for name, buf in params_from_flax(trace).items():
-        optimizer.state[named[name]]["momentum_buffer"] = buf.to(named[name])
-    optimizer.count = int(counts[-1]) if counts else 0
-    ema = {n: t.to(named[n]) for n, t in params_from_flax(
-        state.ema_params).items()}
-    boiw = None
-    if state.boiw is not None:
-        b = state.boiw
-        boiw = BoIWState(
-            embedding=torch.from_numpy(np.array(b.embedding, np.float32)
-                                       ).to(dev),
-            ptr=torch.from_numpy(np.array(b.ptr, np.int64)).to(dev),
-            proxies_prob=torch.from_numpy(np.array(b.proxies_prob,
-                                                   np.float32)).to(dev),
-            beta=torch.tensor(float(b.beta), device=dev))
-    return TrainState(step=int(state.step), model=model, optimizer=optimizer,
-                      ema_params=ema, generator=generator, boiw=boiw)
+    target = TrainState.create(model, optimizer, generator)
+    if sd["boiw"] is not None:
+        target.boiw = BoIWState(**{k: v.to(dev)
+                                   for k, v in sd["boiw"].items()})
+    return load_state_dict(target, sd)

@@ -1,11 +1,14 @@
 """``glsdet_tpu_torch/tools/ckpt_tool.py`` on the port's own training
 checkpoints (``train/state.py: state_dict``): every command's round trip,
 its message in the JAX tool's format, and the stripped and published
-files served by ``apis.init_detector``."""
+files served by ``apis.init_detector``.  On a JAX orbax checkpoint:
+``inspect`` prints what the JAX tool prints, and ``strip`` converts it to
+the port's file, served as the directory is."""
 
 import os
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -124,3 +127,80 @@ def test_publish_names_the_file_by_its_content(ckpt, tmp_path, capsys):
                                       device="cpu")
     for k, v in raw["ema_params"].items():
         assert torch.equal(served[k], v), k
+
+
+@pytest.fixture(scope="module")
+def orbax_ckpt(tmp_path_factory):
+    """A JAX TrainState of coarse_det at YOLOX-nano (seeded weights, the
+    EMA apart from them, step 7) written by the JAX package's
+    save_checkpoint."""
+    import jax
+
+    import glsdet_tpu.train.loop as jloop
+    from glsdet_tpu.config import apply_overrides as japply
+    from glsdet_tpu.config import get_config as jget_config
+    from test_torch_orbax_full import seeded_variables
+
+    cfg = japply(jget_config("coarse_det"), dict(OPTS["coarse_det"]))
+    v = seeded_variables(cfg, seed=8)
+    state = jloop.make_state_template(cfg, v, jloop.build_optimizer(cfg, 10),
+                                      jax.random.PRNGKey(0))
+    ema = seeded_variables(cfg, seed=9)["params"]
+    state = state.replace(step=np.int32(7), ema_params=ema)
+    d = tmp_path_factory.mktemp("orbax")
+    return jloop.save_checkpoint(str(d), state, epoch=7), v, ema
+
+
+def _jax_tool():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "jax_ckpt_tool", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "tools", "ckpt_tool.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("verbose", [False, True])
+def test_inspect_an_orbax_source_as_the_jax_tool(orbax_ckpt, capsys,
+                                                 verbose):
+    """``inspect`` of a JAX orbax checkpoint prints what the JAX tool
+    prints for it, line for line."""
+    import argparse
+
+    from glsdet_tpu.train.loop import restore_raw
+
+    path = orbax_ckpt[0]
+    ckpt_tool.main(["inspect", path] + (["-v"] if verbose else []))
+    got = capsys.readouterr().out
+    _jax_tool().cmd_inspect(argparse.Namespace(verbose=verbose),
+                            restore_raw(path))
+    want = capsys.readouterr().out
+    assert got == want and got.startswith("step: 7\n")
+    assert "opt_state" in got and "ema_params" in got
+
+
+def test_strip_an_orbax_source_converts_it(orbax_ckpt, tmp_path, capsys):
+    """``strip <orbax_dir> out.pt``: the port's weights-only file of the
+    JAX checkpoint, served as the directory is."""
+    from glsdet_tpu_torch.utils.flax_import import (params_from_flax,
+                                                    state_dict_from_flax)
+
+    path, v, ema = orbax_ckpt
+    dst = str(tmp_path / "converted.pt")
+    ckpt_tool.main(["strip", path, dst])
+    assert capsys.readouterr().out.startswith(
+        f"{path} -> {dst}: ['ema_params', 'model'] (")
+    got = torch.load(dst, weights_only=True)
+    want = state_dict_from_flax(v)
+    assert got["model"].keys() == want.keys()
+    assert all(torch.equal(got["model"][k], want[k]) for k in want)
+    for k, t in params_from_flax(ema).items():
+        assert torch.equal(got["ema_params"][k], t), k
+    opts = OPTS["coarse_det"]
+    a = apis.init_detector("coarse_det", dst, options=opts, device="cpu")[2]
+    b = apis.init_detector("coarse_det", path, options=opts, device="cpu")[2]
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    for k, t in params_from_flax(ema).items():
+        assert torch.equal(a[k], t), k

@@ -1632,3 +1632,43 @@ def test_dilated_int8_conv_on_the_card_is_exact(card, groups, k, dilation):
     want = Int8Conv2d(q_w.cpu(), 1, dilation * (k // 2), groups,
                       dilation)(x.cpu())
     assert torch.equal(got.cpu(), want)
+
+
+def test_jax_orbax_checkpoint_restores_on_the_card_as_on_the_cpu(card):
+    """The committed JAX fixture (``tests/torch_fixtures/orbax``) through
+    ``restore_checkpoint`` into a ``TrainState`` on the card and on the
+    CPU: every tensor equal, and a bfloat16 leaf of the tree stays
+    bfloat16 on the card."""
+    import chip_smoke
+    from glsdet_tpu_torch.train.boiw import BoIWState
+    from glsdet_tpu_torch.train.loop import restore_checkpoint
+    from glsdet_tpu_torch.train.schedules import yolox_sgd
+    from glsdet_tpu_torch.train.state import TrainState, state_dict
+    from glsdet_tpu_torch.utils.orbax_read import read_orbax
+
+    root = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), chip_smoke.ORBAX_FIXTURE)
+    tree = read_orbax(root)
+    head = tree["params"]["head"]["kernel"]
+    assert head.dtype == torch.bfloat16
+    assert torch.equal(head.to(card).cpu(), head)
+    states = []
+    for device in (card, torch.device("cpu")):
+        model = chip_smoke.OrbaxFixtureNet().to(device)
+        opt = yolox_sgd(model.parameters(), lambda count: 0.01)
+        boiw = BoIWState(*(torch.zeros(s, dtype=t, device=device)
+                           for s, t in (((3, 64, 200), torch.float32),
+                                        ((3,), torch.int64),
+                                        ((2,), torch.float32),
+                                        ((), torch.float32))))
+        state = TrainState.create(model, opt, torch.Generator(
+            device=device).manual_seed(0), boiw=boiw)
+        states.append(state_dict(restore_checkpoint(root, state)))
+    got, want = states
+    assert got["step"] == want["step"] == 2
+    for sec in ("model", "ema_params", "boiw"):
+        for k, v in want[sec].items():
+            assert torch.equal(got[sec][k], v), (sec, k)
+    for k, st in want["optimizer"]["state"].items():
+        assert torch.equal(got["optimizer"]["state"][k]["momentum_buffer"],
+                           st["momentum_buffer"]), k

@@ -435,8 +435,39 @@ def test_ufpmp_det_eval_matches_jax_tool(tmp_path, monkeypatch):
     np.testing.assert_allclose(got.stats, want.stats, atol=0.02)
 
 
-def test_ufpmp_det_eval_refuses_orbax_directories(tmp_path):
-    ann, img_root = _write_set(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ttool.main(["coarse_det", str(tmp_path), "mp_det_res50", "none",
-                    ann, img_root, "--device", "cpu"])
+def test_ufpmp_det_eval_reads_orbax_directories(tmp_path):
+    """The JAX package's orbax checkpoints (weights-only trees written by
+    its ``save_checkpoint``) serve the tool as the same weights' state-dict
+    files do: the same detections, bit for bit, and COCO stats."""
+    import glsdet_tpu.train.loop as jloop
+    from glsdet_tpu.config import apply_overrides as japply
+    from glsdet_tpu.config import get_config as jget_config
+    from test_torch_orbax_full import seeded_variables
+
+    ckpts = {}
+    for key, name, opts, seed in (("coarse", "coarse_det", COARSE_OPTS, 5),
+                                  ("mp", "mp_det_res50", MP_OPTS, 6)):
+        v = seeded_variables(japply(jget_config(name), dict(opts)), seed)
+        tree = {"params": v["params"], "batch_stats": v["batch_stats"],
+                "ema_params": v["params"]}
+        orbax_dir = jloop.save_checkpoint(str(tmp_path / key), tree, 1)
+        pt = str(tmp_path / f"{key}.pt")
+        torch.save(state_dict_from_flax(v), pt)
+        ckpts[key] = (orbax_dir, pt)
+    frames = (FRAMES[0],) * 2
+    gts = {i: [([10.0, 12.0, 30.0, 25.0], i)] for i in range(2)}
+    ann, img_root = _write_set(str(tmp_path), gts=gts, frames=frames)
+    dumps, stats = [], []
+    for route in (0, 1):
+        out = str(tmp_path / f"dets{route}.json")
+        res, st = ttool.main([
+            "coarse_det", ckpts["coarse"][route], "mp_det_res50",
+            ckpts["mp"][route], ann, img_root, "--fuse-global",
+            "--first-options", *_opts(COARSE_OPTS),
+            "--second-options", *_opts(MP_OPTS), "--out-json", out,
+            "--device", "cpu"])
+        with open(out) as f:
+            dumps.append(json.load(f))
+        stats.append(res.stats)
+    assert len(dumps[0]) > 0 and dumps[0] == dumps[1]
+    np.testing.assert_array_equal(stats[0], stats[1])

@@ -3,7 +3,10 @@
 Every module of ``glsdet_tpu_torch`` is imported in a fresh interpreter
 where ``sys.modules["jax"]`` and ``sys.modules["glsdet_tpu"]`` are None,
 so any import of either (a jax-free module of the JAX package included)
-raises there."""
+raises there.  ``tensorstore``, ``orbax`` and ``zstandard`` are blocked
+the same way (the GPU machine has none of them), and the orbax reader
+reads the committed JAX checkpoint fixtures there (the ``TrainState`` and
+the two-stage archive)."""
 
 import json
 import os
@@ -15,19 +18,29 @@ import glsdet_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+BLOCKED = ("jax", "flax", "glsdet_tpu", "tensorstore", "orbax",
+           "zstandard")
 PROBE = """
 import importlib, json, pkgutil, sys
-sys.modules["jax"] = None
-sys.modules["glsdet_tpu"] = None
+BLOCKED = %r
+for name in BLOCKED:
+    sys.modules[name] = None
 import glsdet_tpu_torch
 names = sorted(m.name for m in pkgutil.walk_packages(
     glsdet_tpu_torch.__path__, "glsdet_tpu_torch."))
 for name in names:
     importlib.import_module(name)
+import tempfile
+from glsdet_tpu_torch.serve import load_archive
+from glsdet_tpu_torch.utils.orbax_read import read_orbax
+tree = read_orbax("tests/torch_fixtures/orbax/trainstate")
+with tempfile.TemporaryDirectory() as tmp:
+    _, dirs = load_archive("tests/torch_fixtures/orbax/two_stage.gtar", tmp)
+    mp = sorted(read_orbax(dirs["mp"]))
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
-             and m.split(".")[0] in ("jax", "flax", "glsdet_tpu"))
-print(json.dumps([len(names), bad]))
-"""
+             and m.split(".")[0] in BLOCKED)
+print(json.dumps([len(names), bad, sorted(tree), mp]))
+""" % (BLOCKED,)
 
 
 def test_every_port_module_imports_without_jax():
@@ -69,14 +82,20 @@ def test_every_port_module_imports_without_jax():
                  "glsdet_tpu_torch.models.variants.ffa",
                  "glsdet_tpu_torch.models.variants.ffa_model",
                  "glsdet_tpu_torch.models.variants.lsk",
-                 "glsdet_tpu_torch.models.variants.necks"):
+                 "glsdet_tpu_torch.models.variants.necks",
+                 "glsdet_tpu_torch.native",
+                 "glsdet_tpu_torch.utils.orbax_read",
+                 "glsdet_tpu_torch.utils.flax_import"):
         assert name in modules
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
-    n, bad = json.loads(out.stdout.splitlines()[-1])
+    n, bad, sections, mp = json.loads(out.stdout.splitlines()[-1])
     assert bad == [] and n == len(modules), (n, bad)
+    assert sections == ["batch_stats", "boiw", "ema_params", "opt_state",
+                        "params", "rng", "step"]
+    assert mp == ["batch_stats", "boiw", "params"]
 
 
 def test_no_port_module_imports_opencv():
