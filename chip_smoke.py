@@ -313,6 +313,32 @@ Phases, in the order they run, each printing one line:
      weight-like chunks (the archive's noise kernel and the small
      fixture's noise leaves) and, apart, over the 3 largest low-entropy
      chunks.  Printed as one {"orbax": ...} line.
+ 26. workflow: the GLSDet cycle through the port's commands
+     (glsdet_tpu_torch/tools), each through its main(argv) in this
+     process so that the kernels' launches are counted.  32 train and 16
+     val frames (765x1360, VisDrone layout, quality-95 JPEGs with ignore
+     and "others" rows) written by the phase; visdrone_e2e with the named
+     configs at full width (coarse_det: YOLOX-s, 640x640, batch 8;
+     mp_det_res50: ResNet-50 + FPN + MPHead, 1024x1024, batch 4) cut to
+     one epoch each and the coarse threshold at 1e-5 (GLSDET_E2E_*_OPTS:
+     after its few steps the coarse model's scores sit about the prior,
+     1e-4): convert both splits, train coarse_det, build the UFP dataset
+     (B2 once per frame), train mp_det_res50 on the mosaics, the two-stage
+     eval (B1, B2); then tools.test mp_det_res50 --int8-static on 8
+     mosaics (B3), tools.predict dir_predict (two-stage) over 4 val
+     frames, tools.serve archive / serve (a thread, a free port) /
+     client, tools.test coarse_det --out and merge_results with the eval's
+     detections, get_map and eval_metric on the eval's output, and
+     convert_datasets as `python -m` in a subprocess (its json equal to
+     the cycle's).  Each command's launch counts (the cycle's counted
+     once, from its start; the build's share read as the difference
+     around it) equal to the calls captured; every B2 keep mask of every
+     command equal to nms_sorted_plain's (timed), B1 at every stage-2
+     group equal to mosaic_inputs_plain, B3's captured inputs within +-1
+     code.  Printed
+     as one {"workflow": ...} line: stage seconds, the build's frames a
+     second, mosaics and annotations written, each train() stage's
+     ms/step, the eval's COCO stats (parity only), the launches.
 Then one JSON line of per-kernel results (each with its bound: the bytes
 it must move at 3.35 TB/s or its operations at the card's peak for their
 type, whichever is longer) and, last, the device line.  A kernel's ``ms``
@@ -2943,12 +2969,11 @@ LOOP_FRAMES = (((765, 1360), 48), ((1080, 1920), 16))
 LOOP_WORKERS = 8             # threads writing the synthetic frames
 
 
-def synth_visdrone_frame(seed, hw):
+def synth_visdrone_pixels(seed, hw):
     """A smooth field (a coarse random grid resized up) with boxes drawn
-    in flat colours and +-2 codes of noise, as PNG bytes; and its
-    VisDrone annotation lines: 5-60 boxes of 4-64 px, 0-3 ignore rows
-    (category 0) and 0-2 "others" rows (category 11)."""
-    from glsdet_tpu_torch.data.image_io import encode_png
+    in flat colours and +-2 codes of noise, uint8; and its VisDrone
+    annotation lines: 5-60 boxes of 4-64 px, 0-3 ignore rows (category
+    0) and 0-2 "others" rows (category 11)."""
     from glsdet_tpu_torch.ops.image import resize_linear_u8
 
     rs = np.random.RandomState(seed)
@@ -2966,7 +2991,15 @@ def synth_visdrone_frame(seed, hw):
             img[y:y + bh, x:x + bw] = rs.randint(0, 256, 3)
             lines.append(f"{x},{y},{bw},{bh},{int(cat is None)},{c},0,0")
     img += rs.randint(-2, 3, img.shape).astype(np.int16)
-    return encode_png(np.clip(img, 0, 255).astype(np.uint8)), lines
+    return np.clip(img, 0, 255).astype(np.uint8), lines
+
+
+def synth_visdrone_frame(seed, hw):
+    """:func:`synth_visdrone_pixels` as PNG bytes, and its lines."""
+    from glsdet_tpu_torch.data.image_io import encode_png
+
+    img, lines = synth_visdrone_pixels(seed, hw)
+    return encode_png(img), lines
 
 
 def write_loop_dataset(root) -> dict:
@@ -3546,15 +3579,16 @@ def eval_models(root):
 def capture_path(stage2_quant=None):
     """Captures, while the block runs: every B2 launch's inputs and keep
     mask (clones), the stage-2 groups of TwoStagePipeline objects whose
-    ``quant8`` is ``stage2_quant`` (frames, rows, bucket), and B3's calls
-    (their count, the first call at each shape cloned); and the kernels'
-    launch counts, set to 0 first and read at the end."""
+    ``quant8`` is ``stage2_quant`` (frames, rows, bucket), the count of
+    stage-2 groups of any pipeline (each launches B1's path entry once),
+    and B3's calls (their count, the first call at each shape cloned);
+    and the kernels' launch counts, set to 0 first and read at the end."""
     from glsdet_tpu_torch.eval import two_stage
     from glsdet_tpu_torch.ops import nms as nms_mod
     from glsdet_tpu_torch.ops import quant_static
 
-    cap = {"nms": [], "groups": [], "gn": {}, "gn_calls": 0,
-           "launches": None}
+    cap = {"nms": [], "groups": [], "stage2_calls": 0, "gn": {},
+           "gn_calls": 0, "launches": None}
     real = (nms_mod.nms_sorted_cuda, two_stage.TwoStagePipeline.stage2_packed,
             quant_static.gn_relu_quant_acc)
 
@@ -3565,6 +3599,7 @@ def capture_path(stage2_quant=None):
         return keep
 
     def stage2(self, imgs, idx, regs, hw, gdets=None):
+        cap["stage2_calls"] += int(idx.shape[0] > 0 and hw > 0)
         if self.quant8 == stage2_quant:
             cap["groups"].append((imgs, idx.clone(), regs.clone(), hw))
         return real[1](self, imgs, idx, regs, hw, gdets)
@@ -5071,6 +5106,326 @@ def phase_orbax(smi: str, frames) -> dict:
     log("orbax", **out)
     return out
 
+# ---------------------------------------------------------------------------
+# 26. workflow: the GLSDet cycle through the port's commands
+
+WORKFLOW_FRAMES = (32, 16)   # train and val frames of the VisDrone layout
+WORKFLOW_THR = "1e-05"       # eval.coarse_score_thr of the cycle
+WORKFLOW_TEST_IMAGES = 8     # mosaics of tools.test mp_det_res50 --int8-static
+WORKFLOW_PREDICT = 4         # val frames of tools.predict dir_predict
+
+
+def write_visdrone_jpegs(root, n, seed0) -> int:
+    """``n`` synthetic VisDrone frames (765x1360, with ignore and "others"
+    rows) as quality-95 JPEGs in the stock layout, written on
+    LOOP_WORKERS threads; returns the bytes written."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from glsdet_tpu_torch.data.image_io import write_jpeg
+
+    os.makedirs(os.path.join(root, "images"))
+    os.makedirs(os.path.join(root, "annotations"))
+
+    def write(k):
+        img, lines = synth_visdrone_pixels(seed0 + k, FRAME_HW)
+        with open(os.path.join(root, "annotations", f"{k:05d}.txt"),
+                  "w") as f:
+            f.write("\n".join(lines) + "\n")
+        return write_jpeg(os.path.join(root, "images", f"{k:05d}.jpg"), img)
+
+    with ThreadPoolExecutor(LOOP_WORKERS) as pool:
+        return int(sum(pool.map(write, range(n))))
+
+
+def step_ms(work_dir) -> dict:
+    """train()'s logged seconds a step (log_interval 1: host time between
+    steps, the loader's waits included), after the first step."""
+    times = [r["time"] for r in read_log(work_dir)]
+    rest = times[1:] or times
+    return {"steps": len(times), "first_step_ms": 1e3 * times[0],
+            "median_ms": 1e3 * float(np.median(rest)),
+            "mean_ms": 1e3 * float(np.mean(rest))}
+
+
+def checked_path(cap, what, groups=True, gn=False, nms=None) -> dict:
+    """The kernels a captured command launched: their counts, each equal
+    to the calls captured (B2's launches, stage-2 groups for B1's path
+    entry, B3's calls); every B2 keep mask of ``nms`` (default: all the
+    captured calls) against nms_sorted_plain (timed), B1 at every stage-2
+    group against mosaic_inputs_plain, B3's captured inputs within +-1
+    code."""
+    launches = cap["launches"]
+    captured = {"nms": len(cap["nms"]), "paint_inputs": cap["stage2_calls"],
+                "gn": cap["gn_calls"]}
+    if any(launches[k] != n for k, n in captured.items()):
+        raise AssertionError(f"{what}: launches {launches}, calls "
+                             f"captured {captured}")
+    out = {"launches": launches}
+    calls = cap["nms"] if nms is None else nms
+    if calls:
+        out["nms"] = check_nms_calls(calls, what)
+    if groups and cap["groups"]:
+        out["paint"] = check_paint_groups(cap["groups"])
+    if gn:
+        out["gn"] = check_gn_captured(cap["gn"])
+    return out
+
+
+def workflow_serve(paths, frame_path, root) -> dict:
+    """tools.serve archive (two-stage, the cycle's checkpoints), serve on
+    a free port in a thread, client POSTs one val JPEG; the server shut
+    down after."""
+    import threading
+
+    from glsdet_tpu_torch.tools import serve
+
+    store = os.path.join(root, "store")
+    serve.main(["archive", "--config", "coarse_det", "--checkpoint",
+                paths[0], "--mp-config", "mp_det_res50", "--mp-checkpoint",
+                paths[1], "--output", os.path.join(store, "ufpmp"),
+                "--score-thr", "0.0", "--cfg-options",
+                f"eval.coarse_score_thr={WORKFLOW_THR}"])
+    servers, real = [], serve.make_server
+
+    def capture(service, host, port):
+        servers.append(real(service, host, port))
+        return servers[-1]
+
+    serve.make_server = capture
+    try:
+        thread = threading.Thread(target=serve.main, args=([
+            "serve", "--model-store", store, "--port", "0", "--device",
+            DEVICE],), daemon=True)
+        thread.start()
+        for _ in range(1200):
+            if servers or not thread.is_alive():
+                break
+            time.sleep(0.1)
+    finally:
+        serve.make_server = real
+    if not servers:
+        raise AssertionError("tools.serve did not start")
+    try:
+        t0 = time.perf_counter()
+        dets = serve.main(["client", frame_path, "--url",
+                           f"http://127.0.0.1:{servers[0].server_address[1]}",
+                           "--repeat", "2"])
+        seconds = time.perf_counter() - t0
+    finally:
+        servers[0].shutdown()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError("tools.serve did not stop")
+    boxes = np.asarray([d["bbox"] for d in dets], np.float64).reshape(-1, 4)
+    if not dets or not np.isfinite(boxes).all():
+        raise AssertionError(f"tools.serve client: {len(dets)} answers")
+    return {"detections": len(dets), "client_s": seconds}
+
+
+def coco_to_txt(coco_json, dets_json, root, names) -> tuple:
+    """The val ground truth and a COCO results file as get_map's txt
+    directories (class name, [score,] x1 y1 x2 y2)."""
+    with open(coco_json) as f:
+        coco = json.load(f)
+    with open(dets_json) as f:
+        dets = json.load(f)
+    cats = {c["id"]: names[i] for i, c in enumerate(
+        sorted(coco["categories"], key=lambda c: c["id"]))}
+    gt_dir, det_dir = os.path.join(root, "gt"), os.path.join(root, "det")
+    os.makedirs(gt_dir)
+    os.makedirs(det_dir)
+    stem = {im["id"]: os.path.splitext(im["file_name"])[0]
+            for im in coco["images"]}
+    rows = {k: [] for k in stem}
+    for a in coco["annotations"]:
+        x, y, w, h = a["bbox"]
+        rows[a["image_id"]].append(f"{cats[a['category_id']]} {x} {y} "
+                                   f"{x + w} {y + h}")
+    for k, r in rows.items():
+        with open(os.path.join(gt_dir, stem[k] + ".txt"), "w") as f:
+            f.write("\n".join(r) + "\n")
+    drows = {k: [] for k in stem}
+    for d in dets:
+        x, y, w, h = d["bbox"]
+        drows[d["image_id"]].append(f"{cats[d['category_id']]} "
+                                    f"{d['score']} {x} {y} {x + w} {y + h}")
+    for k, r in drows.items():
+        with open(os.path.join(det_dir, stem[k] + ".txt"), "w") as f:
+            f.write("\n".join(r) + "\n")
+    return gt_dir, det_dir
+
+
+def phase_workflow(smi: str, tmp: str) -> dict:
+    """The GLSDet cycle through the port's commands on the card (module
+    docstring, phase 26)."""
+    import shutil
+
+    from glsdet_tpu_torch.tools import (build_ufp_dataset, eval_metric,
+                                        get_map, merge_results, predict,
+                                        test as test_tool, visdrone_e2e)
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "workflow")
+    train_root, val_root = (os.path.join(root, "train"),
+                            os.path.join(root, "val"))
+    written = {"train_bytes": write_visdrone_jpegs(train_root,
+                                                   WORKFLOW_FRAMES[0], 3000),
+               "val_bytes": write_visdrone_jpegs(val_root,
+                                                 WORKFLOW_FRAMES[1], 4000),
+               "write_s": time.perf_counter() - t0}
+    wd = os.path.join(root, "e2e")
+    env = {"GLSDET_E2E_COARSE_OPTS":
+           f"train.epochs=1 train.log_interval=1 "
+           f"eval.coarse_score_thr={WORKFLOW_THR}",
+           "GLSDET_E2E_MP_OPTS": "train.epochs=1 train.log_interval=1",
+           "GLSDET_E2E_EVAL_OPTS": f"eval.coarse_score_thr={WORKFLOW_THR}"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    build = {}
+    real_main = build_ufp_dataset.main
+
+    def build_main(argv):   # the build's share of the cycle's launches
+        torch.cuda.synchronize()
+        before, first = read_launches(), len(cap["nms"])
+        result = real_main(argv)
+        torch.cuda.synchronize()
+        build["launches"] = {k: n - before[k]
+                             for k, n in read_launches().items()}
+        build["nms"] = (first, len(cap["nms"]))
+        return result
+
+    build_ufp_dataset.main = build_main
+    try:
+        with capture_path(False) as cap:
+            cycle = visdrone_e2e.main([train_root, val_root, wd,
+                                       "--device", DEVICE])
+    finally:
+        build_ufp_dataset.main = real_main
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    ufp = cycle["build_ufp"]["result"]
+    res, stats = cycle["eval"]["result"]
+    out = {"card": smi, **written,
+           "stages_s": {k: cycle[k]["seconds"] for k in
+                        ("convert", "train_coarse", "build_ufp", "train_mp",
+                         "eval")},
+           "cycle_s": cycle["seconds"],
+           "frames": cycle["convert"]["result"],
+           "ufp": {k: ufp[k] for k in ("frames", "mosaics", "annotations",
+                                       "seconds", "frames_per_s")},
+           "train_coarse": step_ms(os.path.join(wd, "coarse")),
+           "train_mp": step_ms(os.path.join(wd, "mpdet")),
+           "eval": {"images": stats["images"],
+                    "img_per_s": stats["images_per_sec"],
+                    "stats": check_stats(res, "workflow eval")},
+           "cycle_kernels": checked_path(
+               cap, "workflow cycle", nms=cap["nms"][:build["nms"][0]]
+               + cap["nms"][build["nms"][1]:]),
+           "build_kernels": {"launches": build["launches"]}}
+    # the build's B2 calls are checked and timed apart from the rest
+    build_nms = cap["nms"][slice(*build["nms"])]
+    if ufp["mosaics"] < 1 or not len(build_nms) \
+            == build["launches"]["nms"] == ufp["frames"]:
+        raise AssertionError(f"workflow build: {ufp}, {build['launches']}, "
+                             f"{len(build_nms)} B2 calls captured")
+    out["build_kernels"]["nms"] = check_nms_calls(build_nms,
+                                                  "workflow build")
+    log("workflow_cycle", since_phase_start_s=time.perf_counter() - t0,
+        **{k: out[k] for k in ("stages_s", "ufp", "train_coarse",
+                               "train_mp", "eval")})
+    paths = (cycle["coarse_ckpt"], cycle["mp_ckpt"])
+    thr = ["--cfg-options", f"eval.coarse_score_thr={WORKFLOW_THR}"]
+
+    # the other commands on the cycle's outputs
+    with capture_path("static") as cap:
+        t1 = time.perf_counter()
+        res8, st8 = test_tool.main([
+            "mp_det_res50", "--ckpt", paths[1], "--ann",
+            os.path.join(wd, "ufp", "ufp_train.json"), "--img-root",
+            os.path.join(wd, "ufp", "images"), "--use-ema",
+            "--int8-static", "--max-images", str(WORKFLOW_TEST_IMAGES),
+            "--device", DEVICE])
+        int8_s = time.perf_counter() - t1
+    out["test_int8"] = {"seconds": int8_s, "images": st8["images"],
+                        "stats": check_stats(res8, "tools.test int8"),
+                        **checked_path(cap, "tools.test int8",
+                                       groups=False, gn=True)}
+    if out["test_int8"]["launches"]["gn"] < 40:
+        raise AssertionError(f"tools.test int8: {out['test_int8']}")
+    pdir = os.path.join(root, "predict_in")
+    os.makedirs(pdir)
+    for name in sorted(os.listdir(os.path.join(val_root, "images")))[
+            :WORKFLOW_PREDICT]:
+        shutil.copy(os.path.join(val_root, "images", name), pdir)
+    with capture_path(False) as cap:
+        pred = predict.main([
+            "dir_predict", pdir, "--output", os.path.join(root, "pred"),
+            "--checkpoint", paths[0], "--mp-config", "mp_det_res50",
+            "--mp-checkpoint", paths[1], "--draw-thr", "0.0", *thr,
+            "--device", DEVICE])
+    out["predict"] = {**pred, **checked_path(cap, "tools.predict")}
+    if out["predict"]["launches"]["paint_inputs"] < 1:
+        raise AssertionError(f"tools.predict: {out['predict']}")
+    with capture_path(False) as cap:
+        served = workflow_serve(paths, os.path.join(
+            pdir, sorted(os.listdir(pdir))[0]), root)
+    out["serve"] = {**served, **checked_path(cap, "tools.serve")}
+    gjson = os.path.join(root, "global.json")
+    with capture_path(False) as cap:
+        test_tool.main(["coarse_det", "--ckpt", paths[0], "--use-ema",
+                        "--ann", os.path.join(wd, "val.json"),
+                        "--img-root", os.path.join(val_root, "images"),
+                        "--out", gjson, "--format-only", "--device",
+                        DEVICE])
+        fused = merge_results.main([gjson, os.path.join(wd, "val_dets.json"),
+                                    os.path.join(root, "fused.json"),
+                                    "--device", DEVICE])
+    out["merge"] = {"detections": len(fused),
+                    **checked_path(cap, "tools.merge_results")}
+    if not fused:
+        raise AssertionError("tools.merge_results: no detections")
+    from glsdet_tpu_torch.data.visdrone import VISDRONE_CLASSES
+
+    gt_dir, det_dir = coco_to_txt(os.path.join(wd, "val.json"),
+                                  os.path.join(wd, "val_dets.json"),
+                                  os.path.join(root, "map"),
+                                  VISDRONE_CLASSES)
+    voc, coco = get_map.main([gt_dir, det_dir, "--coco"])
+    again = eval_metric.main([os.path.join(wd, "val_dets.json"), "--ann",
+                              os.path.join(wd, "val.json")])
+    out["get_map"] = {"map": voc["map"], "coco_ap": coco.ap,
+                      "eval_metric_ap": again.ap}
+    # one command as a user runs it: its own interpreter
+    sub_json = os.path.join(root, "val_subprocess.json")
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "glsdet_tpu_torch.tools.convert_datasets",
+         "visdrone", val_root, sub_json], capture_output=True, text=True,
+        timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__))))
+    with open(sub_json) as f, open(os.path.join(wd, "val.json")) as g:
+        same = json.load(f) == json.load(g)
+    if proc.returncode != 0 or not same:
+        raise AssertionError(f"python -m convert_datasets: rc "
+                             f"{proc.returncode}, equal {same}: "
+                             f"{proc.stderr[-2000:]}")
+    out["subprocess_convert_s"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = {
+        k: sum(v[k] for v in (out["cycle_kernels"]["launches"],
+                              out["test_int8"]["launches"],
+                              out["predict"]["launches"],
+                              out["serve"]["launches"],
+                              out["merge"]["launches"]))
+        for k in ("nms", "paint_inputs", "gn")}
+    print(json.dumps({"workflow": out}), flush=True)
+    return out
+
+
 
 def main() -> None:
     # float32 products of the plain versions stay float32 on the card
@@ -5116,6 +5471,8 @@ def main() -> None:
         inp = phase_inputs(smi, loop_ds, tmp, serve["windows"])
         var = phase_variants(smi, loop_ds, tmp, frames)
     phase_orbax(smi, frames)
+    with tempfile.TemporaryDirectory() as tmp:
+        wf = phase_workflow(smi, tmp)
     launches = bf16["launches"]
     eval_nms = {run: ev[run]["nms"] for run in
                 ("coarse_det", "mp_det_res50", "tta", "ufpmp_bf16",
@@ -5155,7 +5512,15 @@ def main() -> None:
                              for run, n in inp["launches"].items()},
          "inputs_checked": inputs_checked(inp, "nms"),
          "inputs_max_abs_err": 0.0,
-         **variants_nms(var)},
+         **variants_nms(var),
+         "workflow_launches": wf["launches"]["nms"],
+         "workflow_build_launches": wf["build_kernels"]["launches"]["nms"],
+         "workflow_build_ms": wf["build_kernels"]["nms"]["per_run"]["ms"],
+         "workflow_build_plain_ms":
+             wf["build_kernels"]["nms"]["per_run"]["plain_ms"],
+         "workflow_build_bound_ms":
+             wf["build_kernels"]["nms"]["per_run"]["bound_ms"],
+         "workflow_max_abs_err": 0.0},
         {"name": "paint_mosaic", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/paint.cu",
          "replaces": "glsdet_tpu/ufp/pallas_paint.py:368",
@@ -5175,7 +5540,11 @@ def main() -> None:
          "inputs_launches": {run: n["paint_inputs"]
                              for run, n in inp["launches"].items()},
          "inputs_groups_checked": inputs_checked(inp, "paint"),
-         "inputs_max_abs_err": 0.0},
+         "inputs_max_abs_err": 0.0,
+         "workflow_launches": wf["launches"]["paint_inputs"],
+         "workflow_eval_ms": {f"{t['hw']}x{t['batch']}": t["ms"]
+                              for t in wf["cycle_kernels"]["paint"]},
+         "workflow_max_abs_err": 0.0},
         {"name": "gn_relu_quant", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/gn_quant.cu",
          "replaces": "glsdet_tpu/ops/pallas_gn.py:173",
@@ -5191,7 +5560,12 @@ def main() -> None:
          "ufpmp_eval_int8_levels": [
              {k: t[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                                 "max_abs_err")}
-             for t in ev["ufpmp_int8"]["gn"]]},
+             for t in ev["ufpmp_int8"]["gn"]],
+         "workflow_launches": wf["launches"]["gn"],
+         "workflow_test_int8_levels": [
+             {k: t[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                "max_abs_err")}
+             for t in wf["test_int8"]["gn"]]},
         {"name": "fused_bottleneck", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/bottleneck.cu",
          "replaces": "glsdet_tpu/ops/pallas_bottleneck.py:212",

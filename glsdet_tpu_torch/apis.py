@@ -63,36 +63,44 @@ def init_detector(config_name: str, checkpoint: Optional[str] = None,
     parameters are the checkpoint's EMA with ``use_ema`` and its raw
     parameters without; BN statistics are the checkpoint's either
     way."""
-    from glsdet_tpu_torch.train.loop import (build_optimizer,
-                                             make_state_template,
-                                             merge_weights, restore_raw)
-
     cfg = get_config(config_name)
     if options:
         apply_overrides(cfg, options)
     model = build_model(cfg, device)
-    if not checkpoint:
-        return cfg, model, model.state_dict()
+    if checkpoint:
+        load_checkpoint(cfg, model, checkpoint, use_ema)
+    return cfg, model.eval(), model.state_dict()
+
+
+def load_checkpoint(cfg, model, checkpoint: str, use_ema: bool = True,
+                    strict: bool = True) -> None:
+    """Load ``checkpoint`` into ``model`` (built from ``cfg``) in place,
+    as :func:`init_detector` describes.  With ``strict=False`` a bare
+    state-dict file loads shape-matched too, as ``tools/test.py`` loads
+    it."""
+    from glsdet_tpu_torch.train.loop import (build_optimizer,
+                                             make_state_template,
+                                             merge_weights, restore_raw)
+
     raw = restore_raw(checkpoint)
-    if "model" not in raw:          # a bare state dict, loaded strictly
+    if strict and "model" not in raw:     # a bare state dict
         try:
             model.load_state_dict(raw, strict=True)
         except RuntimeError as e:
             raise ValueError(f"{checkpoint} does not hold the weights of "
-                             f"{config_name}: {e}") from e
-        return cfg, model, model.state_dict()
+                             f"{cfg.name}: {e}") from e
+        return
     gen = torch.Generator(device=next(model.parameters()).device)
     state = make_state_template(cfg, model, build_optimizer(cfg, 1000, model),
                                 gen)
     state, n_loaded, skipped = merge_weights(raw, state)
     if n_loaded == 0:
         raise ValueError(f"no weight arrays in {checkpoint} match "
-                         f"{config_name}: {skipped[:5]}")
+                         f"{cfg.name}: {skipped[:5]}")
     if use_ema:
         with torch.no_grad():
             for name, p in model.named_parameters():
                 p.copy_(state.ema_params[name])
-    return cfg, model.eval(), model.state_dict()
 
 
 def _dtype(device: torch.device) -> torch.dtype:

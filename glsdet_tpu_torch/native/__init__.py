@@ -61,18 +61,16 @@ def _rows(out: np.ndarray, r: int, max_regions: int) -> np.ndarray:
     return rows
 
 
-def unified_foreground_packing_rows(
-    boxes: np.ndarray, scale: float, input_shape: Sequence[float],
-    max_regions: int, width_min: float = 300.0, width_max: float = 2666.0,
-) -> Tuple[np.ndarray, int, float, float]:
-    """UFP packing straight to padded (max_regions, 7) rows.
-
-    Returns ``(rows, n_regions, mosaic_w, mosaic_h)``."""
+def _pack(boxes: np.ndarray, scale: float, input_shape: Sequence[float],
+          width_min: float, width_max: float
+          ) -> Tuple[np.ndarray, float, float]:
+    """The packer's raw float64 region rows ``(n_regions, 7)`` and the
+    mosaic's (width, height)."""
     lib = get_lib()
     boxes = np.ascontiguousarray(np.asarray(boxes, np.float64).reshape(-1, 4))
     n = boxes.shape[0]
     if n == 0:
-        return np.zeros((max_regions, 7), np.float32), 0, 0.0, 0.0
+        return np.zeros((0, 7), np.float64), 0.0, 0.0
     out = np.zeros((n, 7), np.float64)
     wh = np.zeros((2,), np.float64)
     r = lib.ufp_pack(_ptr(boxes), n, float(scale), float(input_shape[0]),
@@ -80,7 +78,34 @@ def unified_foreground_packing_rows(
                      float(width_max), _ptr(out), _ptr(wh))
     if r < 0:
         raise RuntimeError("ufp_pack failed")
-    return _rows(out, r, max_regions), r, float(wh[0]), float(wh[1])
+    return out[:r], float(wh[0]), float(wh[1])
+
+
+def unified_foreground_packing_rows(
+    boxes: np.ndarray, scale: float, input_shape: Sequence[float],
+    max_regions: int, width_min: float = 300.0, width_max: float = 2666.0,
+) -> Tuple[np.ndarray, int, float, float]:
+    """UFP packing straight to padded (max_regions, 7) rows.
+
+    Returns ``(rows, n_regions, mosaic_w, mosaic_h)``."""
+    out, w, h = _pack(boxes, scale, input_shape, width_min, width_max)
+    return _rows(out, len(out), max_regions), len(out), w, h
+
+
+def unified_foreground_packing_native(
+    boxes: np.ndarray, scale: float, input_shape: Sequence[float],
+    width_min: float = 300.0, width_max: float = 2666.0,
+):
+    """The C++ packer with ``ufp/packing.py``'s API, as the JAX package's
+    ``native.unified_foreground_packing_native``: ``(list[Region],
+    mosaic_w, mosaic_h)``, the region fields the packer's unfloored
+    float64 values."""
+    from glsdet_tpu_torch.ufp.packing import Region
+
+    out, w, h = _pack(boxes, scale, input_shape, width_min, width_max)
+    return [Region(x1=row[0], y1=row[1], w=row[2], h=row[3], new_x=row[4],
+                   new_y=row[5], scale_factor=int(row[6]))
+            for row in out], w, h
 
 
 def unified_foreground_packing_rows_fit(

@@ -26,6 +26,8 @@ import time
 
 import numpy as np
 
+from glsdet_tpu_torch.tools.common import add_device_arg, checkpoint_arg
+
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -53,16 +55,8 @@ def parser() -> argparse.ArgumentParser:
                     help="saved-scales json: load it instead of "
                          "calibrating when it exists, else calibrate and "
                          "save there (implies --int8-static)")
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (the card; raises without one) or cpu")
+    add_device_arg(ap)
     return ap
-
-
-def _checkpoint(ckpt: str):
-    """The checkpoint argument as ``init_detector`` takes it."""
-    if not ckpt or ckpt == "none":
-        return None
-    return ckpt
 
 
 def main(argv=None):
@@ -78,9 +72,9 @@ def main(argv=None):
     from glsdet_tpu_torch.ops.quant_static import load_scales, save_scales
 
     resolve_device(args.device)
-    first = (args.first_cfg, _checkpoint(args.first_ckpt),
+    first = (args.first_cfg, checkpoint_arg(args.first_ckpt),
              parse_cfg_options(args.first_options))
-    second = (args.second_cfg, _checkpoint(args.second_ckpt),
+    second = (args.second_cfg, checkpoint_arg(args.second_ckpt),
               parse_cfg_options(args.second_options))
 
     def load(name, ckpt, opts):

@@ -6,7 +6,7 @@ Behavioral references:
   context manager; the JAX package fences with ``block_until_ready``,
   the port with ``torch.cuda.synchronize`` where the card is in use).
 - ``yolox-drone/models/core/callbacks.py:10`` (LossHistory: per-epoch
-  loss txt + smoothed matplotlib plot in the work dir).
+  loss txt + smoothed plot in the work dir, drawn in numpy).
 - ``mmdet/utils/collect_env.py`` + logger (env + git hash).
 """
 
@@ -103,8 +103,9 @@ def collect_env() -> dict:
 class LossHistory:
     """Per-epoch loss log + smoothed plot (callbacks.py:10).
 
-    Writes ``epoch_loss.txt`` / ``epoch_val_loss.txt`` and, where
-    matplotlib imports, ``epoch_loss.png`` per append.
+    Writes ``epoch_loss.txt`` / ``epoch_val_loss.txt`` and
+    ``epoch_loss.png`` per append (drawn in numpy, where the JAX package
+    plots with matplotlib).
     """
 
     def __init__(self, log_dir: str):
@@ -125,33 +126,44 @@ class LossHistory:
         self._plot()
 
     def _plot(self):
-        try:
-            import matplotlib
+        """``epoch_loss.png``: the train loss (red), the val loss (coral)
+        and, from 5 epochs on, the train loss smoothed by a Savitzky-Golay
+        filter (green; scipy's, where it imports), drawn in numpy on a
+        grid (the GPU machine has no matplotlib)."""
+        import numpy as np
 
-            matplotlib.use("Agg")
-            import matplotlib.pyplot as plt
-        except ImportError:
-            return
-        iters = range(len(self.losses))
-        plt.figure()
-        plt.plot(iters, self.losses, "red", linewidth=2, label="train loss")
+        from glsdet_tpu_torch.data.image_io import write_png
+
+        curves = [(self.losses, (255, 0, 0))]
         if self.val_losses:
-            plt.plot(range(len(self.val_losses)), self.val_losses,
-                     "coral", linewidth=2, label="val loss")
+            curves.append((self.val_losses, (255, 127, 80)))
         if len(self.losses) >= 5:
             try:
                 from scipy.signal import savgol_filter
 
                 num = 5 if len(self.losses) < 25 else 15
-                plt.plot(iters,
-                         savgol_filter(self.losses, num, 3),
-                         "green", linestyle="--", linewidth=2,
-                         label="smooth train loss")
+                curves.append((list(savgol_filter(self.losses, num, 3)),
+                               (0, 128, 0)))
             except ImportError:
                 pass
-        plt.grid(True)
-        plt.xlabel("Epoch")
-        plt.ylabel("Loss")
-        plt.legend(loc="upper right")
-        plt.savefig(os.path.join(self.log_dir, "epoch_loss.png"))
-        plt.close("all")
+        h, w, pad = 480, 640, 40
+        img = np.full((h, w, 3), 255, np.uint8)
+        img[pad:h - pad + 1:(h - 2 * pad) // 8, pad:w - pad] = 220  # grid
+        img[pad:h - pad, pad:w - pad + 1:(w - 2 * pad) // 8] = 220
+        vals = np.concatenate([np.asarray(c, np.float64) for c, _ in curves])
+        lo, hi = float(vals.min()), float(vals.max())
+        span = hi - lo if hi > lo else 1.0
+        n = max(len(self.losses), len(self.val_losses), 2) - 1
+        for ys, color in curves:
+            x = pad + np.arange(len(ys)) * (w - 2 * pad) / n
+            y = h - pad - (np.asarray(ys, np.float64) - lo) / span * (
+                h - 2 * pad)
+            if len(ys) == 1:
+                x, y = np.repeat(x, 2), np.repeat(y, 2)
+            t = np.linspace(0.0, 1.0, 64)[:, None]
+            px = (x[:-1] + t * (x[1:] - x[:-1])).ravel()
+            py = (y[:-1] + t * (y[1:] - y[:-1])).ravel()
+            for d in (-1, 0, 1):        # a 2-3 pixel wide line
+                img[np.clip(np.round(py).astype(int) + d, 0, h - 1),
+                    np.clip(np.round(px).astype(int), 0, w - 1)] = color
+        write_png(os.path.join(self.log_dir, "epoch_loss.png"), img)

@@ -3,8 +3,10 @@
 Every module of ``glsdet_tpu_torch`` is imported in a fresh interpreter
 where ``sys.modules["jax"]`` and ``sys.modules["glsdet_tpu"]`` are None,
 so any import of either (a jax-free module of the JAX package included)
-raises there.  ``tensorstore``, ``orbax`` and ``zstandard`` are blocked
-the same way (the GPU machine has none of them), and the orbax reader
+raises there.  ``tensorstore``, ``orbax``, ``zstandard``, OpenCV, PIL and
+matplotlib are blocked the same way (the GPU machine has none of them),
+and no source of the port names the last three even in a function that
+only imports them when called.  The orbax reader
 reads the committed JAX checkpoint fixtures there (the ``TrainState`` and
 the two-stage archive)."""
 
@@ -14,12 +16,14 @@ import pkgutil
 import subprocess
 import sys
 
+import pytest
+
 import glsdet_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 BLOCKED = ("jax", "flax", "glsdet_tpu", "tensorstore", "orbax",
-           "zstandard")
+           "zstandard", "cv2", "PIL", "matplotlib")
 PROBE = """
 import importlib, json, pkgutil, sys
 BLOCKED = %r
@@ -41,6 +45,30 @@ bad = sorted(m for m, mod in sys.modules.items() if mod is not None
              and m.split(".")[0] in BLOCKED)
 print(json.dumps([len(names), bad, sorted(tree), mp]))
 """ % (BLOCKED,)
+
+
+# the workflow's commands (python -m glsdet_tpu_torch.tools.<name>)
+TOOLS = ("print_config", "convert_datasets", "train", "build_ufp_dataset",
+         "test", "get_map", "eval_metric", "merge_results",
+         "ufp_eval_from_txt", "predict", "serve", "visdrone_e2e", "common")
+
+
+def _importers(pattern):
+    """The port's sources (relative paths) with a line matching
+    ``pattern``."""
+    import re
+
+    pat = re.compile(pattern, re.M)
+    pkg = os.path.dirname(glsdet_tpu_torch.__file__)
+    bad = []
+    for dirpath, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(dirpath, name)) as f:
+                    if pat.search(f.read()):
+                        bad.append(os.path.relpath(
+                            os.path.join(dirpath, name), pkg))
+    return bad
 
 
 def test_every_port_module_imports_without_jax():
@@ -85,7 +113,8 @@ def test_every_port_module_imports_without_jax():
                  "glsdet_tpu_torch.models.variants.necks",
                  "glsdet_tpu_torch.native",
                  "glsdet_tpu_torch.utils.orbax_read",
-                 "glsdet_tpu_torch.utils.flax_import"):
+                 "glsdet_tpu_torch.utils.flax_import",
+                 *(f"glsdet_tpu_torch.tools.{t}" for t in TOOLS)):
         assert name in modules
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
@@ -115,3 +144,11 @@ def test_no_port_module_imports_opencv():
                         bad.append(os.path.relpath(
                             os.path.join(dirpath, name), pkg))
     assert bad == []
+
+
+@pytest.mark.parametrize("library", ["PIL", "matplotlib"])
+def test_no_port_module_imports_a_library_the_card_machine_lacks(library):
+    """Nor PIL nor matplotlib (the JAX package's predict CLI reads images
+    with PIL, its analysis tools plot with matplotlib)."""
+    assert _importers(rf"^\s*(import {library}\b|from {library}[. ])") \
+        == []
