@@ -210,9 +210,9 @@ Phases, in the order they run, each printing one line:
      within +-1 code (share differing printed), warp_affine_u8 and
      resize_linear_u8 equal, and three float64 steps of train() for
      YOLOX-nano at 128x128 on both devices, losses and every leaf within
-     1e-5 (relative; of a leaf's max).  Last, the loader alone at 4
-     workers and at os.cpu_count(), the decode cache off and on,
-     samples/s.  Printed as one {"train_loop": ...} line;
+     1e-5 (relative; of a leaf's max).  Last, the loader alone at
+     os.cpu_count() workers, the decode cache on, samples/s.  Printed as
+     one {"train_loop": ...} line;
  22. eval, over phase 21's 64 PNG frames as a val split (their own
      synthetic annotations): YOLOX-s with its norm statistics and biases
      jittered from the seed (at the initializers' constants every score
@@ -252,7 +252,7 @@ Phases, in the order they run, each printing one line:
      over 16 JPEG val frames (8 of each size) and over PNGs of the pixels
      decoded from them: equal detections and stats, B2 and B1 checked as
      in phase 22; one epoch (8 steps) of train(coarse_det) reading the
-     JPEGs, and the loader alone at 4 workers; collect_env().  Printed as
+     JPEGs; collect_env().  Printed as
      one {"inputs": ...} line;
  24. variants, the zoo of models/variants (no kernel of its own; B2 runs
      in their postprocess).  yolox_ffa at full width (FFAYoloBody, phi s,
@@ -339,6 +339,25 @@ Phases, in the order they run, each printing one line:
      as one {"workflow": ...} line: stage seconds, the build's frames a
      second, mosaics and annotations written, each train() stage's
      ms/step, the eval's COCO stats (parity only), the launches.
+ 27. analysis: the analysis and robustness commands on the card through
+     their main(argv), on phase 26's outputs (its 16 val JPEG frames,
+     val.json, the two-stage eval's detections, train()'s log of
+     coarse_det, the coarse checkpoint): benchmark of coarse_det
+     (YOLOX-s, 640x640, batch 8) and mp_det_res50 (1024x1024, batch 4),
+     coarse_det --train (batch 8), one --trace-dir run whose Chrome trace
+     holds the card's kernels; get_flops and summary of both, each
+     parameter count equal to the CPU model's; export coarse_det
+     --with-nms --check (a torch.export program, reloaded: every output
+     torch.equal to the eager one, B2 launched by the reloaded program);
+     draw_cam on one frame; test_robustness coarse_det over the 16 frames,
+     all nine corruptions at severities 1 and 5 (19 evaluations, the
+     OpenCV twins on the CPU); then optimize_anchors, analyze_dataset,
+     analyze_logs (both tasks), coco_error_analysis, confusion_matrix,
+     draw_bbox, browse_dataset and analyze_results.  Every B2 launch
+     captured (the exported program's too), counted, its keep mask equal
+     to nms_sorted_plain's and timed.  Printed as one {"analysis": ...}
+     line; B2's entry of the kernel line adds its launches and times
+     (analysis_*).
 Then one JSON line of per-kernel results (each with its bound: the bytes
 it must move at 3.35 TB/s or its operations at the card's peak for their
 type, whichever is longer) and, last, the device line.  A kernel's ``ms``
@@ -3416,38 +3435,36 @@ def loop_card_vs_cpu(ds, tmp) -> dict:
     return out
 
 
-def loader_rates(ds, reps=12, workers=None, caches=(False, True)) -> dict:
+def loader_rates(ds, reps=12) -> dict:
     """The loader alone at coarse_det's recipe (mosaic, mixup, device
     colour keys, batch 8, pinned): samples/s over ``reps`` batches after
-    two, at 4 workers and at os.cpu_count(), the decode cache off and
-    on."""
+    two, at os.cpu_count() workers (the rate ROADMAP item 17 reads), with
+    the decode cache on, which drives ``CocoDataset``'s cache and its drop
+    on pickling into the workers; every ``train()`` run drives the cache
+    off."""
     from glsdet_tpu_torch.data.coco import CocoDataset
     from glsdet_tpu_torch.data.loader import TrainPipeline, train_loader
 
-    out = {}
-    for workers in workers or (4, os.cpu_count()):
-        for cache in caches:
-            data = CocoDataset(ds["ann_file"], ds["img_root"],
-                               filter_empty=True, cache_images=cache)
-            pipe = TrainPipeline(data, COARSE_HW, YOLOX_MAX_GT,
-                                 raw_uint8=True, device_color=True)
-            loader = train_loader(pipe, YOLOX_B, seed=0,
-                                  num_workers=workers, pin_memory=True)
-            try:
-                t_start = time.perf_counter()
-                for _ in range(2):
-                    next(loader)
-                first = time.perf_counter() - t_start
-                t0 = time.perf_counter()
-                for _ in range(reps):
-                    next(loader)
-                dt = time.perf_counter() - t0
-            finally:
-                loader.close()
-            out[f"workers_{workers}_cache_{'on' if cache else 'off'}"] = {
-                "samples_per_s": reps * YOLOX_B / dt,
-                "first_two_batches_s": first}
-    return out
+    workers = os.cpu_count()
+    data = CocoDataset(ds["ann_file"], ds["img_root"], filter_empty=True,
+                       cache_images=True)
+    pipe = TrainPipeline(data, COARSE_HW, YOLOX_MAX_GT, raw_uint8=True,
+                         device_color=True)
+    loader = train_loader(pipe, YOLOX_B, seed=0, num_workers=workers,
+                          pin_memory=True)
+    try:
+        t_start = time.perf_counter()
+        for _ in range(2):
+            next(loader)
+        first = time.perf_counter() - t_start
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            next(loader)
+        dt = time.perf_counter() - t0
+    finally:
+        loader.close()
+    return {f"workers_{workers}_cache_on": {
+        "samples_per_s": reps * YOLOX_B / dt, "first_two_batches_s": first}}
 
 
 def phase_train_loop(smi: str, yolox: dict, tmp: str):
@@ -3585,7 +3602,7 @@ def capture_path(stage2_quant=None):
     and the kernels' launch counts, set to 0 first and read at the end."""
     from glsdet_tpu_torch.eval import two_stage
     from glsdet_tpu_torch.ops import nms as nms_mod
-    from glsdet_tpu_torch.ops import quant_static
+    from glsdet_tpu_torch.ops import nms_kernel, quant_static
 
     cap = {"nms": [], "groups": [], "stage2_calls": 0, "gn": {},
            "gn_calls": 0, "launches": None}
@@ -3611,7 +3628,8 @@ def capture_path(stage2_quant=None):
                                            s_out, kw)
         return real[2](acc, deq, gamma, beta, s_out, **kw)
 
-    nms_mod.nms_sorted_cuda = nms
+    # an exported program's NMS operator calls the wrapper in nms_kernel
+    nms_mod.nms_sorted_cuda = nms_kernel.nms_sorted_cuda = nms
     two_stage.TwoStagePipeline.stage2_packed = stage2
     quant_static.gn_relu_quant_acc = gn
     torch.cuda.synchronize()
@@ -3621,7 +3639,7 @@ def capture_path(stage2_quant=None):
         torch.cuda.synchronize()
         cap["launches"] = read_launches()
     finally:
-        nms_mod.nms_sorted_cuda = real[0]
+        nms_mod.nms_sorted_cuda = nms_kernel.nms_sorted_cuda = real[0]
         two_stage.TwoStagePipeline.stage2_packed = real[1]
         quant_static.gn_relu_quant_acc = real[2]
 
@@ -4396,7 +4414,7 @@ def inputs_http(facade, frames, root, json_windows) -> dict:
 
 def inputs_train(split, tmp) -> dict:
     """One epoch of train(coarse_det) at full width reading the JPEG
-    frames (8 steps), then the loader alone at 4 workers, cache off."""
+    frames (8 steps)."""
     work = os.path.join(tmp, "inputs_train")
     cfg = loop_cfg("coarse_det", split, work, **{
         "train.epochs": 1, "train.warmup_epochs": 1,
@@ -4406,8 +4424,7 @@ def inputs_train(split, tmp) -> dict:
         raise AssertionError(f"train from JPEG: {state.step} steps, "
                              f"{len(logs)} log entries")
     return {"steps": state.step, "host_ms_per_step": float(np.mean(gaps)),
-            "loss_last": logs[-1]["loss"], **run,
-            "loader": loader_rates(split, workers=(4,), caches=(False,))}
+            "loss_last": logs[-1]["loss"], **run}
 
 
 def phase_inputs(smi: str, ds, tmp: str, json_windows) -> dict:
@@ -5415,6 +5432,7 @@ def phase_workflow(smi: str, tmp: str) -> dict:
                              f"{proc.stderr[-2000:]}")
     out["subprocess_convert_s"] = time.perf_counter() - t1
     out["seconds"] = time.perf_counter() - t0
+    out["checkpoints"] = {"coarse": paths[0], "mp": paths[1]}
     out["launches"] = {
         k: sum(v[k] for v in (out["cycle_kernels"]["launches"],
                               out["test_int8"]["launches"],
@@ -5425,6 +5443,216 @@ def phase_workflow(smi: str, tmp: str) -> dict:
     print(json.dumps({"workflow": out}), flush=True)
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# 27. analysis: the analysis and robustness commands
+
+
+ANALYSIS_ITERS = 10          # timed passes of each benchmark, after 2
+ANALYSIS_SEVERITIES = ("1", "5")
+ANALYSIS_SHOW = 3            # images of each drawing command
+
+
+def command(fn, argv):
+    """``fn(argv)`` with its printed lines kept; returns (what it
+    returned, its lines, seconds)."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ret = fn([str(a) for a in argv])
+    return ret, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def finite(x):
+    """A float for the JSON line: NaN (rPC at a clean AP of 0) as None."""
+    return None if x is None or not np.isfinite(x) else float(x)
+
+
+def cpu_params(name) -> int:
+    from glsdet_tpu_torch.config import get_config
+    from glsdet_tpu_torch.models.build import build_model
+
+    model = build_model(get_config(name), "cpu")
+    return sum(p.numel() for p in model.parameters())
+
+
+def same_tree(a, b) -> bool:
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and torch.equal(a, b)
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(same_tree(a[k], b[k])
+                                              for k in a)
+    return len(a) == len(b) and all(same_tree(x, y) for x, y in zip(a, b))
+
+
+def analysis_models(root, wf) -> dict:
+    """benchmark, get_flops, summary, export and draw_cam (phase 27)."""
+    from glsdet_tpu_torch.tools import (benchmark, draw_cam, export,
+                                        get_flops, summary)
+
+    out, calls = {}, []
+    dev = ["--device", DEVICE]
+    runs = {"coarse_det": ["coarse_det", "--batch-size", "8"],
+            "mp_det_res50": ["mp_det_res50", "--batch-size", "4"],
+            "coarse_det_train": ["coarse_det", "--batch-size", "8",
+                                 "--train"]}
+    for run, argv in runs.items():
+        with capture_path() as cap:
+            ret, lines, sec = command(benchmark.main, [
+                *argv, "--iters", ANALYSIS_ITERS, "--warmup", 2, *dev])
+        want = 0 if run.endswith("train") else ANALYSIS_ITERS + 2
+        if cap["launches"]["nms"] != want or len(cap["nms"]) != want:
+            raise AssertionError(f"benchmark {run}: {cap['launches']}")
+        calls += cap["nms"]
+        out[f"benchmark_{run}"] = {**ret, "line": lines[-1], "seconds": sec,
+                                   "launches": cap["launches"]["nms"]}
+    trace = os.path.join(root, "trace")
+    with capture_path() as cap:
+        ret, lines, sec = command(benchmark.main, [
+            "coarse_det", "--batch-size", "8", "--iters", 3, "--warmup", 1,
+            "--trace-dir", trace, *dev])
+    with open(os.path.join(trace, "coarse_det.trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    # the card's kernels (a CPU rehearsal, DEVICE "cpu", sees host ops)
+    kernels = sum(e.get("cat") == ("kernel" if DEVICE == "cuda"
+                                   else "cpu_op") for e in events)
+    if kernels == 0 or cap["launches"]["nms"] != 4:
+        raise AssertionError(f"benchmark --trace-dir: {kernels} kernel "
+                             f"events, {cap['launches']}")
+    calls += cap["nms"]
+    out["benchmark_trace"] = {**ret, "seconds": sec, "launches": 4,
+                              "kernel_events": kernels,
+                              "bytes": os.path.getsize(os.path.join(
+                                  trace, "coarse_det.trace.json"))}
+    for name in ("coarse_det", "mp_det_res50"):
+        (n, flops), lines, sec = command(get_flops.main, [name, *dev])
+        (_, n2, nbytes), slines, ssec = command(summary.main, [name, *dev])
+        want = cpu_params(name)
+        if not n == n2 == want:
+            raise AssertionError(f"{name}: get_flops {n}, summary {n2}, "
+                                 f"the CPU model {want} parameters")
+        out[f"get_flops_{name}"] = {"params": n, "gflops": flops / 1e9,
+                                    "lines": lines, "seconds": sec}
+        out[f"summary_{name}"] = {"rows": len(slines) - 3,
+                                  "total": slines[-1], "seconds": ssec}
+    path = os.path.join(root, "coarse_det.pt2")
+    with capture_path() as cap:
+        (eager, again), lines, sec = command(export.main, [
+            "coarse_det", path, "--with-nms", "--check", *dev])
+    if not same_tree(eager, again) or cap["launches"]["nms"] != 2 \
+            or len(cap["nms"]) != 2:
+        raise AssertionError(f"export: equal {same_tree(eager, again)}, "
+                             f"{cap['launches']}, {len(cap['nms'])} captured")
+    calls += cap["nms"]
+    out["export"] = {"lines": lines, "seconds": sec, "bytes":
+                     os.path.getsize(path), "reloaded_equal": True,
+                     "launches": 2, "valid": int(eager["valid"].sum())}
+    frame_path = os.path.join(root, "val", "images", sorted(os.listdir(
+        os.path.join(root, "val", "images")))[0])
+    (layer, cam, overlay), lines, sec = command(draw_cam.main, [
+        "--config", "coarse_det", "--checkpoint", wf["checkpoints"]["coarse"],
+        "--image", frame_path, "--out", os.path.join(root, "cam.jpg"), *dev])
+    if not (np.isfinite(cam).all() and overlay.shape[:2] == FRAME_HW):
+        raise AssertionError(f"draw_cam: {lines}")
+    out["draw_cam"] = {"layer": layer, "cam_hw": list(cam.shape),
+                       "seconds": sec}
+    return out, calls
+
+
+def analysis_host(root, wd, val_img) -> dict:
+    """The eight host commands on phase 26's outputs (phase 27)."""
+    from glsdet_tpu_torch.tools import (analyze_dataset, analyze_logs,
+                                        analyze_results, browse_dataset,
+                                        coco_error_analysis,
+                                        confusion_matrix, draw_bbox,
+                                        optimize_anchors)
+
+    ann, dets = os.path.join(wd, "val.json"), os.path.join(wd,
+                                                           "val_dets.json")
+    log_json = os.path.join(wd, "coarse", "train.log.json")
+    a = os.path.join(root, "analysis")
+    runs = {
+        "optimize_anchors": (optimize_anchors.main, [ann]),
+        "analyze_dataset": (analyze_dataset.main, [ann]),
+        "analyze_logs_time": (analyze_logs.main, ["cal_train_time",
+                                                  log_json]),
+        "analyze_logs_plot": (analyze_logs.main, [
+            "plot_curve", log_json, "--keys", "loss", "loss_cls", "--out",
+            os.path.join(a, "curve.png")]),
+        "coco_error_analysis": (coco_error_analysis.main, [
+            ann, dets, "--out-dir", os.path.join(a, "errors")]),
+        "confusion_matrix": (confusion_matrix.main, [
+            ann, dets, "--out", os.path.join(a, "confusion.png")]),
+        "draw_bbox": (draw_bbox.main, [
+            "--coco", ann, "--img-root", val_img, "--out",
+            os.path.join(a, "bbox"), "--max-images", ANALYSIS_SHOW]),
+        "browse_dataset": (browse_dataset.main, [
+            ann, val_img, os.path.join(a, "browse"), "--num",
+            ANALYSIS_SHOW]),
+        "analyze_results": (analyze_results.main, [
+            dets, "--ann", ann, "--img-root", val_img, "--out-dir",
+            os.path.join(a, "results"), "--topk", ANALYSIS_SHOW]),
+    }
+    os.makedirs(a)
+    out = {}
+    for name, (fn, argv) in runs.items():
+        _, lines, sec = command(fn, argv)
+        out[name] = {"last_line": lines[-1] if lines else "",
+                     "seconds": sec}
+    written = {d: len(os.listdir(os.path.join(a, d)))
+               for d in ("errors", "bbox", "browse")}
+    if written["bbox"] != ANALYSIS_SHOW or written["browse"] \
+            != ANALYSIS_SHOW or not written["errors"] \
+            or not os.path.exists(os.path.join(a, "confusion.png")):
+        raise AssertionError(f"host commands wrote {written}")
+    out["written"] = written
+    return out
+
+
+def phase_analysis(smi: str, tmp: str, wf: dict) -> dict:
+    """The analysis and robustness commands on the card (module
+    docstring, phase 27), on phase 26's outputs under ``tmp``."""
+    from glsdet_tpu_torch.config import get_config
+    from glsdet_tpu_torch.data.corruptions import BENCHMARK_CORRUPTIONS
+    from glsdet_tpu_torch.tools import test_robustness
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "workflow")
+    wd, val_img = os.path.join(root, "e2e"), os.path.join(root, "val",
+                                                          "images")
+    out = {"card": smi}
+    models, calls = analysis_models(root, wf)
+    out.update(models)
+    with capture_path() as cap:
+        rob, lines, sec = command(test_robustness.main, [
+            "coarse_det", "--ckpt", wf["checkpoints"]["coarse"], "--use-ema",
+            "--ann", os.path.join(wd, "val.json"), "--img-root", val_img,
+            "--severities", *ANALYSIS_SEVERITIES, "--out",
+            os.path.join(root, "robustness.json"), "--device", DEVICE])
+    evals = 1 + len(BENCHMARK_CORRUPTIONS) * len(ANALYSIS_SEVERITIES)
+    batches = -(-WORKFLOW_FRAMES[1]
+                // get_config("coarse_det").data.batch_size)
+    cells = [v for row in rob["grid"].values() for v in row]
+    if not cap["launches"]["nms"] == evals * batches == len(cap["nms"]) \
+            or len(cells) != evals - 1 \
+            or not all(0.0 <= v <= 1.0 for v in cells):
+        raise AssertionError(f"test_robustness: {cap['launches']}, "
+                             f"{len(cap['nms'])} captured, {rob}")
+    calls += cap["nms"]
+    out["test_robustness"] = {
+        "seconds": sec, "evaluations": evals, "launches": evals * batches,
+        "clean_ap": rob["clean_ap"], "mPC": finite(rob["mPC"]),
+        "rPC": finite(rob["rPC"]), "lines": len(lines)}
+    log("analysis_models", since_phase_start_s=time.perf_counter() - t0)
+    out["host"] = analysis_host(root, wd, val_img)
+    out["nms"] = check_nms_calls(calls, "analysis")
+    out["launches"] = {"nms": len(calls)}
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"analysis": out}), flush=True)
+    return out
 
 
 def main() -> None:
@@ -5473,6 +5701,7 @@ def main() -> None:
     phase_orbax(smi, frames)
     with tempfile.TemporaryDirectory() as tmp:
         wf = phase_workflow(smi, tmp)
+        an = phase_analysis(smi, tmp, wf)
     launches = bf16["launches"]
     eval_nms = {run: ev[run]["nms"] for run in
                 ("coarse_det", "mp_det_res50", "tta", "ufpmp_bf16",
@@ -5520,7 +5749,17 @@ def main() -> None:
              wf["build_kernels"]["nms"]["per_run"]["plain_ms"],
          "workflow_build_bound_ms":
              wf["build_kernels"]["nms"]["per_run"]["bound_ms"],
-         "workflow_max_abs_err": 0.0},
+         "workflow_max_abs_err": 0.0,
+         "analysis_launches": {
+             k: v["launches"] for k, v in an.items()
+             if isinstance(v, dict) and "launches" in v and k != "nms"},
+         "analysis_shapes": [[t["batch"], t["k"]]
+                             for t in an["nms"]["shapes"]],
+         "analysis_ms": an["nms"]["per_run"]["ms"],
+         "analysis_graph_ms": an["nms"]["per_run"]["graph_ms"],
+         "analysis_plain_ms": an["nms"]["per_run"]["plain_ms"],
+         "analysis_bound_ms": an["nms"]["per_run"]["bound_ms"],
+         "analysis_max_abs_err": an["nms"]["max_abs_err"]},
         {"name": "paint_mosaic", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/paint.cu",
          "replaces": "glsdet_tpu/ufp/pallas_paint.py:368",

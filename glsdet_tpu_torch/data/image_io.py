@@ -395,3 +395,18 @@ def write_png(path: str, img: np.ndarray) -> int:
     with open(path, "wb") as f:
         f.write(data)
     return len(data)
+
+
+def write_image(path: str, img: np.ndarray) -> int:
+    """Write an RGB (or grey) uint8 image by ``path``'s extension, as
+    ``cv2.imwrite`` of its BGR picks the format: ``.jpg`` / ``.jpeg``
+    through :func:`write_jpeg` (quality 95, OpenCV's default), ``.png``
+    through :func:`write_png`; any other extension raises
+    ``ValueError``.  Returns the bytes written."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext in (".jpg", ".jpeg"):
+        return write_jpeg(path, img)
+    if ext == ".png":
+        return write_png(path, img)
+    raise ValueError(f"{path}: cannot write {ext or 'no'} extension "
+                     "(the port writes .jpg, .jpeg and .png)")

@@ -30,10 +30,14 @@ def _on_device(key: tuple, make: Callable[[], Tuple[np.ndarray, ...]],
                device) -> Tuple[torch.Tensor, ...]:
     """Host-built priors, copied to ``device`` once per (key, device) and
     kept: a decode then copies nothing to the card, a copy that would
-    wait for it (the serving stages make no host sync)."""
+    wait for it (the serving stages make no host sync).  They are made
+    outside inference mode, so that a program exported after an
+    inference-mode call (``tools/export.py``) can hold them."""
     k = (key, torch.device(device))
     if k not in _priors:
-        _priors[k] = tuple(torch.from_numpy(a).to(device) for a in make())
+        with torch.inference_mode(False):
+            _priors[k] = tuple(torch.from_numpy(a).to(device)
+                               for a in make())
     return _priors[k]
 
 

@@ -1,7 +1,10 @@
 """Image resizes and warps of the port: ``cv2.resize`` on uint8 frames
 (:func:`resize_linear_u8`), ``cv2.warpAffine`` on uint8 frames
 (:func:`warp_affine_u8`) and ``jax.image.resize(..., "bilinear")`` on
-float batches (:func:`resize_bilinear`); and the float preprocessing of
+float batches (:func:`resize_bilinear`); the OpenCV calls of the
+corruptions and the CAM tool (``cv2.filter2D``, ``getRotationMatrix2D``,
+a float ``warpAffine``, INTER_AREA and INTER_NEAREST resizes of uint8
+frames, INTER_LINEAR of float images); and the float preprocessing of
 ``glsdet_tpu.ops.image`` built on the last: :func:`normalize_image`,
 :func:`resize_keep_ratio`, :func:`letterbox` (pad 128, float canvas; not
 ``data/augment.py: letterbox``, pad 114 on uint8 with ``cv2.resize``)
@@ -42,9 +45,10 @@ COEF_BITS = 11
 COEF_SCALE = 1 << COEF_BITS
 
 
-def _taps(src: int, dst: int, clamp_weights: bool):
-    """Source indices (s, s + 1), clamped into the image, and the
-    fixed-point weights of each output position along one axis."""
+def _coords(src: int, dst: int, clamp_weights: bool):
+    """Source indices (s, s + 1), clamped into the image, and the float32
+    fraction ``f`` of each output position along one axis, as
+    ``cv2.resize`` INTER_LINEAR computes them."""
     scale = 1.0 / (dst / src)             # OpenCV: 1 / inv_scale
     f = ((np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5).astype(
         np.float32)
@@ -55,10 +59,15 @@ def _taps(src: int, dst: int, clamp_weights: bool):
         f[lo | hi] = 0.0
         s[lo] = 0
         s[hi] = src - 1
+    return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), f
+
+
+def _taps(src: int, dst: int, clamp_weights: bool):
+    """:func:`_coords` with the fixed-point weights of uint8 images."""
+    s0, s1, f = _coords(src, dst, clamp_weights)
     w0 = np.rint((np.float32(1.0) - f) * np.float32(COEF_SCALE))
     w1 = np.rint(f * np.float32(COEF_SCALE))
-    return (np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1),
-            w0.astype(np.int32), w1.astype(np.int32))
+    return s0, s1, w0.astype(np.int32), w1.astype(np.int32)
 
 
 def resize_linear_u8(img: torch.Tensor, out_hw: Tuple[int, int]
@@ -150,6 +159,33 @@ def warp_affine_u8(img: torch.Tensor, mat: np.ndarray,
     if img.dtype != torch.uint8 or img.dim() != 3:
         raise ValueError(f"expected an (H, W, C) uint8 image, got "
                          f"{img.dtype} {tuple(img.shape)}")
+    out = _warp_linear(img, mat, out_hw, float(border_value))
+    return torch.round(out).clamp(0, 255).to(torch.uint8)
+
+
+def warp_affine_f32(img: torch.Tensor, mat: np.ndarray,
+                    out_hw: Tuple[int, int], border_value: float = 0.0
+                    ) -> torch.Tensor:
+    """(H, W) or (H, W, C) float32 -> (h, w[, C]) float32, as
+    ``cv2.warpAffine(img, mat[:2], (w, h))`` (INTER_LINEAR, constant
+    border ``border_value``) computes it: OpenCV 5.0's float kernel of
+    :func:`warp_affine_u8` (the same coordinates, blocks and fused
+    multiply-adds) without the final rounding.  ``data/corruptions.py``
+    rotates its motion-blur kernel with it;
+    ``tests/test_torch_corruptions.py`` holds it equal to
+    ``cv2.warpAffine`` there."""
+    if img.dtype != torch.float32 or img.dim() not in (2, 3):
+        raise ValueError(f"expected an (H, W[, C]) float32 image, got "
+                         f"{img.dtype} {tuple(img.shape)}")
+    out = _warp_linear(img if img.dim() == 3 else img[..., None], mat,
+                       out_hw, float(border_value))
+    return out if img.dim() == 3 else out[..., 0]
+
+
+def _warp_linear(img: torch.Tensor, mat: np.ndarray, out_hw: Tuple[int, int],
+                 border_value: float) -> torch.Tensor:
+    """OpenCV 5.0's float warp of an (H, W, C) image, before the cast to
+    the output type (:func:`warp_affine_u8`'s docstring)."""
     src_h, src_w, ch = img.shape
     h, w = int(out_hw[0]), int(out_hw[1])
     m = [float(np.float32(v)) for v in _affine_inverse(mat)]
@@ -181,14 +217,200 @@ def warp_affine_u8(img: torch.Tensor, mat: np.ndarray,
         idx = (ty.clamp(0, src_h - 1) * src_w
                + tx.clamp(0, src_w - 1)).reshape(-1)
         v = flat.index_select(0, idx).reshape(h, w, ch).to(f32)
-        return torch.where(inside[..., None], v, float(border_value))
+        return torch.where(inside[..., None], v, border_value)
 
     p00, p01 = tap(iy, ix), tap(iy, ix + 1)
     p10, p11 = tap(iy + 1, ix), tap(iy + 1, ix + 1)
     v0 = _fma(alpha, p01 - p00, p00)
     v1 = _fma(alpha, p11 - p10, p10)
-    out = _fma(beta, v1 - v0, v0)
+    return _fma(beta, v1 - v0, v0)
+
+
+def rotation_matrix_2d(center: Tuple[float, float], angle: float,
+                       scale: float) -> np.ndarray:
+    """The (2, 3) float64 matrix ``cv2.getRotationMatrix2D(center, angle,
+    scale)`` returns: the centre taken as float32 (a ``Point2f``), the
+    angle in degrees, counter-clockwise."""
+    cx, cy = (float(np.float32(v)) for v in center)
+    a = angle * np.pi / 180
+    alpha, beta = np.cos(a) * scale, np.sin(a) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def _reflect101(n: int, lo: int, hi: int) -> np.ndarray:
+    """Indices of positions -lo .. n + hi - 1 of an axis of length ``n``
+    under OpenCV's BORDER_REFLECT_101 (``cv::borderInterpolate``)."""
+    out = []
+    for p in range(-lo, n + hi):
+        if n == 1:
+            p = 0
+        while not 0 <= p < n:
+            p = -p if p < 0 else 2 * n - p - 2
+        out.append(p)
+    return np.asarray(out, np.int64)
+
+
+def filter2d_u8(img: torch.Tensor, kernel: np.ndarray,
+                band: int = 64) -> torch.Tensor:
+    """(H, W, C) uint8 -> (H, W, C) uint8, as ``cv2.filter2D(img, -1,
+    kernel)`` computes it for a float32 kernel (anchor at its centre,
+    BORDER_REFLECT_101), on ``img``'s device.
+
+    OpenCV correlates directly in float32: the kernel's nonzero taps in
+    row-major order, each a fused multiply-add into the running sum
+    (``FilterVec_8u``'s ``v_muladd``), then rounds half to even and
+    saturates.  The fused multiply-add is a float64 product (exact for a
+    float32 tap and a byte) and sum rounded to float32.  For kernels of
+    130 taps and more (13x13 up) OpenCV may take a DFT instead, whose
+    float error moves results that lie within ~1e-5 of a half:
+    ``tests/test_torch_corruptions.py`` states per kernel what holds.
+
+    The chain runs over bands of ``band`` rows, each band through every
+    tap, so that a band's sums stay in cache (2-3x faster on a CPU for
+    the large disks; the same values)."""
+    if img.dtype != torch.uint8 or img.dim() != 3:
+        raise ValueError(f"expected an (H, W, C) uint8 image, got "
+                         f"{img.dtype} {tuple(img.shape)}")
+    k = np.asarray(kernel, np.float32)
+    kh, kw = k.shape
+    ay, ax = kh // 2, kw // 2
+    h, w = img.shape[:2]
+    dev = img.device
+    rows = torch.from_numpy(_reflect101(h, ay, kh - 1 - ay)).to(dev)
+    cols = torch.from_numpy(_reflect101(w, ax, kw - 1 - ax)).to(dev)
+    src = img[rows][:, cols].to(torch.float32)
+    taps = [(int(i), int(j), float(k[i, j])) for i, j in np.argwhere(k != 0)]
+    out = torch.zeros((h, w, img.shape[2]), dtype=torch.float32, device=dev)
+    for r0 in range(0, h, band):
+        r1 = min(h, r0 + band)
+        acc = out[r0:r1]
+        wide = torch.empty(acc.shape, dtype=torch.float64, device=dev)
+        for i, j, kij in taps:
+            wide.copy_(acc).add_(src[r0 + i:r1 + i, j:j + w], alpha=kij)
+            acc.copy_(wide)
     return torch.round(out).clamp(0, 255).to(torch.uint8)
+
+
+def _area_table(src: int, dst: int):
+    """OpenCV's ``computeResizeAreaTab`` along one axis as dense (dst, T)
+    source indices and float32 weights, in its order; unused taps weigh
+    0 (adding ``0 * x`` changes no sum)."""
+    scale = 1.0 / (dst / src)
+    taps = [[] for _ in range(dst)]
+    for d in range(dst):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, src - f1)
+        s2 = min(int(np.floor(f2)), src - 1)
+        s1 = min(int(np.ceil(f1)), s2)
+        if s1 - f1 > 1e-3:
+            taps[d].append((s1 - 1, (s1 - f1) / cell))
+        taps[d] += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            taps[d].append((s2, min(min(f2 - s2, 1.0), cell) / cell))
+    n = max(len(t) for t in taps)
+    idx = np.zeros((dst, n), np.int64)
+    wgt = np.zeros((dst, n), np.float32)
+    for d, t in enumerate(taps):
+        for c, (s, a) in enumerate(t):
+            idx[d, c], wgt[d, c] = s, a
+    return idx, wgt
+
+
+def resize_area_u8(img: torch.Tensor, out_hw: Tuple[int, int]
+                   ) -> torch.Tensor:
+    """(H, W, C) uint8 -> (h, w, C) uint8 with h <= H and w <= W, as
+    ``cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA)`` computes
+    it, on ``img``'s device.
+
+    - At integer factors (``H / h`` and ``W / w`` whole) OpenCV averages
+      each block: ``(a + b + c + d + 2) >> 2`` at 2x2 (its vector path),
+      else the integer sum times the float32 ``1 / area``, rounded half
+      to even.
+    - Otherwise each output pixel is the float32 sum, source row by
+      source row, of the pixels under it weighted by the share of them
+      it covers (``computeResizeAreaTab``): a horizontal pass per source
+      row, products rounded and added in the table's order, then the
+      rows weighted and added the same way; rounded half to even."""
+    if img.dtype != torch.uint8 or img.dim() != 3:
+        raise ValueError(f"expected an (H, W, C) uint8 image, got "
+                         f"{img.dtype} {tuple(img.shape)}")
+    src_h, src_w = img.shape[:2]
+    h, w = int(out_hw[0]), int(out_hw[1])
+    if not (0 < h <= src_h and 0 < w <= src_w):
+        raise ValueError(f"INTER_AREA shrinks: {(src_h, src_w)} -> {(h, w)}")
+    dev = img.device
+    sx, sy = 1.0 / (w / src_w), 1.0 / (h / src_h)
+    ix, iy = int(round(sx)), int(round(sy))
+    eps = np.finfo(np.float64).eps
+    if abs(sx - ix) < eps and abs(sy - iy) < eps:
+        blocks = img[:h * iy, :w * ix].to(torch.int32).reshape(
+            h, iy, w, ix, -1).sum(dim=(1, 3))
+        if ix == iy == 2:
+            return ((blocks + 2) >> 2).to(torch.uint8)
+        out = blocks.to(torch.float32) * np.float32(1.0 / (ix * iy))
+        return torch.round(out).clamp(0, 255).to(torch.uint8)
+
+    def axis(src, dst):
+        i, a = _area_table(src, dst)
+        return torch.from_numpy(i).to(dev), torch.from_numpy(a).to(dev)
+
+    xi, xa = axis(src_w, w)
+    yi, ya = axis(src_h, h)
+    x = img.to(torch.float32)
+    rows = torch.zeros((src_h, w, img.shape[2]), dtype=torch.float32,
+                       device=dev)
+    for t in range(xi.shape[1]):
+        rows = rows + x[:, xi[:, t]] * xa[:, t, None]
+    out = rows[yi[:, 0]] * ya[:, 0, None, None]
+    for t in range(1, yi.shape[1]):
+        out = out + rows[yi[:, t]] * ya[:, t, None, None]
+    return torch.round(out).clamp(0, 255).to(torch.uint8)
+
+
+def resize_nearest_u8(img: torch.Tensor, out_hw: Tuple[int, int]
+                      ) -> torch.Tensor:
+    """(H, W, C) -> (h, w, C), as ``cv2.resize(img, (w, h),
+    interpolation=cv2.INTER_NEAREST)`` picks: output x reads source
+    ``min(floor(x * (1 / (w / W))), W - 1)`` in float64, likewise y
+    (OpenCV's ``resizeNN``, not INTER_NEAREST_EXACT)."""
+    src_h, src_w = img.shape[:2]
+    h, w = int(out_hw[0]), int(out_hw[1])
+
+    def pick(src, dst):
+        i = np.floor(np.arange(dst) * (1.0 / (dst / src))).astype(np.int64)
+        return torch.from_numpy(np.minimum(i, src - 1)).to(img.device)
+
+    return img[pick(src_h, h)][:, pick(src_w, w)]
+
+
+def resize_linear_f32(img: torch.Tensor, out_hw: Tuple[int, int]
+                      ) -> torch.Tensor:
+    """(H, W) or (H, W, C) float32 -> (h, w[, C]) float32, as
+    ``cv2.resize(img, (w, h))`` (INTER_LINEAR) computes a float image:
+    :func:`resize_linear_u8`'s source coordinates with float32 weights
+    ``1 - f`` and ``f`` (no fixed point), each pass's two products
+    rounded and added (OpenCV's float resize has no fused multiply-add
+    on this build's baseline)."""
+    if img.dtype != torch.float32 or img.dim() not in (2, 3):
+        raise ValueError(f"expected an (H, W[, C]) float32 image, got "
+                         f"{img.dtype} {tuple(img.shape)}")
+    x = img if img.dim() == 3 else img[..., None]
+    src_h, src_w = x.shape[:2]
+    h, w = int(out_hw[0]), int(out_hw[1])
+    dev = img.device
+
+    def taps(src, dst, clamp_weights):
+        s0, s1, f = _coords(src, dst, clamp_weights)
+        return tuple(torch.from_numpy(a).to(dev) for a in (
+            s0, s1, (np.float32(1.0) - f).astype(np.float32), f))
+
+    x0, x1, a0, a1 = taps(src_w, w, True)
+    y0, y1, b0, b1 = taps(src_h, h, False)
+    rows = x[:, x0] * a0[:, None] + x[:, x1] * a1[:, None]
+    out = rows[y0] * b0[:, None, None] + rows[y1] * b1[:, None, None]
+    return out if img.dim() == 3 else out[..., 0]
 
 
 _F32 = np.float32

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from glsdet_tpu_torch.ops.boxes import pairwise_iou
-from glsdet_tpu_torch.ops.nms_kernel import nms_sorted_cuda
+from glsdet_tpu_torch.ops.nms_kernel import nms_sorted_cuda, nms_sorted_op
 
 NEG_INF = -1e9
 
@@ -83,9 +83,10 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
                                       stable=True)
     sorted_boxes = torch.gather(
         shifted.float(), -2, order[..., None].expand(*order.shape, 4))
-    keep_sorted = nms_sorted_cuda(sorted_boxes.contiguous(),
-                                  sorted_scores > NEG_INF / 2,
-                                  iou_threshold, offset)
+    nms = nms_sorted_op if torch.compiler.is_exporting() \
+        else nms_sorted_cuda
+    keep_sorted = nms(sorted_boxes.contiguous(),
+                      sorted_scores > NEG_INF / 2, iou_threshold, offset)
     keep = torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
     return keep, order
 

@@ -57,6 +57,26 @@ def nms_sorted_cuda(boxes_sorted: torch.Tensor, valid: torch.Tensor,
     return keep
 
 
+@torch.library.custom_op("glsdet_tpu_torch::nms_sorted", mutates_args=())
+def nms_sorted_op(boxes_sorted: torch.Tensor, valid: torch.Tensor,
+                  iou_threshold: float, offset: float) -> torch.Tensor:
+    """:func:`nms_sorted_cuda` as an operator that ``torch.export`` can
+    record: the wrapper hands raw pointers to a ctypes library, which no
+    tracer can follow, so ``ops/nms.py: batched_nms`` calls this while a
+    program is exported (``torch.compiler.is_exporting()``) and the
+    wrapper itself otherwise.  A reloaded program runs the wrapper (the
+    kernel on the card, counted in :data:`launches`).  An operator's
+    output may not alias its input: the plain version returns ``valid``
+    itself when nothing is suppressed, so that case is copied."""
+    keep = nms_sorted_cuda(boxes_sorted, valid, iou_threshold, offset)
+    return keep.clone() if keep is valid else keep
+
+
+@nms_sorted_op.register_fake
+def _nms_sorted_fake(boxes_sorted, valid, iou_threshold, offset):
+    return torch.empty_like(valid)
+
+
 def _count(b, k, offset, iou_threshold) -> None:
     global launches
     launches += 1

@@ -1,8 +1,9 @@
 """What the port's command-line tools share: the one-process guard of
 the commands that the JAX package can run across processes, the device
-flag, the compute dtype of a model a command runs, the ``--classes``
-and checkpoint arguments, and the box forms that the result tools hand
-to the fusion and the COCO evaluator."""
+flag, the compute dtype of a model a command runs, the forward a model
+command times or exports, the ``--classes`` and checkpoint arguments,
+and the box forms that the result tools hand to the fusion and the COCO
+evaluator."""
 
 from __future__ import annotations
 
@@ -56,6 +57,39 @@ def model_dtype(cfg, device: torch.device) -> torch.dtype:
     if device.type == "cuda" and cfg.model.dtype != "float32":
         return torch.bfloat16
     return torch.float32
+
+
+class ModelForward(torch.nn.Module):
+    """The function the JAX CLIs ``benchmark`` and ``export`` jit: a
+    (B, H, W, 3) float32 normalized NHWC batch through the model in
+    ``dtype`` to its head maps or, ``with_nms``, to the decoded
+    detections (``yolox_postprocess`` for family "yolox", else
+    ``gfl_postprocess``, as the JAX CLIs dispatch; at
+    ``cfg.eval.max_dets``, B2 on the card)."""
+
+    def __init__(self, net, cfg, with_nms: bool, dtype: torch.dtype):
+        super().__init__()
+        self.net = net
+        self.family = cfg.model.family
+        self.img_hw = tuple(cfg.data.img_hw)
+        self.max_dets = cfg.eval.max_dets
+        self.with_nms = with_nms
+        self.dtype = dtype
+
+    def forward(self, images):
+        from glsdet_tpu_torch.eval.postprocess import (gfl_postprocess,
+                                                       yolox_postprocess)
+
+        out = self.net(images.permute(0, 3, 1, 2).to(self.dtype))
+        if not self.with_nms:
+            return out
+        if self.family == "yolox":
+            cls, reg, obj = out
+            return yolox_postprocess(cls, reg, obj, self.img_hw,
+                                     max_dets=self.max_dets)
+        cls, reg = out
+        return gfl_postprocess(cls, reg, self.img_hw,
+                               max_dets=self.max_dets)
 
 
 def class_names(spec: str) -> list:

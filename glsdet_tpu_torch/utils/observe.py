@@ -128,11 +128,11 @@ class LossHistory:
     def _plot(self):
         """``epoch_loss.png``: the train loss (red), the val loss (coral)
         and, from 5 epochs on, the train loss smoothed by a Savitzky-Golay
-        filter (green; scipy's, where it imports), drawn in numpy on a
-        grid (the GPU machine has no matplotlib)."""
-        import numpy as np
-
+        filter (green; scipy's, where it imports), drawn by
+        ``utils/plot.py: line_plot`` (the GPU machine has no
+        matplotlib)."""
         from glsdet_tpu_torch.data.image_io import write_png
+        from glsdet_tpu_torch.utils.plot import line_plot
 
         curves = [(self.losses, (255, 0, 0))]
         if self.val_losses:
@@ -146,24 +146,7 @@ class LossHistory:
                                (0, 128, 0)))
             except ImportError:
                 pass
-        h, w, pad = 480, 640, 40
-        img = np.full((h, w, 3), 255, np.uint8)
-        img[pad:h - pad + 1:(h - 2 * pad) // 8, pad:w - pad] = 220  # grid
-        img[pad:h - pad, pad:w - pad + 1:(w - 2 * pad) // 8] = 220
-        vals = np.concatenate([np.asarray(c, np.float64) for c, _ in curves])
-        lo, hi = float(vals.min()), float(vals.max())
-        span = hi - lo if hi > lo else 1.0
         n = max(len(self.losses), len(self.val_losses), 2) - 1
-        for ys, color in curves:
-            x = pad + np.arange(len(ys)) * (w - 2 * pad) / n
-            y = h - pad - (np.asarray(ys, np.float64) - lo) / span * (
-                h - 2 * pad)
-            if len(ys) == 1:
-                x, y = np.repeat(x, 2), np.repeat(y, 2)
-            t = np.linspace(0.0, 1.0, 64)[:, None]
-            px = (x[:-1] + t * (x[1:] - x[:-1])).ravel()
-            py = (y[:-1] + t * (y[1:] - y[:-1])).ravel()
-            for d in (-1, 0, 1):        # a 2-3 pixel wide line
-                img[np.clip(np.round(py).astype(int) + d, 0, h - 1),
-                    np.clip(np.round(px).astype(int), 0, w - 1)] = color
+        img = line_plot([(range(len(ys)), ys, color) for ys, color in curves],
+                        x_range=(0, n))
         write_png(os.path.join(self.log_dir, "epoch_loss.png"), img)

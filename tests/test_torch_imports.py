@@ -50,7 +50,12 @@ print(json.dumps([len(names), bad, sorted(tree), mp]))
 # the workflow's commands (python -m glsdet_tpu_torch.tools.<name>)
 TOOLS = ("print_config", "convert_datasets", "train", "build_ufp_dataset",
          "test", "get_map", "eval_metric", "merge_results",
-         "ufp_eval_from_txt", "predict", "serve", "visdrone_e2e", "common")
+         "ufp_eval_from_txt", "predict", "serve", "visdrone_e2e", "common",
+         # the analysis and robustness commands
+         "benchmark", "get_flops", "summary", "export", "draw_cam",
+         "test_robustness", "optimize_anchors", "analyze_dataset",
+         "draw_bbox", "browse_dataset", "analyze_results", "analyze_logs",
+         "coco_error_analysis", "confusion_matrix")
 
 
 def _importers(pattern):
@@ -114,6 +119,8 @@ def test_every_port_module_imports_without_jax():
                  "glsdet_tpu_torch.native",
                  "glsdet_tpu_torch.utils.orbax_read",
                  "glsdet_tpu_torch.utils.flax_import",
+                 "glsdet_tpu_torch.utils.plot",
+                 "glsdet_tpu_torch.data.corruptions",
                  *(f"glsdet_tpu_torch.tools.{t}" for t in TOOLS)):
         assert name in modules
     env = dict(os.environ, PYTHONPATH=ROOT)
