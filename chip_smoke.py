@@ -111,7 +111,7 @@ Phases, in the order they run, each printing one line:
      2), the clients in a process of their own (its own interpreter, so
      no lock shared with the server), 8 threads, JSON raw-array bodies,
      each request's id in its pixel (0, 0): a burst of 16 requests (smoke
-     readings only), then two sustained windows of 256 requests cycling
+     readings only), then one sustained window of 256 requests cycling
      the 16 frames (requests/s and latency p50/p90/p99 per window, the
      batches the batcher formed); every answer 200 and well formed;
      /ping, /models, /metrics (528 requests, 0 errors); every batch the
@@ -199,18 +199,19 @@ Phases, in the order they run, each printing one line:
      EMA weights, 16 val frames, float32) after each epoch, its AP
      printed; the epoch-2 checkpoint restored into a fresh state equal bit for bit to
      the state the loop had then, a resumed run taking only epoch 3's
-     steps, and apis.init_detector serving the epoch-3 EMA.  Then one
-     epoch with multiscale_sizes (608, 640, 672) (the logged sizes equal
-     multiscale_size's), five steps with device_geom (the mosaic and
-     affine warp on the card), and train(mp_det_res50) at 1024x1024,
+     steps, and apis.init_detector serving the epoch-3 EMA.  Then six
+     steps with multiscale_sizes (608, 640, 672) (the logged sizes equal
+     multiscale_size's: 608, then 672), five steps with device_geom (the
+     mosaic and affine warp on the card), and train(mp_det_res50) at 1024x1024,
      batch 4, remat on, on 16 frames for 3 epochs: update_ot at exactly
      the JAX cadence's steps (every 3 while the epoch is below 2), beta
      switched at epoch 1, the dictionary pointers moved.  Card against
      CPU: the colour and geometric stages on one real device_geom batch
      within +-1 code (share differing printed), warp_affine_u8 and
-     resize_linear_u8 equal, and three float64 steps of train() for
-     YOLOX-nano at 128x128 on both devices, losses and every leaf within
-     1e-5 (relative; of a leaf's max).  Last, the loader alone at
+     resize_linear_u8 equal, and two float64 steps of train() for
+     YOLOX-nano at 128x128 on both devices (the loader in the calling
+     thread), losses and every leaf within 1e-5 (relative; of a leaf's
+     max).  Last, the loader alone at
      os.cpu_count() workers, the decode cache on, samples/s.  Printed as
      one {"train_loop": ...} line;
  22. eval, over phase 21's 64 PNG frames as a val split (their own
@@ -243,7 +244,7 @@ Phases, in the order they run, each printing one line:
      tools/import_torch_weights.py: main, equal to the originals, and
      TwoStageDetectors from both files giving equal detections on 8
      decoded 765x1360 frames (B1 and B2 held against plain); one
-     sustained window of 256 raw JPEG bodies (each frame tagged with its
+     sustained window of 64 raw JPEG bodies (each frame tagged with its
      request id in grey blocks, encoded before the clock) from 8 clients
      to make_server, every answer equal to its batch's detect_batch
      replay on the frames the service decoded, every B2 keep mask and
@@ -251,7 +252,7 @@ Phases, in the order they run, each printing one line:
      run_eval coarse_det (bf16) and ufpmp_det_eval (bf16, --fuse-global)
      over 16 JPEG val frames (8 of each size) and over PNGs of the pixels
      decoded from them: equal detections and stats, B2 and B1 checked as
-     in phase 22; one epoch (8 steps) of train(coarse_det) reading the
+     in phase 22; 4 steps of train(coarse_det) reading the
      JPEGs; collect_env().  Printed as
      one {"inputs": ...} line;
  24. variants, the zoo of models/variants (no kernel of its own; B2 runs
@@ -315,7 +316,7 @@ Phases, in the order they run, each printing one line:
      chunks.  Printed as one {"orbax": ...} line.
  26. workflow: the GLSDet cycle through the port's commands
      (glsdet_tpu_torch/tools), each through its main(argv) in this
-     process so that the kernels' launches are counted.  32 train and 16
+     process so that the kernels' launches are counted.  16 train and 8
      val frames (765x1360, VisDrone layout, quality-95 JPEGs with ignore
      and "others" rows) written by the phase; visdrone_e2e with the named
      configs at full width (coarse_det: YOLOX-s, 640x640, batch 8;
@@ -328,10 +329,11 @@ Phases, in the order they run, each printing one line:
      mosaics (B3), tools.predict dir_predict (two-stage) over 4 val
      frames, tools.serve archive / serve (a thread, a free port) /
      client, tools.test coarse_det --out and merge_results with the eval's
-     detections, get_map and eval_metric on the eval's output, and
-     convert_datasets as `python -m` in a subprocess (its json equal to
-     the cycle's).  Each command's launch counts (the cycle's counted
-     once, from its start; the build's share read as the difference
+     detections, and get_map and eval_metric on the eval's output (the
+     commands in interpreters of their own, `python -m`, are phase
+     28's dist_launch train and test).  Each command's launch counts
+     (the cycle's counted once, from its start; the build's share read
+     as the difference
      around it) equal to the calls captured; every B2 keep mask of every
      command equal to nms_sorted_plain's (timed), B1 at every stage-2
      group equal to mosaic_inputs_plain, B3's captured inputs within +-1
@@ -340,7 +342,7 @@ Phases, in the order they run, each printing one line:
      second, mosaics and annotations written, each train() stage's
      ms/step, the eval's COCO stats (parity only), the launches.
  27. analysis: the analysis and robustness commands on the card through
-     their main(argv), on phase 26's outputs (its 16 val JPEG frames,
+     their main(argv), on phase 26's outputs (its 8 val JPEG frames,
      val.json, the two-stage eval's detections, train()'s log of
      coarse_det, the coarse checkpoint): benchmark of coarse_det
      (YOLOX-s, 640x640, batch 8) and mp_det_res50 (1024x1024, batch 4),
@@ -349,8 +351,8 @@ Phases, in the order they run, each printing one line:
      parameter count equal to the CPU model's; export coarse_det
      --with-nms --check (a torch.export program, reloaded: every output
      torch.equal to the eager one, B2 launched by the reloaded program);
-     draw_cam on one frame; test_robustness coarse_det over the 16 frames,
-     all nine corruptions at severities 1 and 5 (19 evaluations, the
+     draw_cam on one frame; test_robustness coarse_det over the 8 frames,
+     all nine corruptions at severity 5 (10 evaluations, the
      OpenCV twins on the CPU); then optimize_anchors, analyze_dataset,
      analyze_logs (both tasks), coco_error_analysis, confusion_matrix,
      draw_bbox, browse_dataset and analyze_results.  Every B2 launch
@@ -358,6 +360,37 @@ Phases, in the order they run, each printing one line:
      to nms_sorted_plain's and timed.  Printed as one {"analysis": ...}
      line; B2's entry of the kernel line adds its launches and times
      (analysis_*).
+ 28. dist: data parallelism across processes (parallel/mesh.py) at the
+     full widths of coarse_det (YOLOX-s, 640x640, global batch 8) and
+     mp_det_res50 (1024x1024, global batch 4, remat), seeded states with
+     their BN statistics jittered, written from the CPU.  One process
+     steps each family once in float32 on the card (the reference) and
+     times 3 bf16 steps after 1.  Then a one-rank NCCL group joined by
+     the smoke's own process, and a launch of two ranks of this script's
+     dist_rank_main, each on its card through the JAX-style GLSDET_*
+     environment (NCCL on two cards where the machine has them, else
+     gloo, both on cuda:0).
+     Each rank takes its rows of the global batch: its float32 step's
+     losses within 1e-4 relative of the one-process step's, parameters,
+     BN statistics and EMA within 1e-5 of each leaf's max, the
+     dictionary (raw head features) within 1e-4, the momentum buffers
+     (the step's gradient) within 0.2 of each leaf's max and 2e-2 in L2
+     over them all, every leaf equal to rank 0's; its bf16 ms a step,
+     peak memory, the gradient bytes one step all-reduces and one more
+     step under torch.profiler in the 1-rank group and in one process
+     (device busy time, the top device and host ops, the collectives'
+     calls); and
+     run_eval(mesh=data_mesh()) of the jittered YOLOX-s (float32) on 16
+     of phase 21's frames against ground truth made from its own
+     detections: the stats within 1e-3 of one process's, equal on every
+     rank, every B2 launch's keep mask equal to nms_sorted_plain's and
+     timed.  Then tools/dist_launch.py train coarse_det (2 processes,
+     one epoch of 2 steps on 16 frames, mosaic and mixup off, the loader
+     in the calling thread: one checkpoint and one log, both rank 0's)
+     and dist_launch test with that checkpoint (float32, coarse
+     threshold 1e-5), its --out equal to one process's
+     tools.test --out.  Printed as one {"dist": ...} line; B2's entry of
+     the kernel line adds the run_eval(mesh=) launches (dist_*).
 Then one JSON line of per-kernel results (each with its bound: the bytes
 it must move at 3.35 TB/s or its operations at the card's peak for their
 type, whichever is longer) and, last, the device line.  A kernel's ``ms``
@@ -1761,7 +1794,7 @@ print(json.dumps({"answers": [[r, s, a] for r, s, a, _ in out],
 """
 HTTP_CLIENTS = 8
 HTTP_WINDOW = 256            # requests per sustained window
-HTTP_WINDOWS = 2
+HTTP_WINDOWS = 1
 
 
 def request_id(image) -> int:
@@ -2327,17 +2360,20 @@ def train_cfg(**over):
 
 
 def state_leaves(state) -> dict:
-    """Every leaf of a train state as float64 CPU tensors, by kind."""
+    """Every float leaf of a train state, by kind (the dictionary where
+    the state has one)."""
     named = dict(state.model.named_parameters())
     sd = state.model.state_dict()
-    return {
+    out = {
         "params": {n: sd[n] for n in named},
         "bn_stats": {n: v for n, v in sd.items() if "running" in n},
         "momentum": {n: state.optimizer.state[p]["momentum_buffer"]
                      for n, p in named.items()},
         "ema": state.ema_params,
-        "boiw": {"embedding": state.boiw.embedding},
     }
+    if state.boiw is not None:
+        out["boiw"] = {"embedding": state.boiw.embedding}
+    return out
 
 
 def leaf_errors(got, want) -> dict:
@@ -3307,7 +3343,8 @@ def loop_multiscale(ds, tmp) -> dict:
         "train.num_last_epochs": 0, "train.ckpt_interval": 10,
         "train.multiscale_sizes": sizes, "train.multiscale_interval": 2})
     with LogRecords() as rec:
-        state, logs, gaps, run = run_train(cfg)
+        # 6 steps: the schedule's first two sizes (608 x 4, then 672)
+        state, logs, gaps, run = run_train(cfg, max_steps=6)
     got = rec.ints(r"step (\d+): multiscale size (\d+)")
     want = [(i, multiscale_size(i, sizes, 2)) for i in range(len(logs))]
     assert got == want and len({s for _, s in got}) > 1, (got, want)
@@ -3366,8 +3403,9 @@ def loop_mpdet(ds, tmp) -> dict:
 
 def loop_card_vs_cpu(ds, tmp) -> dict:
     """The device stages and image ops on the card against the CPU on one
-    real batch, and three float64 steps of train() for YOLOX-nano at 128²
-    on both devices from the same files and seed."""
+    real batch, and two float64 steps of train() for YOLOX-nano at 128²
+    on both devices from the same files and seed (the loader in the
+    calling thread)."""
     from glsdet_tpu_torch.data.augment import random_affine_params
     from glsdet_tpu_torch.data.coco import CocoDataset
     from glsdet_tpu_torch.data.device_color import apply_batch_color
@@ -3410,8 +3448,8 @@ def loop_card_vs_cpu(ds, tmp) -> dict:
         cfg = loop_cfg("coarse_det", ds, os.path.join(tmp, f"f64_{dev}"), **{
             "model.phi": "nano", "model.dtype": "float32",
             "data.img_hw": (128, 128), "data.batch_size": 4,
-            "data.num_workers": 2, "train.ckpt_interval": 100})
-        state = loop.train(cfg, max_steps=3, device=dev,
+            "data.num_workers": 0, "train.ckpt_interval": 100})
+        state = loop.train(cfg, max_steps=2, device=dev,
                            param_dtype=torch.float64)
         named = dict(state.model.named_parameters())
         sd = state.model.state_dict()
@@ -3426,16 +3464,16 @@ def loop_card_vs_cpu(ds, tmp) -> dict:
     (cl, cleaves), (gl, gleaves) = runs
     loss_rel = max(rel(g[k], c[k]) for c, g in zip(cl, gl) for k in c
                    if c[k] != 0)
-    out["f64_train_3_steps"] = {"loss_rel": loss_rel,
+    out["f64_train_2_steps"] = {"loss_rel": loss_rel,
                                 "leaves": leaf_errors(gleaves, cleaves),
                                 "losses_card": gl}
     if loss_rel > 1e-5 or any(e["max_rel"] > 1e-5 for e in
-                              out["f64_train_3_steps"]["leaves"].values()):
+                              out["f64_train_2_steps"]["leaves"].values()):
         raise AssertionError(f"train() card vs CPU: {out}")
     return out
 
 
-def loader_rates(ds, reps=12) -> dict:
+def loader_rates(ds, reps=6) -> dict:
     """The loader alone at coarse_det's recipe (mosaic, mixup, device
     colour keys, batch 8, pinned): samples/s over ``reps`` batches after
     two, at os.cpu_count() workers (the rate ROADMAP item 17 reads), with
@@ -4338,8 +4376,11 @@ def jpeg_request_id(image) -> int:
     return sum(1 << b for b in range(TAG_BITS) if centre[b] > 127)
 
 
+INPUT_HTTP_REQUESTS = 64    # the raw-JPEG window's requests
+
+
 def inputs_http(facade, frames, root, json_windows) -> dict:
-    """One sustained window of HTTP_WINDOW requests from HTTP_CLIENTS
+    """One sustained window of INPUT_HTTP_REQUESTS requests from HTTP_CLIENTS
     clients with raw JPEG bodies (``frames`` tagged with each request's id
     and encoded before the clock starts) to make_server: every answer 200
     and equal to its batch's detect_batch replay on the frames the
@@ -4350,7 +4391,7 @@ def inputs_http(facade, frames, root, json_windows) -> dict:
     from glsdet_tpu_torch.serve import (AsyncDetector, DetectionService,
                                         _decode_image)
 
-    first, n = 1, HTTP_WINDOW
+    first, n = 1, INPUT_HTTP_REQUESTS
     with ThreadPoolExecutor(LOOP_WORKERS) as pool:
         bodies = list(pool.map(lambda r: encode_jpeg(jpeg_tagged(
             frames[r % len(frames)], r), JPEG_QUALITY),
@@ -4412,15 +4453,18 @@ def inputs_http(facade, frames, root, json_windows) -> dict:
             "paint": check_paint_groups(cap["groups"])}
 
 
+INPUT_TRAIN_STEPS = 4      # of the JPEG epoch's 8
+
+
 def inputs_train(split, tmp) -> dict:
-    """One epoch of train(coarse_det) at full width reading the JPEG
-    frames (8 steps)."""
+    """INPUT_TRAIN_STEPS steps of train(coarse_det) at full width reading
+    the JPEG frames."""
     work = os.path.join(tmp, "inputs_train")
     cfg = loop_cfg("coarse_det", split, work, **{
         "train.epochs": 1, "train.warmup_epochs": 1,
         "train.num_last_epochs": 0})
-    state, logs, gaps, run = run_train(cfg)
-    if state.step != 64 // YOLOX_B or len(logs) != state.step:
+    state, logs, gaps, run = run_train(cfg, max_steps=INPUT_TRAIN_STEPS)
+    if state.step != INPUT_TRAIN_STEPS or len(logs) != state.step:
         raise AssertionError(f"train from JPEG: {state.step} steps, "
                              f"{len(logs)} log entries")
     return {"steps": state.step, "host_ms_per_step": float(np.mean(gaps)),
@@ -4658,7 +4702,8 @@ def phase_variants(smi: str, ds, tmp: str, frames) -> dict:
     log("variants_ffa_train_step", **out["ffa_train_step"])
     work = os.path.join(root, "train")
     state, logs, gaps, info = run_train(
-        loop_cfg("yolox_ffa", ds, work, **{"train.epochs": 1}),
+        loop_cfg("yolox_ffa", ds, work, **{"train.epochs": 1,
+                                           "data.num_workers": 0}),
         max_steps=2)
     if state.step != 2 or len(logs) != 2:
         raise AssertionError(f"train(yolox_ffa): {state.step}, {logs}")
@@ -5126,7 +5171,7 @@ def phase_orbax(smi: str, frames) -> dict:
 # ---------------------------------------------------------------------------
 # 26. workflow: the GLSDet cycle through the port's commands
 
-WORKFLOW_FRAMES = (32, 16)   # train and val frames of the VisDrone layout
+WORKFLOW_FRAMES = (16, 8)    # train and val frames of the VisDrone layout
 WORKFLOW_THR = "1e-05"       # eval.coarse_score_thr of the cycle
 WORKFLOW_TEST_IMAGES = 8     # mosaics of tools.test mp_det_res50 --int8-static
 WORKFLOW_PREDICT = 4         # val frames of tools.predict dir_predict
@@ -5415,22 +5460,6 @@ def phase_workflow(smi: str, tmp: str) -> dict:
                               os.path.join(wd, "val.json")])
     out["get_map"] = {"map": voc["map"], "coco_ap": coco.ap,
                       "eval_metric_ap": again.ap}
-    # one command as a user runs it: its own interpreter
-    sub_json = os.path.join(root, "val_subprocess.json")
-    t1 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "glsdet_tpu_torch.tools.convert_datasets",
-         "visdrone", val_root, sub_json], capture_output=True, text=True,
-        timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)),
-        env=dict(os.environ, PYTHONPATH=os.path.dirname(
-            os.path.abspath(__file__))))
-    with open(sub_json) as f, open(os.path.join(wd, "val.json")) as g:
-        same = json.load(f) == json.load(g)
-    if proc.returncode != 0 or not same:
-        raise AssertionError(f"python -m convert_datasets: rc "
-                             f"{proc.returncode}, equal {same}: "
-                             f"{proc.stderr[-2000:]}")
-    out["subprocess_convert_s"] = time.perf_counter() - t1
     out["seconds"] = time.perf_counter() - t0
     out["checkpoints"] = {"coarse": paths[0], "mp": paths[1]}
     out["launches"] = {
@@ -5450,7 +5479,7 @@ def phase_workflow(smi: str, tmp: str) -> dict:
 
 
 ANALYSIS_ITERS = 10          # timed passes of each benchmark, after 2
-ANALYSIS_SEVERITIES = ("1", "5")
+ANALYSIS_SEVERITIES = ("5",)
 ANALYSIS_SHOW = 3            # images of each drawing command
 
 
@@ -5655,6 +5684,479 @@ def phase_analysis(smi: str, tmp: str, wf: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 28. dist: the global-batch step across processes, run_eval(mesh=) and
+# the train / test commands across processes
+
+
+DIST_FAMILIES = {"coarse_det": (YOLOX_B, "visdrone"),    # global batch
+                 "mp_det_res50": (TRAIN_B, "bench")}
+DIST_SEED = 5
+DIST_TIMED = 3               # bf16 steps timed after 1
+DIST_LOSS_TOL, DIST_LEAF_TOL = 1e-4, 1e-5
+# the dictionary holds raw head features, the float32 activations of ~60
+# layers at full width: a 1-rank group against one process (the group
+# BatchNorm's summation order the only difference) measured 1.7e-5
+DIST_DICT_TOL = 1e-4
+# the momentum buffers hold the step's gradient, the only leaves that do
+# at step 0 (coarse_det's warmup gives lr 0, MP-Det's 1e-5).  In float32
+# a leaf's worst element is the remainder of a cancellation (MP-Det's
+# backbone measured 6.9e-2 of its leaf's max, coarse_det's 4.7e-4); a
+# gradient off by a factor of 2 (averaged, not summed) reads 0.5 on
+# every leaf, so the worst leaf is held to 0.2 and the whole buffer's
+# relative L2 distance (measured 5.8e-5 / 4.5e-3) to 2e-2
+DIST_MOMENTUM_TOL, DIST_MOMENTUM_NORM_TOL = 0.2, 2e-2
+DIST_TRAIN_FRAMES = 16       # dist_launch train: one epoch of 2 steps
+DIST_EVAL_FRAMES = 16
+DIST_RANK_TIMEOUT_S = 300    # a launch of ranks, all of its work
+
+
+def dist_step_fn(cfg, model, dtype):
+    from glsdet_tpu_torch.train.steps import (make_mpdet_train_step,
+                                              make_yolox_train_step)
+
+    if cfg.model.family == "mpdet":
+        return make_mpdet_train_step(model, cfg.data.img_hw,
+                                     cfg.model.num_classes,
+                                     cfg.model.proxies_list, normalize=True,
+                                     dtype=dtype)
+    return make_yolox_train_step(model, cfg.data.img_hw, normalize=True,
+                                 bbox_loss_mode=cfg.train.bbox_loss_mode,
+                                 dtype=dtype)
+
+
+def dist_state(name, root, device):
+    """The fixture's train state of ``name`` on ``device``."""
+    from glsdet_tpu_torch.config import get_config
+    from glsdet_tpu_torch.train.state import load_state_dict
+
+    cfg = get_config(name)
+    state = train_state(cfg, device, seed=DIST_SEED)
+    load_state_dict(state, torch.load(os.path.join(root, f"{name}_state.pt"),
+                                      weights_only=True))
+    return cfg, state
+
+
+def dist_inputs(name, root, device, mesh=None):
+    """The fixture's global batch (this rank's rows under ``mesh``) and,
+    for MP-Det, the dictionary noise over the global batch."""
+    from glsdet_tpu_torch.parallel import shard_batch
+
+    batch = torch.load(os.path.join(root, f"{name}_batch.pt"),
+                       weights_only=True)
+    if mesh is not None:
+        batch = shard_batch(batch, mesh)
+    kw = {}
+    if name == "mp_det_res50":
+        kw["noise"] = torch.load(os.path.join(root, "noise.pt"),
+                                 weights_only=True).to(device)
+    return {k: v.to(device) for k, v in batch.items()}, kw
+
+
+def dist_timed(name, root, device, mesh=None) -> dict:
+    """bf16 steps of the fixture: 1, then DIST_TIMED between two
+    synchronisations (ms a step), peak memory, and the gradient bytes one
+    step all-reduces (float32 gradients of every trained parameter)."""
+    cfg, state = dist_state(name, root, device)
+    step = dist_step_fn(cfg, state.model, torch.bfloat16)
+    batch, kw = dist_inputs(name, root, device, mesh)
+    state, m = step(state, batch, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    for _ in range(DIST_TIMED):
+        state, m = step(state, batch, **kw)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / DIST_TIMED
+    m = floats(m)
+    check_finite(f"{name} bf16 step", m)
+    nbytes = sum(p.numel() * p.element_size() for p in state.model.parameters()
+                 if p.requires_grad)
+    return {"ms_per_step": ms, "loss": m["loss"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30,
+            "allreduce_bytes_per_step": nbytes,
+            # the smoke's own process: one process and the 1-rank group
+            "profile": (dist_profile(lambda: step(state, batch, **kw))
+                        if mesh is None or mesh.world_size == 1 else None)}
+
+
+def dist_profile(run) -> dict:
+    """profile_step over one more bf16 step, with the host's side too:
+    the ops of most self CPU time, and the collectives' calls and host
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    out = profile_summary(prof, wall_ms)
+    host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    out["host_self_ms"] = sum(e.self_cpu_time_total for e in host) / 1e3
+    out["top_host_ops_ms"] = [
+        (e.key, e.self_cpu_time_total / 1e3, e.count) for e in
+        sorted(host, key=lambda e: -e.self_cpu_time_total)[:12]]
+    coll = [e for e in host if any(w in e.key for w in (
+        "all_reduce", "allreduce", "broadcast", "nccl", "gloo"))]
+    out["collectives"] = [(e.key, e.cpu_time_total / 1e3, e.count)
+                          for e in coll]
+    return out
+
+
+def dist_fixture(root) -> dict:
+    """Seeded full-width states (written from the CPU, so that every
+    process starts from the same numbers), a global batch of each family
+    and MP-Det's dictionary noise; then the one-process float32 step on
+    the card from them (the reference the ranks are held to, its leaves
+    written for them) and the one-process bf16 timing."""
+    from glsdet_tpu_torch.config import get_config
+    from glsdet_tpu_torch.train.state import state_dict
+
+    out = {}
+    for i, (name, (b, boxes)) in enumerate(DIST_FAMILIES.items()):
+        cfg = get_config(name)
+        state = train_state(cfg, "cpu", seed=DIST_SEED)
+        jitter_bn(state.model, seed=DIST_SEED)
+        state.ema_params = {n: p.detach().clone() for n, p in
+                            state.model.named_parameters()}
+        sd = state_dict(state)
+        sd["generator"] = None              # each device draws its own
+        torch.save(sd, os.path.join(root, f"{name}_state.pt"))
+        hw = tuple(cfg.data.img_hw)
+        torch.save(train_batch(np.random.RandomState(10 + i), b, hw,
+                               TRAIN_MAX_GT, "cpu", boxes=boxes),
+                   os.path.join(root, f"{name}_batch.pt"))
+        if name == "mp_det_res50":
+            n = sum(-(-hw[0] // s) * -(-hw[1] // s)
+                    for s in (8, 16, 32, 64, 128))          # anchors
+            torch.save(torch.rand(cfg.model.num_classes + 1, b * n,
+                                  generator=torch.Generator().manual_seed(4)),
+                       os.path.join(root, "noise.pt"))
+        cfg, state = dist_state(name, root, DEVICE)
+        step = dist_step_fn(cfg, state.model, torch.float32)
+        batch, kw = dist_inputs(name, root, DEVICE)
+        state, m = step(state, batch, **kw)
+        m = floats(m)
+        check_finite(f"{name} float32 step", m)
+        torch.save({"metrics": m, "leaves": {
+            k: {n: t.detach().cpu() for n, t in v.items()}
+            for k, v in state_leaves(state).items()}},
+            os.path.join(root, f"{name}_ref.pt"))
+        del state, step, batch
+        torch.cuda.empty_cache()
+        out[name] = {"metrics": m,
+                     "one_process_bf16": dist_timed(name, root, DEVICE)}
+    return out
+
+
+def dist_rank_family(name, root, mesh) -> dict:
+    """On one rank: the float32 step on its rows against the one-process
+    step (check_ranks holds the errors), every leaf against rank 0's
+    (broadcast), then the bf16 timing."""
+    from glsdet_tpu_torch.parallel import mesh as pmesh
+
+    cfg, state = dist_state(name, root, mesh.device)
+    step = dist_step_fn(cfg, state.model, torch.float32)
+    batch, kw = dist_inputs(name, root, mesh.device, mesh)
+    state, m = step(state, batch, **kw)
+    m = floats(m)
+    ref = torch.load(os.path.join(root, f"{name}_ref.pt"),
+                     weights_only=True)
+    leaves = state_leaves(state)
+    flat = [t for v in leaves.values() for _, t in sorted(v.items())]
+    rank0 = [t.detach().clone() for t in flat]
+    pmesh.broadcast_(rank0)
+    got = [leaves["momentum"][n].double().cpu() for n in
+           sorted(ref["leaves"]["momentum"])]
+    want = [ref["leaves"]["momentum"][n].double() for n in
+            sorted(ref["leaves"]["momentum"])]
+    out = {"metrics": m,
+           "loss_rel": max(rel(m[k], ref["metrics"][k]) for k in m),
+           "leaves": leaf_errors(leaves, ref["leaves"]),
+           "momentum_norm_rel": float(
+               sum(((g - w) ** 2).sum() for g, w in zip(got, want)).sqrt()
+               / sum((w ** 2).sum() for w in want).sqrt()),
+           "max_abs_diff_to_rank0": max(float((a - b).abs().max())
+                                        for a, b in zip(flat, rank0))}
+    del state, step, batch, leaves, flat, rank0
+    torch.cuda.empty_cache()
+    out["bf16"] = dist_timed(name, root, mesh.device, mesh)
+    return out
+
+
+def dist_rank_eval(job, mesh) -> dict:
+    """run_eval(mesh=) of the jittered YOLOX-s (float32) over the eval
+    frames at coarse_det's batch, every B2 launch captured: the stats and
+    detections, and each keep mask against nms_sorted_plain."""
+    from glsdet_tpu_torch.data.coco import CocoDataset
+    from glsdet_tpu_torch.eval.runner import run_eval
+
+    model = dist_eval_model(job["root"], mesh.device)
+    ds = CocoDataset(*job["eval_set"])
+    with capture_path() as cap:
+        res, stats = run_eval(ds, model, "yolox", COARSE_HW, 10,
+                              batch_size=YOLOX_B, score_thr=1e-3,
+                              mesh=mesh, verbose=False)
+    return {"stats": list(map(float, res.stats)),
+            "images": stats["images"], "launches": cap["launches"]["nms"],
+            "nms": check_nms_calls(cap["nms"], "dist run_eval")}
+
+
+def dist_eval_model(root, device):
+    """The eval phase's jittered YOLOX-s (float32), from its file."""
+    from glsdet_tpu_torch.models import YOLOXDetector
+
+    model = YOLOXDetector(10, PHI, generator=torch.Generator().manual_seed(0))
+    model.load_state_dict(torch.load(os.path.join(root, "eval_coarse.pt"),
+                                     weights_only=True))
+    return model.to(device).eval()
+
+
+def dist_eval_seeded():
+    """seeded_models' YOLOX-s (drawn first from its generator, so alone it
+    is the same) jittered as the eval phase's."""
+    from glsdet_tpu_torch.models import YOLOXDetector
+
+    return jitter_(YOLOXDetector(
+        10, PHI, generator=torch.Generator().manual_seed(0)), 7)
+
+
+def dist_rank(job) -> dict:
+    """One rank's work in a joined group: the steps and run_eval(mesh=);
+    the group is left at the end."""
+    from glsdet_tpu_torch import parallel
+    import torch.distributed as dist
+
+    try:
+        mesh = parallel.data_mesh()
+        return {"rank": mesh.rank, "world_size": mesh.world_size,
+                "backend": dist.get_backend(), "device": str(mesh.device),
+                **{name: dist_rank_family(name, job["root"], mesh)
+                   for name in DIST_FAMILIES},
+                "eval": dist_rank_eval(job, mesh)}
+    finally:
+        parallel.shutdown()
+
+
+def dist_rank_main() -> None:
+    """One rank of a dist phase launch (``GLSDET_*`` set by
+    dist_launch_ranks, the job in GLSDET_SMOKE_DIST_JOB): join the group
+    on this rank's card, run dist_rank, write its results."""
+    from glsdet_tpu_torch import parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.environ["GLSDET_SMOKE_DIST_JOB"]) as f:
+        job = json.load(f)
+    if not parallel.maybe_init_distributed(device="cuda"):
+        raise RuntimeError("no process group configured")
+    out = dist_rank(job)
+    with open(os.path.join(job["root"],
+                           f"{job['tag']}_r{out['rank']}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def dist_launch_ranks(job, nproc, backend) -> list:
+    """``nproc`` ranks of dist_rank_main (each ``python -c`` importing
+    this script), as tools/dist_launch.py starts its commands; any
+    rank's failure (or DIST_RANK_TIMEOUT_S passing) raises with its
+    output, and no rank outlives the call."""
+    from glsdet_tpu_torch.tools.dist_launch import free_port
+
+    path = os.path.join(job["root"], f"{job['tag']}.json")
+    with open(path, "w") as f:
+        json.dump(job, f)
+    env = dict(os.environ, GLSDET_COORDINATOR=f"127.0.0.1:{free_port()}",
+               GLSDET_NUM_PROCESSES=str(nproc), GLSDET_DIST_BACKEND=backend,
+               GLSDET_SMOKE_DIST_JOB=path,
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.dirname(os.path.abspath(__file__)),
+                    os.environ.get("PYTHONPATH", "")]))
+    procs = []
+    try:
+        for r in range(nproc):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c",
+                 "import chip_smoke as cs; cs.dist_rank_main()"],
+                env=dict(env, GLSDET_PROCESS_ID=str(r)),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        deadline = time.monotonic() + DIST_RANK_TIMEOUT_S
+        logs = [p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+                [0] for p in procs]
+    finally:
+        for p in procs:                 # a rank left behind by a failure
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"dist ranks ({job['tag']}) exited "
+                             f"{[p.returncode for p in procs]}:\n" +
+                             "\n".join(log[-3000:] for log in logs))
+    out = []
+    for r in range(nproc):
+        with open(os.path.join(job["root"], f"{job['tag']}_r{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def check_ranks(ranks, one) -> dict:
+    """Each rank's float32 steps against the one-process step: losses
+    within DIST_LOSS_TOL relative, leaves within DIST_LEAF_TOL of each
+    leaf's max (the dictionary DIST_DICT_TOL, the momentum buffers
+    DIST_MOMENTUM_TOL and over them all DIST_MOMENTUM_NORM_TOL in L2),
+    every leaf equal on every rank; run_eval(mesh=)'s stats within
+    EVAL_STATS_TOL of one process's and equal on every rank."""
+    for r in ranks:
+        for name in DIST_FAMILIES:
+            f = r[name]
+            tol = {"boiw": DIST_DICT_TOL, "momentum": DIST_MOMENTUM_TOL}
+            bad = [k for k, e in f["leaves"].items()
+                   if e["max_rel"] > tol.get(k, DIST_LEAF_TOL)]
+            if (f["loss_rel"] > DIST_LOSS_TOL or bad
+                    or f["momentum_norm_rel"] > DIST_MOMENTUM_NORM_TOL):
+                raise AssertionError(f"dist {name} rank {r['rank']} of "
+                                     f"{r['world_size']}: {f}")
+            if f["max_abs_diff_to_rank0"] != 0.0:
+                raise AssertionError(f"dist {name}: rank {r['rank']}'s "
+                                     f"state differs from rank 0's: {f}")
+        ev = r["eval"]
+        if (ev["images"] != DIST_EVAL_FRAMES or max(abs(a - b) for a, b in
+                zip(ev["stats"], one["stats"])) > EVAL_STATS_TOL
+                or ev["stats"] != ranks[0]["eval"]["stats"]):
+            raise AssertionError(f"dist run_eval(mesh=) rank {r['rank']}: "
+                                 f"{ev['stats']} against {one['stats']}")
+    return {"ranks": ranks}
+
+
+def dist_commands(ds, root, nproc, backend) -> dict:
+    """tools/dist_launch.py train coarse_det for one epoch of 2 steps on
+    DIST_TRAIN_FRAMES of the loop frames (rank 0 alone writes the
+    checkpoint and the log), then dist_launch test with that checkpoint
+    on the eval frames: its --out, written by rank 0, equal to one
+    process's tools.test --out."""
+    from glsdet_tpu_torch.tools import dist_launch
+    from glsdet_tpu_torch.tools import test as test_tool
+
+    eval_split(ds, root, "dist_train", DIST_TRAIN_FRAMES)
+    work = os.path.join(root, "dist_work")
+    launcher = [] if backend == "nccl" else ["--backend", backend]
+    opts = ["--cfg-options", "train.epochs=1", "train.num_last_epochs=0",
+            "train.log_interval=1", "data.num_workers=0",
+            "data.mosaic=False", "data.mixup=False"]
+    t0 = time.perf_counter()
+    rc = dist_launch.main([*launcher, "train", "coarse_det", str(nproc),
+                           "--ann", os.path.join(root, "dist_train.json"),
+                           "--img-root",
+                           ds["img_root"], "--work-dir", work, *opts])
+    train_s = time.perf_counter() - t0
+    logs = read_log(work)
+    if rc != 0 or sorted(os.listdir(work)) != ["epoch_1.pt",
+                                               "train.log.json"] \
+            or [e["step"] for e in logs] != [1, 2]:
+        raise AssertionError(f"dist_launch train: rc {rc}, "
+                             f"{os.listdir(work)}, log {logs}")
+    for e in logs:
+        check_finite("dist_launch train", {k: v for k, v in e.items()
+                                          if k.startswith("loss")})
+    ckpt = os.path.join(work, "epoch_1.pt")
+    argv = ["coarse_det", "--ckpt", ckpt, "--ann", ds["eval_ann"],
+            "--img-root", ds["img_root"], "--cfg-options",
+            "model.dtype=float32", "eval.score_thr=0.00001"]
+    out = os.path.join(root, "dist_test.json")
+    t0 = time.perf_counter()
+    rc = dist_launch.main([*launcher, "test", "coarse_det", str(nproc),
+                           *argv[1:], "--out", out])
+    test_s = time.perf_counter() - t0
+    one = os.path.join(root, "one_test.json")
+    test_tool.main([*argv, "--out", one])
+    with open(out) as f, open(one) as g:
+        dets, want = json.load(f), json.load(g)
+    if rc != 0 or dets != want or not dets:
+        raise AssertionError(f"dist_launch test: rc {rc}, {len(dets)} "
+                             f"detections against one process's "
+                             f"{len(want)}")
+    return {"train_s": train_s, "train_loss": [e["loss"] for e in logs],
+            "test_s": test_s, "test_detections": len(dets)}
+
+
+def phase_dist(smi: str, ds, tmp: str) -> dict:
+    """Data parallelism on the card (module docstring, phase 28)."""
+    import torch.distributed as dist
+
+    from glsdet_tpu_torch.eval.runner import run_eval
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "dist")
+    os.makedirs(root)
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 2 else "gloo"
+    out = {"card": smi, "cards": cards, "two_rank_backend": backend,
+           "nccl_available": dist.is_nccl_available()}
+    out["one_process"] = dist_fixture(root)
+    coarse = dist_eval_seeded()
+    torch.save(coarse.state_dict(), os.path.join(root, "eval_coarse.pt"))
+    coarse = coarse.to(DEVICE).eval()
+    # ground truth from the model's own detections, so that AP is above 0
+    dump = os.path.join(root, "dist_self.json")
+    run_eval(eval_split(ds, root, "dist_val", DIST_EVAL_FRAMES), coarse,
+             "yolox", COARSE_HW, 10, batch_size=YOLOX_B, score_thr=1e-3,
+             out_json=dump, format_only=True, verbose=False, device=DEVICE)
+    with open(dump) as f:
+        val = eval_split(ds, root, "dist_val", DIST_EVAL_FRAMES,
+                         anns=self_gt(json.load(f)))
+    ds = dict(ds, eval_ann=os.path.join(root, "dist_val.json"))
+    one, _ = run_eval(val, coarse, "yolox", COARSE_HW, 10,
+                      batch_size=YOLOX_B, score_thr=1e-3, verbose=False,
+                      device=DEVICE)
+    out["one_process_eval_ap"] = one.ap
+    if not one.ap > 0.05:
+        raise AssertionError(f"dist eval set: one process's AP {one.ap}")
+    job = {"root": root, "eval_set": [ds["eval_ann"], ds["img_root"]]}
+    one = {"stats": list(map(float, one.stats))}
+    # a group of one over NCCL, joined by this process
+    from glsdet_tpu_torch.parallel import init_distributed
+    from glsdet_tpu_torch.tools.dist_launch import free_port
+
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device=DEVICE,
+                     backend="nccl")
+    out["nccl_1"] = check_ranks([dist_rank(job)], one)
+    out["two_ranks"] = check_ranks(
+        dist_launch_ranks(dict(job, tag="two"), 2, backend), one)
+    out["commands"] = dist_commands(ds, root, 2, backend)
+    out["launches"] = {"nms": {
+        tag: sum(r["eval"]["launches"] for r in out[tag]["ranks"])
+        for tag in ("nccl_1", "two_ranks")}}
+    for r in (*out["nccl_1"]["ranks"], *out["two_ranks"]["ranks"]):
+        ev = r["eval"]
+        if ev["launches"] < 1 or ev["launches"] != \
+                ev["nms"]["launches_checked"]:
+            raise AssertionError(f"dist run_eval rank {r['rank']}: B2 "
+                                 f"launched {ev['launches']} times, "
+                                 f"{ev['nms']['launches_checked']} checked")
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"dist": out}), flush=True)
+    return out
+
+
+def dist_nms(d) -> dict:
+    """B2's dist_* fields of the kernel line: the launches of each
+    run_eval(mesh=) run, their eager, plain and bound ms summed over the
+    ranks, every keep mask equal to plain's."""
+    runs = {tag: [r["eval"]["nms"] for r in d[tag]["ranks"]]
+            for tag in ("nccl_1", "two_ranks")}
+    return {"dist_launches": d["launches"]["nms"],
+            **{f"dist_{k}": {tag: sum(n["per_run"][k] for n in ns)
+                             for tag, ns in runs.items()}
+               for k in ("ms", "plain_ms", "bound_ms")},
+            "dist_max_abs_err": max(n["max_abs_err"] for ns in runs.values()
+                                    for n in ns)}
+
+
 def main() -> None:
     # float32 products of the plain versions stay float32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5698,6 +6200,7 @@ def main() -> None:
         ev = phase_eval(smi, loop_ds, tmp)
         inp = phase_inputs(smi, loop_ds, tmp, serve["windows"])
         var = phase_variants(smi, loop_ds, tmp, frames)
+        dist = phase_dist(smi, loop_ds, tmp)
     phase_orbax(smi, frames)
     with tempfile.TemporaryDirectory() as tmp:
         wf = phase_workflow(smi, tmp)
@@ -5759,7 +6262,8 @@ def main() -> None:
          "analysis_graph_ms": an["nms"]["per_run"]["graph_ms"],
          "analysis_plain_ms": an["nms"]["per_run"]["plain_ms"],
          "analysis_bound_ms": an["nms"]["per_run"]["bound_ms"],
-         "analysis_max_abs_err": an["nms"]["max_abs_err"]},
+         "analysis_max_abs_err": an["nms"]["max_abs_err"],
+         **dist_nms(dist)},
         {"name": "paint_mosaic", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/paint.cu",
          "replaces": "glsdet_tpu/ufp/pallas_paint.py:368",

@@ -21,6 +21,12 @@ bfloat16 model gets a bfloat16 input.
 Each run's ``stats`` adds to the JAX package's keys the host time
 (``host_s``: building batches, the letterbox included, and the undo) and
 its share of the elapsed time (``host_share``).
+
+``run_eval(mesh=parallel.data_mesh())`` evaluates across the processes of
+a group as the JAX package's ``mesh=`` does across devices: each global
+batch of ``batch_size`` is split by ``shard_batch``, each rank loads and
+runs its rows (forward, decode, B2), and the fixed-shape detections are
+gathered, so that every rank undoes and scores the whole set.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ import numpy as np
 import torch
 
 from glsdet_tpu_torch.data.augment import letterbox
-from glsdet_tpu_torch.data.coco import IMAGENET_MEAN, IMAGENET_STD, CocoDataset
+from glsdet_tpu_torch.data.coco import (IMAGENET_MEAN, IMAGENET_STD,
+                                        CocoDataset, make_batch)
 from glsdet_tpu_torch.data.loader import EvalPipeline, eval_loader
 from glsdet_tpu_torch.eval.coco_eval import (CocoEvalResult, CocoEvaluator,
                                              summarize)
@@ -44,6 +51,7 @@ from glsdet_tpu_torch.eval.tta import tta_detect
 from glsdet_tpu_torch.eval.two_stage import (pack_detections,
                                              unpack_detections)
 from glsdet_tpu_torch.models.build import resolve_device
+from glsdet_tpu_torch.parallel import mesh as pmesh
 
 _norm: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -77,7 +85,7 @@ def _make_forward(apply_fn: Callable, variables, family: str, img_hw,
                   strides, score_thr: float, nms_iou: float, max_dets: int,
                   dtype: torch.dtype):
     """(B, H, W, 3) device images -> (B, max_dets, 7) packed detections
-    in canvas coordinates, as a host numpy array (one transfer)."""
+    in canvas coordinates, on the device."""
     yolox = family in ("yolox", "ffa")
     yolox_strides = strides or ((4, 8, 16, 32) if family == "ffa"
                                 else (8, 16, 32))
@@ -98,7 +106,7 @@ def _make_forward(apply_fn: Callable, variables, family: str, img_hw,
             d = gfl_postprocess(cls, reg, img_hw, score_thr=score_thr,
                                 iou_thr=nms_iou, max_dets=max_dets)
         return pack_detections(d["boxes"], d["scores"], d["labels"],
-                               d["valid"]).cpu().numpy()
+                               d["valid"])
 
     return forward
 
@@ -147,6 +155,38 @@ def _dump_json(dataset, dets_by_img: dict, out_json: str,
         print(f"wrote {len(dump)} detections -> {out_json}")
 
 
+def _sharded_batches(pipeline: EvalPipeline, batch_size: int,
+                     mesh: "pmesh.DataMesh"):
+    """``eval_loader``'s global batches (the tail padded with its last
+    sample), each rank loading only its rows (``shard_batch`` of the
+    batch's dataset indices)."""
+    n = len(pipeline.ds)
+    for start in range(0, n, batch_size):
+        idxs = list(range(start, min(start + batch_size, n)))
+        idxs += idxs[-1:] * (batch_size - len(idxs))
+        rows = pmesh.shard_batch({"idx": np.asarray(idxs)}, mesh)["idx"]
+        yield make_batch([pipeline(int(i)) for i in rows])
+
+
+_META = ("img_id", "scale", "offset", "orig_hw")
+
+
+def _gathered_meta(batch: dict, dev) -> dict:
+    """The global batch's undo metadata from every rank's rows, in rank
+    order (float64 holds the ids and sizes exactly)."""
+    cols = [np.asarray(batch[k], np.float64).reshape(len(batch["img_id"]), -1)
+            for k in _META]
+    local = torch.from_numpy(np.concatenate(cols, axis=1)).to(dev)
+    table = pmesh.all_gather(local).flatten(0, 1).cpu().numpy()
+    out, j = {}, 0
+    for k, c in zip(_META, cols):
+        v = table[:, j:j + c.shape[1]]
+        j += c.shape[1]
+        out[k] = (v.astype(np.asarray(batch[k]).dtype) if c.shape[1] > 1
+                  else v[:, 0].astype(np.asarray(batch[k]).dtype))
+    return out
+
+
 def _timing(n_done: int, elapsed: float, host: float) -> dict:
     return {"images": n_done, "elapsed_s": round(elapsed, 2),
             "images_per_sec": round(n_done / max(elapsed, 1e-9), 2),
@@ -178,16 +218,17 @@ def run_eval(
     """Evaluate ``apply_fn`` (module docstring) over ``dataset``; returns
     (COCO result or None with ``format_only``, stats).
 
-    ``mesh`` (the JAX package's data-parallel sharding) is not ported:
-    giving one raises.  ``show_dir`` draws the box outlines in numpy
+    ``mesh`` (``parallel.data_mesh()``) evaluates across the processes of
+    its group on its device (module docstring); any other type raises
+    ``TypeError``.  ``show_dir`` draws the box outlines in numpy
     (``utils/visualize.py``) and writes PNGs with ``data/image_io.py:
     write_png``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: data-parallel eval across cards is not ported yet "
-            "(ROADMAP.md, queue A item 14)")
-    dev, dtype = _prepare(device, family, apply_fn, dtype)
+    if mesh is not None and not isinstance(mesh, pmesh.DataMesh):
+        raise TypeError(f"mesh= takes parallel.data_mesh(), not "
+                        f"{type(mesh).__name__}")
+    dev, dtype = _prepare(device if mesh is None else mesh.device, family,
+                          apply_fn, dtype)
     forward = _make_forward(apply_fn, variables, family, img_hw, strides,
                             score_thr, nms_iou, max_dets, dtype)
 
@@ -197,15 +238,19 @@ def run_eval(
     n_done = 0
     host = 0.0
     t0 = time.time()
-    batches = eval_loader(pipeline, batch_size)
+    batches = (eval_loader(pipeline, batch_size) if mesh is None
+               else _sharded_batches(pipeline, batch_size, mesh))
     while True:
         t = time.perf_counter()
         batch = next(batches, None)
         host += time.perf_counter() - t
         if batch is None:
             break
-        d = unpack_detections(forward(torch.from_numpy(
-            batch["images"]).to(dev)))
+        packed = forward(torch.from_numpy(batch["images"]).to(dev))
+        if mesh is not None:
+            packed = pmesh.all_gather(packed).flatten(0, 1)
+            batch = _gathered_meta(batch, dev)
+        d = unpack_detections(packed.cpu().numpy())
         t = time.perf_counter()
         boxes, scores = d["boxes"], d["scores"]
         labels, valid = d["labels"], d["valid"]
@@ -307,7 +352,7 @@ def run_eval_tta(
             image, np.zeros((0, 4), np.float32), img_hw)
         x = torch.from_numpy(np.ascontiguousarray(canvas, np.uint8))[None]
         host[0] += time.perf_counter() - t
-        d = unpack_detections(forward(x.to(dev)))
+        d = unpack_detections(forward(x.to(dev)).cpu().numpy())
         t = time.perf_counter()
         v = d["valid"][0]
         b = d["boxes"][0][v]

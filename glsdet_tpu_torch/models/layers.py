@@ -14,7 +14,9 @@ whether noise frames clear a coarse score threshold of 1e-4.
 Training follows flax too: :class:`BatchNorm2d` keeps its running
 variance from the biased batch variance, and :func:`remat` (the JAX
 package's ``nn.remat``) checkpoints a block without updating those
-statistics a second time when the backward recomputes it.
+statistics a second time when the backward recomputes it.  In a process
+group (``parallel/mesh.py``) the batch statistics are the global
+batch's, as under the JAX package's global-view data parallelism.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
+
+from glsdet_tpu_torch.parallel import mesh
 
 # torch BN(momentum=0.03, eps=1e-3) of the YOLOX configs; the JAX package
 # uses the same eps for the ResNet backbone.
@@ -69,6 +73,68 @@ def remat(fn, *args):
         context_fn=_remat_contexts)
 
 
+class _GroupBatchNorm(torch.autograd.Function):
+    """Training-mode batch normalisation over the whole process group's
+    batch, the statistics flax takes under global view.  Each rank takes
+    its mean and biased variance in one pass (``torch.var_mean``, float32
+    or wider), and the group's combine those (Chan et al.'s pairwise
+    update) from one gather: flax's single pass ``E[x^2] - E[x]^2``
+    loses digits where a channel's mean is large against its spread,
+    which at MP-Det's full width moved the dictionary rows by 2.6e-5 of
+    their max against one process's cuDNN statistics.  The input is then
+    normalised by ``F.batch_norm`` in eval form with the group's
+    statistics.  The backward takes this rank's sums of dy and dy * x_hat
+    with the eval-form ``native_batch_norm_backward`` (one fused kernel,
+    which also gives dy * weight * invstd), sums them over the group (as
+    ``nn.SyncBatchNorm`` does) and adds their per-channel affine term in
+    x, so each rank's input gradient carries the other ranks' losses
+    through the shared statistics; the weight and bias gradients are
+    this rank's, summed later with the others.
+    Returns ``(y, mean, biased var)``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        dt = torch.promote_types(x.dtype, torch.float32)
+        c = x.shape[1]
+        var, mean = torch.var_mean(x.to(dt), [0, *range(2, x.dim())],
+                                   correction=0)
+        count = x.numel() // c
+        ranks = mesh.all_gather(torch.cat([
+            mean, var * count, torch.full((1,), count, dtype=dt,
+                                          device=x.device)]))
+        counts = ranks[:, 2 * c:]                               # (W, 1)
+        n = counts.sum()
+        means = ranks[:, :c]
+        mean = (means * counts).sum(0) / n
+        var = (ranks[:, c:2 * c].sum(0)
+               + (counts * (means - mean) ** 2).sum(0)) / n
+        y = F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps)
+        ctx.save_for_backward(x, weight, mean, var, n)
+        ctx.eps = eps
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, var, n = ctx.saved_tensors
+        c = x.shape[1]
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        invstd = torch.rsqrt(var + ctx.eps)
+        # eval form (the statistics given, not the batch's): dx0 = dy *
+        # weight * invstd, dw = sum dy * x_hat, db = sum dy, this rank's
+        dx0, dw, db = torch.ops.aten.native_batch_norm_backward(
+            dy.contiguous(), x, weight, mean, var, mean, invstd, False,
+            ctx.eps, [True, True, True])
+        group = mesh.all_sum(torch.cat([db, dw]).to(mean.dtype)) / n
+        # dx = dx0 - weight * invstd * (mean(dy) + x_hat * mean(dy x_hat))
+        #    = dx0 + scale * x + shift, per channel
+        wi = weight.to(mean.dtype) * invstd
+        scale = -wi * invstd * group[c:]
+        shift = wi * (mean * invstd * group[c:] - group[:c])
+        dx = torch.addcmul(shift.view(shape), x, scale.view(shape)).add_(dx0)
+        return dx.to(x.dtype), dw, db, None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` with flax's training semantics.
 
@@ -79,11 +145,28 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``momentum`` 0.03 is flax's 0.97).  The batch statistics come from
     ``F.batch_norm`` itself, written into fresh buffers with momentum 1;
     the unbiased variance it leaves there is scaled back by (n - 1) / n.
-    Eval mode is ``nn.BatchNorm2d``'s."""
+    Eval mode is ``nn.BatchNorm2d``'s.
+
+    In a process group (``parallel/mesh.py: active``) the training
+    statistics are the group's (:class:`_GroupBatchNorm`) and the running
+    statistics move towards them, n being the group's element count.
+    ``nn.SyncBatchNorm`` is not used: its running variance is the
+    unbiased one."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if mesh.active():
+            y, mean, var = _GroupBatchNorm.apply(x, self.weight, self.bias,
+                                                 self.eps)
+            if not _RECOMPUTING.get():
+                with torch.no_grad():
+                    self.running_mean.lerp_(
+                        mean.to(self.running_mean.dtype), self.momentum)
+                    self.running_var.lerp_(
+                        var.to(self.running_var.dtype), self.momentum)
+                    self.num_batches_tracked.add_(1)
+            return y
         mean = torch.zeros_like(self.running_mean)
         var = torch.ones_like(self.running_var)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,

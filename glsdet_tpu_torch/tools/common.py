@@ -1,21 +1,16 @@
-"""What the port's command-line tools share: the one-process guard of
-the commands that the JAX package can run across processes, the device
-flag, the compute dtype of a model a command runs, the forward a model
-command times or exports, the ``--classes`` and checkpoint arguments,
-and the box forms that the result tools hand to the fusion and the COCO
-evaluator."""
+"""What the port's command-line tools share: the multi-process flags of
+the commands that run across processes and the group they join, the
+device flag, the compute dtype of a model a command runs, the forward a
+model command times or exports, the ``--classes`` and checkpoint
+arguments, and the box forms that the result tools hand to the fusion
+and the COCO evaluator."""
 
 from __future__ import annotations
 
 import argparse
-import os
 
 import numpy as np
 import torch
-
-# the environment that the JAX package's launch scripts set for several
-# processes (glsdet_tpu/parallel/mesh.py: maybe_init_distributed)
-PROCESS_COUNT_ENV = ("GLSDET_NUM_PROCESSES", "SLURM_NTASKS")
 
 
 def add_device_arg(ap: argparse.ArgumentParser) -> None:
@@ -24,30 +19,30 @@ def add_device_arg(ap: argparse.ArgumentParser) -> None:
 
 
 def add_dist_args(ap: argparse.ArgumentParser) -> None:
-    """The JAX CLIs' multi-process flags; the port refuses them
-    (:func:`single_process`)."""
+    """The JAX CLIs' multi-process flags (:func:`join_group`)."""
     ap.add_argument("--dist-coordinator", default=None, metavar="HOST:PORT",
-                    help="multi-process coordinator address (not ported: "
-                         "raises)")
-    ap.add_argument("--dist-num-processes", type=int, default=None)
-    ap.add_argument("--dist-process-id", type=int, default=None)
+                    help="multi-process coordinator address, rank 0's "
+                         "(tools/dist_launch.py sets it; defaults from "
+                         "GLSDET_COORDINATOR)")
+    ap.add_argument("--dist-num-processes", type=int, default=None,
+                    help="processes in the group (defaults from "
+                         "GLSDET_NUM_PROCESSES / SLURM_NTASKS)")
+    ap.add_argument("--dist-process-id", type=int, default=None,
+                    help="this process's rank (defaults from "
+                         "GLSDET_PROCESS_ID / SLURM_PROCID)")
 
 
-def single_process(args) -> None:
-    """Raise ``NotImplementedError`` when the command is asked to run as
-    one of several processes: a ``--dist-*`` flag, or a process count
-    above 1 in ``GLSDET_NUM_PROCESSES`` / ``SLURM_NTASKS``."""
-    flags = [f"--{k.replace('_', '-')}" for k in
-             ("dist_coordinator", "dist_num_processes", "dist_process_id")
-             if getattr(args, k, None) is not None]
-    env = {k: os.environ[k] for k in PROCESS_COUNT_ENV
-           if os.environ.get(k, "").strip()}
-    counts = [k for k, v in env.items() if int(v) > 1]
-    if flags or counts:
-        raise NotImplementedError(
-            f"{' '.join(flags + [f'{k}={env[k]}' for k in counts])}: "
-            "running across several processes is not ported yet "
-            "(ROADMAP.md, queue A item 14); run one process")
+def join_group(args) -> bool:
+    """Join the process group the ``--dist-*`` flags or the environment
+    configure (``parallel/mesh.py: maybe_init_distributed``) on
+    ``--device``: NCCL on the rank's card, whose ``cuda`` then means that
+    card, or gloo on the CPU.  Returns whether a group was joined; leave
+    it with ``parallel.shutdown()``."""
+    from glsdet_tpu_torch.parallel import maybe_init_distributed
+
+    return maybe_init_distributed(args.dist_coordinator,
+                                  args.dist_num_processes,
+                                  args.dist_process_id, device=args.device)
 
 
 def model_dtype(cfg, device: torch.device) -> torch.dtype:

@@ -15,8 +15,11 @@ with ``--tta-scales`` / ``--tta-flip``) runs on ``--device``.
 W8A8 (``ops/quant.py``); ``--int8-static`` calibrates on the first 2 eval
 batches (``ops/quant_static.py``; kernel B3 in ``mp_det_res50``'s head
 towers on the card), and ``--int8-scales`` loads a scales file, the JAX
-CLI's too, or saves the calibration there.  The ``--dist-*`` flags raise
-(ROADMAP.md item 14).
+CLI's too, or saves the calibration there.  With the ``--dist-*`` flags
+(or ``GLSDET_*`` / SLURM's environment, which ``tools/dist_launch.py``
+sets) each process joins the group and evaluates the whole set as the
+JAX CLI's processes do; rank 0 alone writes ``--out``, ``--show-dir``
+and a calibrated ``--int8-scales`` file.
 """
 
 from __future__ import annotations
@@ -24,8 +27,9 @@ from __future__ import annotations
 import argparse
 import os
 
+from glsdet_tpu_torch import parallel
 from glsdet_tpu_torch.tools.common import (add_device_arg, add_dist_args,
-                                           model_dtype, single_process)
+                                           join_group, model_dtype)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -109,8 +113,15 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.format_only and not args.out:
         ap.error("--format-only requires --out")
-    single_process(args)
+    dist = join_group(args)
+    try:
+        return _evaluate(args)
+    finally:
+        if dist:
+            parallel.shutdown()
 
+
+def _evaluate(args):
     import copy
 
     from glsdet_tpu_torch.config import (apply_overrides, get_config,
@@ -132,13 +143,18 @@ def main(argv=None):
         model, n_fused = fuse_conv_bn(model)
         print(f"fused {n_fused} conv+bn pairs")
 
+    # every rank evaluates the whole set; rank 0 alone writes files
+    main_rank = parallel.mesh.rank() == 0
     if args.int8_static or args.int8_scales:
         from glsdet_tpu_torch.ops.quant_static import (calibrate_scales,
                                                        load_scales,
                                                        quantize_static,
                                                        save_scales)
 
-        if args.int8_scales and os.path.exists(args.int8_scales):
+        # every rank looks before rank 0 may write the file
+        found = bool(args.int8_scales) and os.path.exists(args.int8_scales)
+        parallel.mesh.barrier()
+        if found:
             print(f"loading int8 scales from {args.int8_scales}")
             scales = load_scales(args.int8_scales)
         else:
@@ -146,7 +162,7 @@ def main(argv=None):
             print(f"calibrating int8 scales on {len(batches)} batches ...")
             scales = calibrate_scales(
                 copy.deepcopy(model).to(dev, dtype), batches)
-            if args.int8_scales:
+            if args.int8_scales and main_rank:
                 save_scales(args.int8_scales, scales)
                 print(f"saved int8 scales to {args.int8_scales}")
         net = quantize_static(model, scales, dtype=dtype, device=dev)
@@ -162,8 +178,8 @@ def main(argv=None):
     family = "yolox" if cfg.model.family == "yolox" else "gfl"
     kw = dict(score_thr=cfg.eval.score_thr, nms_iou=cfg.eval.nms_iou,
               max_dets=cfg.eval.max_dets, max_images=args.max_images,
-              out_json=args.out, format_only=args.format_only,
-              device=dev, dtype=dtype)
+              out_json=args.out if main_rank else None,
+              format_only=args.format_only, device=dev, dtype=dtype)
     if args.tta_scales or args.tta_flip:
         return run_eval_tta(
             dataset, net, family, cfg.data.img_hw, cfg.model.num_classes,
@@ -171,7 +187,8 @@ def main(argv=None):
             tta_flip=args.tta_flip, **kw)
     return run_eval(
         dataset, net, family, cfg.data.img_hw, cfg.model.num_classes,
-        batch_size=cfg.data.batch_size, show_dir=args.show_dir,
+        batch_size=cfg.data.batch_size,
+        show_dir=args.show_dir if main_rank else None,
         show_score_thr=args.show_score_thr, **kw)
 
 

@@ -10,8 +10,10 @@ reference: ``yolox-ufp/tools/train.py``: config, work dir, seed, resume,
 The arguments make the ``Config`` the JAX CLI makes, and
 ``train/loop.py: train`` runs it on ``--device``.  With ``--val-ann`` each
 epoch ends with ``eval/runner.py: run_eval`` over the EMA weights.  The
-``--dist-*`` flags, or a process count above 1 in ``GLSDET_NUM_PROCESSES``
-/ ``SLURM_NTASKS``, raise: one process runs (ROADMAP.md item 14).
+``--dist-*`` flags (or ``GLSDET_*`` / SLURM's environment, which
+``tools/dist_launch.py`` sets) run it as one rank of a process group:
+``train()`` then steps on the global batch across the group, and rank 0
+alone logs, writes checkpoints and evaluates.
 """
 
 from __future__ import annotations
@@ -23,8 +25,9 @@ import torch
 
 from glsdet_tpu_torch.config import (apply_overrides, get_config,
                                      parse_cfg_options)
+from glsdet_tpu_torch import parallel
 from glsdet_tpu_torch.tools.common import (add_device_arg, add_dist_args,
-                                           single_process)
+                                           join_group)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -106,16 +109,20 @@ def make_eval_fn(cfg, device):
 def main(argv=None):
     """Train; returns the final ``TrainState``."""
     args = parser().parse_args(argv)
-    single_process(args)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
-    cfg = build_config(args)
+    dist = join_group(args)
+    try:
+        cfg = build_config(args)
 
-    from glsdet_tpu_torch.train.loop import train
+        from glsdet_tpu_torch.train.loop import train
 
-    eval_fn = make_eval_fn(cfg, args.device) if args.val_ann else None
-    return train(cfg, max_steps=args.max_steps, eval_fn=eval_fn,
-                 device=args.device)
+        eval_fn = make_eval_fn(cfg, args.device) if args.val_ann else None
+        return train(cfg, max_steps=args.max_steps, eval_fn=eval_fn,
+                     device=args.device)
+    finally:
+        if dist:
+            parallel.shutdown()
 
 
 if __name__ == "__main__":

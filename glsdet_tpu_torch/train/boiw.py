@@ -15,6 +15,7 @@ import torch
 
 from glsdet_tpu_torch.ops.kmeans import cluster_size_probs, cosine_kmeans
 from glsdet_tpu_torch.ops.topk import topk_small_k
+from glsdet_tpu_torch.parallel import mesh
 
 
 class BoIWState(NamedTuple):
@@ -52,9 +53,14 @@ def update_dictionary(state: BoIWState, generator: Optional[torch.Generator],
     uniform: drawn from ``generator``, or given (a test feeds the JAX
     package's draw).  Fixed shapes: ranks past a class's count write to a
     spare slot that is dropped.
+
+    In a process group (``parallel/mesh.py``) ``labels`` are the global
+    batch's and ``features`` this rank's rows of it: the rows written
+    come from the ranks that own them, and with the same generator state
+    on every rank the update is the same everywhere.
     """
     num_slots, num_words, _ = state.embedding.shape
-    n = features.shape[0]
+    n = labels.shape[0]
     max_step = min(max_step, n)
     dev = features.device
     masks = labels[None, :] == torch.arange(num_slots, device=dev)[:, None]
@@ -69,7 +75,7 @@ def update_dictionary(state: BoIWState, generator: Optional[torch.Generator],
     spare = state.embedding.new_zeros(num_slots, 1,
                                       state.embedding.shape[-1])
     emb = torch.cat([state.embedding, spare], dim=1)
-    emb[rows, slots] = features[idx].to(emb.dtype)
+    emb[rows, slots] = mesh.gather_rows(features, idx).to(emb.dtype)
     return state._replace(embedding=emb[:, :num_words],
                           ptr=(state.ptr + step) % num_words)
 

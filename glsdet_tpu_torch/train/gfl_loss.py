@@ -1,7 +1,10 @@
 """GFL training loss (QFL + DFL + GIoU on ATSS targets), the counterpart
 of ``glsdet_tpu.train.gfl_loss``: all pyramid levels flattened into one
 (B, A, ...) tensor, per-level sums folded into global sums (reference:
-mmdet ``gfl_head.py`` ``get_targets`` / ``loss_single`` / ``loss``)."""
+mmdet ``gfl_head.py`` ``get_targets`` / ``loss_single`` / ``loss``).
+In a process group (``parallel/mesh.py``) the positive count and the
+quality-weight normaliser are the global batch's, so each rank's loss is
+its share of the global batch's."""
 
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from glsdet_tpu_torch.losses import (distribution_focal_loss, giou_loss,
 from glsdet_tpu_torch.ops.boxes import iou as aligned_iou
 from glsdet_tpu_torch.ops.integral import (bbox2distance, distance2bbox,
                                            integral_decode)
+from glsdet_tpu_torch.parallel import mesh
 
 
 class GFLTargets(NamedTuple):
@@ -66,7 +70,7 @@ def gfl_loss(cls_scores: torch.Tensor, bbox_pred_logits: torch.Tensor,
     pos = targets.pos_mask
     # the reference counts max(pos_i, 1) per image: an image without
     # positives still adds 1 to the QFL normaliser
-    num_pos = pos.float().sum(1).clamp(min=1.0).sum()
+    num_pos = mesh.all_sum(pos.float().sum(1).clamp(min=1.0).sum())
     num_total_samples = num_pos.clamp(min=1.0)
 
     stride = anchor_strides[None, :, None]
@@ -82,7 +86,7 @@ def gfl_loss(cls_scores: torch.Tensor, bbox_pred_logits: torch.Tensor,
     # quality weight: the detached max sigmoid score at positives
     weight = torch.sigmoid(cls_scores.detach()).amax(-1)
     weight = torch.where(pos, weight, 0.0)
-    avg_factor = weight.sum().clamp(min=avg_factor_floor)
+    avg_factor = mesh.all_sum(weight.sum()).clamp(min=avg_factor_floor)
 
     lb = giou_loss(pred_boxes.reshape(-1, 4), tgt_boxes.reshape(-1, 4))
     loss_bbox = loss_bbox_weight * (lb * weight.reshape(-1)).sum() \

@@ -18,10 +18,18 @@ does: the loss every 10 steps and the metrics at ``log_interval``.
 
 Every model family trains: ``yolox`` (with its ``variant``), ``ffa``
 (the 4-level model at strides 4-32, the ``adam_step`` recipe), ``mpdet``
-and ``gfl``.  Not ported yet, each raising ``NotImplementedError``: scan
+and ``gfl``.  Not ported yet, raising ``NotImplementedError``: scan
 groups of ``train.steps_per_call > 1`` (ROADMAP.md, queue A item 12: one
-CUDA graph per group would be their counterpart) and more than one
-process (item 14).
+CUDA graph per group would be their counterpart).
+
+Across processes (``parallel/mesh.py``, one per card) ``cfg.data.
+batch_size`` is the global batch, as in the JAX loop: each rank loads
+``batch_size / W`` samples through ``DistributedGroupSampler`` (or
+``InfiniteGroupBatchSampler``) with loader seed ``seed + rank``, the
+state is broadcast from rank 0 after init, resume and load, and the step
+is the global-batch step (``train/steps.py``).  Rank 0 alone logs, writes
+checkpoints and runs ``eval_fn``; the other ranks wait for it at a
+barrier at the end of each epoch.  One process trains on one card.
 """
 
 from __future__ import annotations
@@ -40,10 +48,13 @@ from torch import nn
 
 from glsdet_tpu_torch.config import Config
 from glsdet_tpu_torch.data.coco import CocoDataset
-from glsdet_tpu_torch.data.loader import (InfiniteGroupBatchSampler,
+from glsdet_tpu_torch.data.loader import (DistributedGroupSampler,
+                                          InfiniteGroupBatchSampler,
                                           TrainPipeline, train_loader)
 from glsdet_tpu_torch.models.build import build_model, resolve_device
 from glsdet_tpu_torch.models.detectors import GFL_STRIDES, YOLOX_STRIDES
+from glsdet_tpu_torch.parallel import mesh
+from glsdet_tpu_torch.parallel.mesh import multiscale_size
 from glsdet_tpu_torch.train import schedules
 from glsdet_tpu_torch.train.boiw import (enable_emd_training, init_boiw,
                                          update_ot)
@@ -66,19 +77,6 @@ def family_strides(family: str):
     if family in ("mpdet", "gfl"):
         return GFL_STRIDES
     return YOLOX_STRIDES
-
-
-def multiscale_size(step: int, sizes, interval: int = 10,
-                    seed: int = 42):
-    """Deterministic multi-scale schedule (``glsdet_tpu.parallel.mesh``'s
-    ``multiscale_size``): a step-seeded splitmix hash picks the size of
-    each ``interval``-step bucket, the same on every process."""
-    bucket = step // interval
-    h = (bucket * 0x9E3779B97F4A7C15 + seed) & 0xFFFFFFFFFFFFFFFF
-    h ^= h >> 30
-    h = (h * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
-    h ^= h >> 27
-    return sizes[h % len(sizes)]
 
 
 def freeze_sections(model: nn.Module, sections: Tuple[str, ...]
@@ -279,13 +277,6 @@ def merge_weights(raw: Dict, state: TrainState):
 
 # ── the loop ────────────────────────────────────────────────────────────
 
-def _world_size() -> int:
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
-
-
 def train(cfg: Config, dataset: Optional[CocoDataset] = None,
           max_steps: Optional[int] = None,
           eval_fn: Optional[Callable] = None, device="cuda",
@@ -425,10 +416,10 @@ def _check_supported(cfg: Config) -> None:
         raise NotImplementedError(
             f"train.steps_per_call={spc}: scan groups of steps are not "
             "ported yet (ROADMAP.md, queue A item 12)")
-    if _world_size() > 1:
-        raise NotImplementedError(
-            "training in more than one process is not ported yet "
-            "(ROADMAP.md, queue A item 14)")
+    world = mesh.world_size()
+    if cfg.data.batch_size % world:
+        raise ValueError(f"global batch {cfg.data.batch_size} not "
+                         f"divisible by {world} processes")
 
 
 def _train_run(cfg: Config, dataset: Optional[CocoDataset], max_steps,
@@ -487,6 +478,8 @@ def _train_run(cfg: Config, dataset: Optional[CocoDataset], max_steps,
                            ema_params=carry_state.ema_params,
                            generator=carry_state.generator,
                            boiw=carry_state.boiw)
+    # every rank starts from rank 0's state (a no-op in one process)
+    state = mesh.replicate(state)
 
     if t.resume:
         state = restore_checkpoint(t.resume, state)
@@ -497,16 +490,29 @@ def _train_run(cfg: Config, dataset: Optional[CocoDataset], max_steps,
                     n_loaded, t.load_from, len(skipped))
         for key, reason in skipped:
             logger.info("  skipped %s: %s", key, reason)
+    if t.resume or t.load_from:
+        state = mesh.replicate(state)
 
     step_fn, step_fn_l1, ms_steps = _make_steps(cfg, model)
     ms_sizes = tuple(t.multiscale_sizes or ())
 
+    # each rank loads its slice of the global batch
+    world, rank = mesh.world_size(), mesh.rank()
+    is_main = rank == 0
+    local_batch = cfg.data.batch_size // world
     sampler = None
     if iter_based:
         sampler = InfiniteGroupBatchSampler(
-            dataset, cfg.data.batch_size, num_replicas=1, rank=0,
+            dataset, local_batch, num_replicas=world, rank=rank,
             seed=t.seed)
-    loader = train_loader(pipeline, cfg.data.batch_size, seed=t.seed,
+    elif world > 1:
+        sampler = DistributedGroupSampler(
+            dataset, local_batch, num_replicas=world, rank=rank,
+            seed=t.seed)
+    if world > 1 and is_main:
+        logger.info("data parallel: %d processes, %d samples each",
+                    world, local_batch)
+    loader = train_loader(pipeline, local_batch, seed=t.seed + rank,
                           num_workers=cfg.data.num_workers, sampler=sampler,
                           pin_memory=dev.type == "cuda")
 
@@ -572,7 +578,10 @@ def _train_run(cfg: Config, dataset: Optional[CocoDataset], max_steps,
                         int(ot_rng.randint(2 ** 31)))
                     state.boiw = update_ot(state.boiw, gen,
                                            cfg.model.proxies_list)
-                    logger.info("step %d: ran update_ot", global_step)
+                    # the k-means may sum in another order on each card
+                    mesh.broadcast_(state.boiw)
+                    if is_main:
+                        logger.info("step %d: ran update_ot", global_step)
 
                 if global_step % t.log_interval == 0:
                     vals = {k: float(v) for k, v in metrics.items()}
@@ -585,16 +594,20 @@ def _train_run(cfg: Config, dataset: Optional[CocoDataset], max_steps,
                     entry = {"mode": "train", "epoch": gepoch + 1,
                              "iter": it, "step": global_step,
                              "time": round(dt, 4), **vals}
-                    logger.info("%s", entry)
-                    with open(log_path, "a") as f:
-                        f.write(json.dumps(entry) + "\n")
+                    if is_main:
+                        logger.info("%s", entry)
+                        with open(log_path, "a") as f:
+                            f.write(json.dumps(entry) + "\n")
 
-            if (gepoch + 1) % t.ckpt_interval == 0:
+            # the state is the same on every rank: rank 0 alone writes
+            # and evaluates while the others wait here, not in a step
+            if is_main and (gepoch + 1) % t.ckpt_interval == 0:
                 # the write overlaps the next epoch (joined by the next
                 # save or by finish_checkpoints below)
                 save_checkpoint(t.work_dir, state, gepoch + 1, wait=False)
-            if eval_fn is not None:
+            if is_main and eval_fn is not None:
                 eval_fn(state, gepoch + 1)
+            mesh.barrier()
         return state
     finally:
         loader.close()

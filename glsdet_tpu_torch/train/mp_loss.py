@@ -13,6 +13,17 @@ loss + the Sinkhorn OT loss to the proxies, the counterpart of
   in anchor order), so shapes stay fixed;
 - the dictionary update runs on detached features and returns a new
   :class:`BoIWState`.
+
+In a process group (``parallel/mesh.py``) each rank holds its slice of
+the global batch.  The GFL and contrastive losses decompose: each rank's
+is its share over the global counts.  The OT loss does not: each class's
+first positives are the global batch's, in image order, coupled by the
+Sinkhorn plan.  So the labels are gathered, the rows the loss reads
+(and those the dictionary update writes) come from the ranks that own
+them, and every rank computes the same loss, its gradient flowing only
+into its own rows (and into the proxies on rank 0 alone): summed over
+the ranks, the gradients give the loss's once.  The dictionary update
+is the same on every rank.
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ import torch.nn.functional as F
 from glsdet_tpu_torch.models.mp_head import proxy_scores
 from glsdet_tpu_torch.ops.sinkhorn import sinkhorn
 from glsdet_tpu_torch.ops.topk import first_k_true
+from glsdet_tpu_torch.parallel import mesh
 from glsdet_tpu_torch.train.boiw import BoIWState, update_dictionary
 from glsdet_tpu_torch.train.gfl_loss import GFLTargets, gfl_loss
 
@@ -66,18 +78,31 @@ def ot_proxy_loss(features: torch.Tensor, labels: torch.Tensor,
                   num_iters: int = 100) -> torch.Tensor:
     """Sinkhorn OT loss, every class as one batched Sinkhorn over a
     (C, K, maxP) padded cost; pad columns have zero cost and zero
-    marginal, so they take no mass."""
+    marginal, so they take no mass.  ``labels`` are the global batch's;
+    in a process group ``features`` are this rank's rows of it
+    (module docstring)."""
     num_classes = len(proxies_list)
     dev = features.device
-    sim = _unit_rows(features) @ _unit_rows(proxies).T        # (N, P)
-    dis = 1.0 - (sim + 1.0) / 2.0
+    if mesh.active():
+        # every rank computes the whole loss: the proxies take its
+        # gradient on rank 0 alone (times 1, elsewhere times 0), so the
+        # group's sum counts it once.  The graph stays the same on every
+        # rank: the backward's collectives (BatchNorm's sums, remat's
+        # recomputed forward) must meet in the same order everywhere
+        own = torch.full((), float(mesh.rank() == 0), dtype=proxies.dtype,
+                         device=proxies.device)
+        proxies = proxies * own + proxies.detach() * (1 - own)
+    units = _unit_rows(proxies)
 
-    k = min(max_pos_per_class, features.shape[0])
+    def distance(f):
+        return 1.0 - (_unit_rows(f) @ units.T + 1.0) / 2.0
+
+    k = min(max_pos_per_class, labels.shape[0])
     masks = labels[None, :] == torch.arange(num_classes, device=dev)[:, None]
     idx, valid = first_k_true(masks, k)                       # (C, K)
 
     # each class's block of columns, zero-padded to the widest class
-    rows = dis[idx]                                           # (C, K, P)
+    rows = distance(mesh.gather_rows(features, idx))          # (C, K, P)
     max_p = max(proxies_list)
     starts = np.cumsum([0] + list(proxies_list))[:-1]
     cost = torch.stack([
@@ -114,7 +139,8 @@ def mp_loss(cls_feats: torch.Tensor, bbox_pred_logits: torch.Tensor,
     """The full MP-Det loss over flattened levels: ``cls_feats`` (B, A, C)
     raw cls features (MPHead in training mode), ``bbox_pred_logits``
     (B, A, 4 * (reg_max + 1)) float32.  ``generator`` / ``noise`` feed
-    the dictionary update (:func:`update_dictionary`)."""
+    the dictionary update (:func:`update_dictionary`; in a process group
+    ``noise`` covers the global batch)."""
     b, a, c = cls_feats.shape
     feat_flat = cls_feats.reshape(-1, c).float()
     labels_flat = targets.labels.reshape(-1)
@@ -130,11 +156,12 @@ def mp_loss(cls_feats: torch.Tensor, bbox_pred_logits: torch.Tensor,
     loss_emb = boiw.beta * contrastive_loss(
         feat_flat, labels_flat, boiw.embedding, gfl.num_total_samples,
         weights=targets.label_weights.reshape(-1))
+    labels_all = mesh.all_gather(labels_flat).reshape(-1)
     loss_op = boiw.beta * ot_proxy_loss(
-        feat_flat, labels_flat, proxies, boiw.proxies_prob, proxies_list)
+        feat_flat, labels_all, proxies, boiw.proxies_prob, proxies_list)
 
     new_boiw = update_dictionary(boiw, generator, feat_flat.detach(),
-                                 labels_flat, noise=noise)
+                                 labels_all, noise=noise)
     total = gfl.total + loss_emb + loss_op
     return MPLossOut(total, gfl.loss_cls, gfl.loss_bbox, gfl.loss_dfl,
                      loss_emb, loss_op, new_boiw)

@@ -112,8 +112,9 @@ def load_state_dict(state: TrainState, sd: Dict[str, Any]) -> TrainState:
     if "momentum" in opt:
         named = dict(state.model.named_parameters())
         for name, buf in opt["momentum"].items():
+            # a copy: the optimizer updates its buffers in place
             state.optimizer.state[named[name]]["momentum_buffer"] = \
-                buf.to(named[name])
+                buf.to(named[name], copy=True)
         state.optimizer.count = int(opt["count"])
     else:
         state.optimizer.load_state_dict({"state": opt["state"],

@@ -20,6 +20,16 @@ The step makes no host sync between taking the batch and returning the
 metrics: every shape is fixed, nothing is read back, and the schedules
 run on the host step count.  Under ``torch.cuda.set_sync_debug_mode(
 "error")`` a change that adds one raises.
+
+In a process group (``parallel/mesh.py``) each rank steps on its slice
+of the global batch and the step is the JAX package's global-view step
+on the whole batch: BatchNorm and the losses reduce over the group, so
+each rank's loss is its share of the global loss (the OT loss, which
+does not decompose, is computed whole on every rank with its gradient
+flowing into the rank's own rows); one all-reduce per dtype then sums
+the gradients, so clipping, the optimizer and the EMA see the global
+gradient and every rank's state stays the same; the metrics are the
+group's.  Over NCCL the collectives add no host sync.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from glsdet_tpu_torch.models.mp_head import proxy_class_matrix
 from glsdet_tpu_torch.models.yolox_head import flatten_head_outputs
 from glsdet_tpu_torch.ops.image import resize_bilinear
 from glsdet_tpu_torch.ops.priors import grid_anchors, grid_points
+from glsdet_tpu_torch.parallel import mesh
 from glsdet_tpu_torch.train.gfl_loss import gfl_loss, gfl_targets
 from glsdet_tpu_torch.train.mp_loss import mp_loss
 from glsdet_tpu_torch.train.state import TrainState, apply_updates
@@ -69,6 +80,8 @@ def _flat_levels(maps, b):
 def _step_end(state, total, new_boiw=None):
     state.optimizer.zero_grad(set_to_none=True)
     total.backward()
+    mesh.all_reduce_grads([p for g in state.optimizer.param_groups
+                           for p in g["params"]])
     return apply_updates(state, new_boiw=new_boiw)
 
 
@@ -129,6 +142,7 @@ def make_yolox_train_step(model: nn.Module, img_hw: Tuple[int, int],
         metrics = {"loss": out.total, "loss_cls": out.loss_cls,
                    "loss_bbox": out.loss_bbox, "loss_obj": out.loss_obj,
                    "loss_l1": out.loss_l1, "num_fg": out.num_fg}
+        metrics = mesh.reduce_metrics(metrics, replicated=("num_fg",))
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return step
@@ -175,6 +189,11 @@ def make_mpdet_train_step(model: nn.Module, img_hw: Tuple[int, int],
         metrics = {"loss": out.total, "loss_cls": out.loss_cls,
                    "loss_bbox": out.loss_bbox, "loss_dfl": out.loss_dfl,
                    "loss_emb": out.loss_emb, "loss_op": out.loss_op}
+        # the OT loss is whole on every rank: count it once
+        share = out.loss_cls + out.loss_bbox + out.loss_dfl + out.loss_emb
+        metrics = mesh.reduce_metrics(dict(metrics, loss=share),
+                                      replicated=("loss_op",))
+        metrics["loss"] = metrics["loss"] + metrics["loss_op"]
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return step
@@ -211,6 +230,7 @@ def make_gfl_train_step(model: nn.Module, img_hw: Tuple[int, int],
         state = _step_end(state, out.total)
         metrics = {"loss": out.total, "loss_cls": out.loss_cls,
                    "loss_bbox": out.loss_bbox, "loss_dfl": out.loss_dfl}
+        metrics = mesh.reduce_metrics(metrics)
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return step

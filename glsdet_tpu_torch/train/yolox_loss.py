@@ -7,7 +7,10 @@ and yolox-drone's ``get_losses`` with its ablations):
          + BCE(cls, onehot * matched IoU) / num_fg  (positives)
          [+ L1 on the raw box outputs in the last no-mosaic epochs]
 
-``num_fg`` is the batch's positive count, floored at 1.  The assignment
+``num_fg`` is the batch's positive count, floored at 1; in a process
+group (``parallel/mesh.py``) it is the global batch's, summed over the
+group before the floor, as the JAX package's global-view step counts it,
+so each rank's loss is its share of the global batch's.  The assignment
 runs on detached probabilities and its matched IoU is a constant target:
 were it not, the cls-BCE gradient with respect to that target would flow
 back through the decoded boxes and shrink them.
@@ -26,6 +29,7 @@ from glsdet_tpu_torch.assign.sim_ota import in_regions, sim_ota_assign
 from glsdet_tpu_torch.losses import (_one_hot, bce_with_logits, giou_loss,
                                      iou_loss, l1_loss)
 from glsdet_tpu_torch.models.yolox_head import decode_boxes
+from glsdet_tpu_torch.parallel import mesh
 
 VARIANTS = ("mmdet", "cls_sigmoid", "no_sigmoid")
 
@@ -70,7 +74,9 @@ def _assign(decoded, cls_p, obj_p, priors_cxy, priors_stride, gt_boxes,
 
 
 def _num_fg(fg: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(fg.float().sum(), min=1.0)
+    """The (global) batch's positive count, floored at 1 after the sum
+    over the process group."""
+    return torch.clamp(mesh.all_sum(fg.float().sum()), min=1.0)
 
 
 def _targets(matched_gt, gt_boxes, gt_labels):

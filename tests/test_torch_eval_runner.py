@@ -24,10 +24,12 @@ CPU, with the same flax weights and PNG frames written by the port's
   (UFP packing floors coordinates, so a 1e-6 difference in the coarse
   stage can move a chip by a pixel, tests/test_torch_two_stage.py), the
   COCO stats within 0.02.
-- Guards: ``mesh=`` raises naming ROADMAP item 14, an orbax checkpoint
-  directory raises naming item 8; ``out_json`` maps labels to the
-  dataset's category ids, ``format_only`` returns no result, ``show_dir``
-  writes one PNG per frame.
+- Guards: ``mesh=`` takes ``parallel.data_mesh()`` (a process alone
+  gives the detections of no mesh; two processes are
+  ``test_torch_dist_loop.py``'s) and raises ``TypeError`` for anything
+  else, an orbax checkpoint directory raises naming item 8;
+  ``out_json`` maps labels to the dataset's category ids, ``format_only``
+  returns no result, ``show_dir`` writes one PNG per frame.
 """
 
 import importlib.util
@@ -53,6 +55,7 @@ from glsdet_tpu_torch.eval import runner as trunner
 from glsdet_tpu_torch.eval.tta import tta_detect as ttta
 from glsdet_tpu_torch.models import MPDet, YOLOXDetector
 from glsdet_tpu_torch.ops.boxes import pairwise_iou
+from glsdet_tpu_torch.parallel import data_mesh
 from glsdet_tpu_torch.tools import ufpmp_det_eval as ttool
 from glsdet_tpu_torch.utils.flax_import import state_dict_from_flax
 from torch_port_util import (COARSE_OPTS, MP_OPTS, flax_vars, load_flax)
@@ -313,9 +316,14 @@ def test_run_eval_outputs_and_guards(yolox, yolox_set, tmp_path):
     _, _, tm = yolox
     ann, img_root = yolox_set
     ds = TDataset(ann, img_root)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="data_mesh"):
         trunner.run_eval(ds, tm, "yolox", (64, 64), 10, mesh=object(),
                          device="cpu")
+    # a process alone is a mesh of one: the same detections as no mesh
+    # (two processes: tests/test_torch_dist_loop.py)
+    one = str(tmp_path / "one.json")
+    trunner.run_eval(ds, tm, "yolox", (64, 64), 10, out_json=one,
+                     format_only=True, mesh=data_mesh("cpu"), **YOLOX_KW)
     out = str(tmp_path / "dets.json")
     show = str(tmp_path / "show")
     res, stats = trunner.run_eval(ds, tm, "yolox", (64, 64), 10,
@@ -324,6 +332,8 @@ def test_run_eval_outputs_and_guards(yolox, yolox_set, tmp_path):
     assert res is None and stats["images"] == len(FRAMES)
     with open(out) as f:
         dump = json.load(f)
+    with open(one) as f:
+        assert json.load(f) == dump
     assert dump and {d["category_id"] for d in dump} <= set(CAT_IDS)
     assert {d["image_id"] for d in dump} == {100 + i
                                               for i in range(len(FRAMES))}

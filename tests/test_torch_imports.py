@@ -55,7 +55,9 @@ TOOLS = ("print_config", "convert_datasets", "train", "build_ufp_dataset",
          "benchmark", "get_flops", "summary", "export", "draw_cam",
          "test_robustness", "optimize_anchors", "analyze_dataset",
          "draw_bbox", "browse_dataset", "analyze_results", "analyze_logs",
-         "coco_error_analysis", "confusion_matrix")
+         "coco_error_analysis", "confusion_matrix",
+         # the multi-process launcher
+         "dist_launch")
 
 
 def _importers(pattern):
@@ -121,6 +123,8 @@ def test_every_port_module_imports_without_jax():
                  "glsdet_tpu_torch.utils.flax_import",
                  "glsdet_tpu_torch.utils.plot",
                  "glsdet_tpu_torch.data.corruptions",
+                 "glsdet_tpu_torch.parallel",
+                 "glsdet_tpu_torch.parallel.mesh",
                  *(f"glsdet_tpu_torch.tools.{t}" for t in TOOLS)):
         assert name in modules
     env = dict(os.environ, PYTHONPATH=ROOT)

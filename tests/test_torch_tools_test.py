@@ -28,8 +28,10 @@ ties either way.
   every later layer's codes (ROADMAP.md §C), so detections near the
   score threshold come and go.
 - ``--format-only`` writes ``--out`` and returns no result,
-  ``--show-dir`` one PNG a frame; ``--dist-*`` and a process count above
-  1 raise naming ROADMAP item 14; the default device is the card.
+  ``--show-dir`` one PNG a frame; ``--dist-*`` or SLURM's environment
+  make the process one rank of a group, which evaluates as a process
+  alone (``tools/dist_launch.py`` across two processes:
+  ``test_torch_dist_loop.py``); the default device is the card.
 """
 import json
 import os
@@ -41,6 +43,8 @@ import torch
 import glsdet_tpu.eval.coco_eval  # noqa: F401  (patched by name)
 import glsdet_tpu.eval.runner as jrunner
 from glsdet_tpu_torch.data.image_io import read_image
+from glsdet_tpu_torch.parallel import mesh
+from glsdet_tpu_torch.tools import dist_launch
 from glsdet_tpu_torch.tools import test as tool
 from test_torch_eval_runner import Recorder, _match
 from glsdet_tpu.data.augment import letterbox
@@ -202,14 +206,33 @@ def test_outputs_and_guards(setup, tmp_path, monkeypatch):
         assert read_image(os.path.join(show, f"{i}.png")).shape == (*hw, 3)
     with pytest.raises(SystemExit):
         tool.main([*base, "--format-only", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tool.main([*base, "--dist-num-processes", "2", "--device", "cpu"])
-    monkeypatch.setenv("SLURM_NTASKS", "4")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tool.main([*base, "--device", "cpu"])
+    # one rank of a process group, joined from the flags and then from
+    # SLURM's environment (gloo; a group of one here, two in
+    # test_torch_dist_loop.py): the result of a process alone, and the
+    # group left at the end
+    joins = []
+    real_init = mesh.init_distributed
+    monkeypatch.setattr(mesh, "init_distributed", lambda *a, **kw: (
+        joins.append(a), real_init(*a, **kw))[1])
+    one = [*base, "--max-images", "1", "--device", "cpu"]
+    alone, _ = tool.main(one)
+    addr = f"127.0.0.1:{dist_launch.free_port()}"
+    flags, _ = tool.main([*one, "--dist-coordinator", addr,
+                          "--dist-num-processes", "1",
+                          "--dist-process-id", "0"])
+    monkeypatch.setenv("GLSDET_COORDINATOR",
+                       f"127.0.0.1:{dist_launch.free_port()}")
     monkeypatch.setenv("SLURM_NTASKS", "1")
+    monkeypatch.setenv("SLURM_PROCID", "0")
+    env, _ = tool.main(one)
+    assert [a[1:] for a in joins] == [(1, 0), (1, 0)] and not mesh.active()
+    np.testing.assert_array_equal(flags.stats, alone.stats)
+    np.testing.assert_array_equal(env.stats, alone.stats)
+    # a count of 1 without a coordinator runs alone
+    monkeypatch.delenv("GLSDET_COORDINATOR")
     monkeypatch.setenv("GLSDET_NUM_PROCESSES", "1")
-    tool.main([*base, "--max-images", "1", "--device", "cpu"])
+    tool.main(one)
+    assert len(joins) == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no GPU"):
             tool.main(base)

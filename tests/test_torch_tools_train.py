@@ -5,8 +5,8 @@ each hands it must be equal, field for field, for the same arguments
 Then one real CPU run of the port (YOLOX-nano at 64x64, 4 frames at
 batch 2: one epoch of 2 steps, with the per-epoch eval) writes
 ``epoch_1.pt``, which ``tools.test`` reads.  Several processes
-(``--dist-*``, or ``GLSDET_NUM_PROCESSES`` / ``SLURM_NTASKS`` above 1)
-raise naming ROADMAP item 14 before anything runs."""
+(``--dist-*``, or ``GLSDET_*`` / SLURM's environment) make the command
+join their group before ``train()`` runs."""
 
 import dataclasses
 import os
@@ -15,6 +15,7 @@ import pytest
 
 import glsdet_tpu.train.loop  # noqa: F401  (patched by name)
 import glsdet_tpu_torch.train.loop as tloop
+from glsdet_tpu_torch.parallel import mesh
 from glsdet_tpu_torch.tools import test as test_tool
 from glsdet_tpu_torch.tools import train as tool
 from torch_port_util import write_png_dataset
@@ -97,13 +98,28 @@ def test_a_real_run_writes_what_test_reads(tmp_path, dataset, val_set,
 @pytest.mark.parametrize("how", ["flag", "GLSDET_NUM_PROCESSES",
                                  "SLURM_NTASKS"])
 def test_several_processes_raise(how, dataset, monkeypatch):
+    """Several processes, configured by the flags, ``GLSDET_*`` or
+    SLURM's environment: the command joins the group as the rank they
+    name on ``--device`` before ``train()`` runs (the group itself is
+    recorded here; two real ranks: ``test_torch_dist_loop.py``)."""
+    for k in ("GLSDET_COORDINATOR", "GLSDET_NUM_PROCESSES",
+              "GLSDET_PROCESS_ID", "SLURM_NTASKS", "SLURM_PROCID"):
+        monkeypatch.delenv(k, raising=False)
     argv = ["coarse_det", "--ann", dataset[0], "--img-root", dataset[1],
             "--device", "cpu"]
     if how == "flag":
-        argv += ["--dist-coordinator", "localhost:1234"]
+        argv += ["--dist-coordinator", "h:1234", "--dist-num-processes",
+                 "2", "--dist-process-id", "1"]
     else:
+        monkeypatch.setenv("GLSDET_COORDINATOR", "h:1234")
+        prefix = "GLSDET" if how.startswith("GLSDET") else "SLURM"
         monkeypatch.setenv(how, "2")
+        monkeypatch.setenv("GLSDET_PROCESS_ID" if prefix == "GLSDET"
+                           else "SLURM_PROCID", "1")
+    joins = []
+    monkeypatch.setattr(mesh, "init_distributed",
+                        lambda *a, **kw: joins.append((a, kw)))
     monkeypatch.setattr(tloop, "train", _Recorder())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tool.main(argv)
-    assert tloop.train.calls == []
+    tool.main(argv)
+    assert joins == [(("h:1234", 2, 1), {"device": "cpu", "backend": None})]
+    assert len(tloop.train.calls) == 1
