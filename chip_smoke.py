@@ -130,6 +130,39 @@ Phases, in the order they run, each printing one line:
      the GN kernel 40 times per group, and on the inputs the path gave it
      (the first launch at each level, captured) within +-1 code of its
      plain version, timed;
+ 15b. replicas: serving across cards.  The bench fixture's bf16 and
+     static-int8 pipelines (phase 11's scales) with devices=["cuda:0",
+     "cuda:1"] (["cuda:0", "cuda:0"] on a one-card machine, which it
+     says: "cards": 1, "device_guard_checked": false): warmup on each
+     card, then 4 batches of the 16 frames submitted in turn and
+     collected, served on cuda:0, cuda:1, cuda:0, cuda:1, each batch's
+     detections equal to the one-card pipeline's (the same counts and
+     labels, boxes within 1e-2 px + 1e-4 relative, scores within 1e-3),
+     every B1, B2 and B3 launch counted by card where its wrapper
+     launches (launches_by_device; the cards' sums equal the wrappers'
+     totals) and each on the second card held against its plain version
+     on that card (B1 and B2 equal, B3 within +-1 code; the count held
+     equals the card's); on two cards each kernel's wrapper (B4's too,
+     on a small bottleneck) called on cuda:1 tensors while cuda:0 is
+     current, against its plain version, and B2 refusing inputs on two
+     cards.  TwoStageDetector(devices=) answering two detect_batch calls
+     of the 16 frames (one turn each) as the one-card facade does.
+     scan_width: the bf16 models on 32 frames as one chunk, flat and in
+     groups of 16 (the peak memory predicted from the one-card run and
+     printed first, then measured; img/s); each stage's groups
+     torch.equal to the groups run alone (the coarse stage, and a
+     stage-2 group of 32 mosaics), and the grouped run against the flat
+     one as two bf16 runs of other batch sizes (the top 10 detections
+     of each frame matched both ways at 0.95; cuDNN picks its algorithms
+     per shape, so the two do not sum alike).  cost_analysis
+     at 765x1360 of the bf16, int8 and fused pipelines on the card, the
+     flops equal across the three and the coarse stage's equal to the
+     bf16 models' in float32 on the CPU (batch 1); per image at the
+     ladder's first bucket and at 1152, and the one-card bf16 run's
+     img/s times them as achieved TFLOP/s.  Printed as one
+     {"replicas": ...} line; each kernel's
+     entry of the kernel line adds its launches per card
+     (replicas_launches_per_card).  Its training part runs in phase 21;
  16. apis.Detector("coarse_det", score_thr=1e-4) on 4 frames: B2
      launched, detections well formed, img/s;
  17. MP-Det training (train/steps.py; no kernel of its own: none of the
@@ -201,7 +234,12 @@ Phases, in the order they run, each printing one line:
      the state the loop had then, a resumed run taking only epoch 3's
      steps, and apis.init_detector serving the epoch-3 EMA.  Then six
      steps with multiscale_sizes (608, 640, 672) (the logged sizes equal
-     multiscale_size's: 608, then 672), five steps with device_geom (the
+     multiscale_size's: 608, then 672), four steps one at a time and in
+     groups of two (train.steps_per_call = 2; phase 15b's training
+     part), both on the same 4 batches made before the first step: the
+     loop's record of its groups (at steps 0 and 2; none for K = 1), the
+     log at steps 2 and 4, each run's host ms a step), five steps with
+     device_geom (the
      mosaic and affine warp on the card), and train(mp_det_res50) at 1024x1024,
      batch 4, remat on, on 16 frames for 3 epochs: update_ot at exactly
      the JAX cadence's steps (every 3 while the epoch is below 2), beta
@@ -384,11 +422,12 @@ Phases, in the order they run, each printing one line:
      of phase 21's frames against ground truth made from its own
      detections: the stats within 1e-3 of one process's, equal on every
      rank, every B2 launch's keep mask equal to nms_sorted_plain's and
-     timed.  Then tools/dist_launch.py train coarse_det (2 processes,
+     timed.  Then tools/train.py's main coarse_det in the same two
+     ranks, after their steps, in a group of its own (its --dist-* flags;
      one epoch of 2 steps on 16 frames, mosaic and mixup off, the loader
-     in the calling thread: one checkpoint and one log, both rank 0's)
-     and dist_launch test with that checkpoint (float32, coarse
-     threshold 1e-5), its --out equal to one process's
+     in the calling thread: one checkpoint and one log, both rank 0's),
+     and tools/dist_launch.py test with that checkpoint (2 processes;
+     float32, coarse threshold 1e-5), its --out equal to one process's
      tools.test --out.  Printed as one {"dist": ...} line; B2's entry of
      the kernel line adds the run_eval(mesh=) launches (dist_*).
 Then one JSON line of per-kernel results (each with its bound: the bytes
@@ -735,9 +774,10 @@ def seeded_models():
 def make_pipeline(models, **kw):
     from glsdet_tpu_torch.eval.two_stage import TwoStagePipeline
 
+    kw = {"max_batch": N_FRAMES, "device": DEVICE, **kw}
     return TwoStagePipeline(*models, COARSE_HW, mosaic_buckets=BUCKETS,
-                            coarse_score_thr=1e-4, max_batch=N_FRAMES,
-                            pack_mode="bucket-fit", device=DEVICE, **kw)
+                            coarse_score_thr=1e-4, pack_mode="bucket-fit",
+                            **kw)
 
 
 def build_pipeline():
@@ -1620,6 +1660,8 @@ def reset_launches() -> None:
     nms_kernel.launches = paint_kernel.launches = 0
     paint_kernel.inputs_launches = gn_kernel.launches = 0
     bottleneck_kernel.launches = 0
+    for m in (nms_kernel, paint_kernel, gn_kernel, bottleneck_kernel):
+        m.launches_by_device.clear()
 
 
 def read_launches() -> dict:
@@ -1630,6 +1672,19 @@ def read_launches() -> dict:
             "paint_inputs": paint_kernel.inputs_launches,
             "gn": gn_kernel.launches,
             "bottleneck": bottleneck_kernel.launches}
+
+
+def read_launches_by_card() -> dict:
+    """Each wrapper's launches since the last reset_launches, per card,
+    as the wrappers count them where they launch."""
+    from glsdet_tpu_torch.ops import bottleneck_kernel, gn_kernel, nms_kernel
+    from glsdet_tpu_torch.ufp import paint_kernel
+
+    return {name: {f"cuda:{i}": n for i, n in
+                   sorted(m.launches_by_device.items())}
+            for name, m in (("nms", nms_kernel), ("paint", paint_kernel),
+                            ("gn", gn_kernel),
+                            ("bottleneck", bottleneck_kernel))}
 
 
 def capture_serving(facade, frames):
@@ -2270,6 +2325,446 @@ def phase_detector(frames, paths) -> None:
         raise AssertionError("Detector: no detections")
     log("detector", frames=4, launches=launches, detections=n,
         img_per_s=batch_img_per_s(det, frames[:4]))
+
+
+# ---------------------------------------------------------------------------
+# 15b. replicas: serving on several cards in turn, scan_width groups and
+# cost_analysis
+
+REPLICA_BATCHES = 4          # batches of N_FRAMES served in turn
+SCAN_FRAMES, SCAN_WIDTH = 32, 16
+REPLICA_BOX_TOL = (1e-2, 1e-4)   # px, and relative: one card against one
+REPLICA_SCORE_TOL = 1e-3
+SCAN_MATCHED = 0.95          # grouped vs flat, bf16 (replica_scan)
+
+
+def same_detections(want, got, what, box_tol, score_tol) -> dict:
+    """Per frame: the same number of detections and labels, boxes within
+    ``box_tol`` (atol, rtol) and scores within ``score_tol``; the largest
+    differences and whether all were equal."""
+    exact, box_err, score_err = True, 0.0, 0.0
+    for i, (w, g) in enumerate(zip(want, got)):
+        if len(w["boxes"]) != len(g["boxes"]) or not np.array_equal(
+                w["labels"], g["labels"]):
+            raise AssertionError(f"{what} frame {i}: {len(g['boxes'])} "
+                                 f"detections against {len(w['boxes'])}")
+        db = np.abs(g["boxes"] - w["boxes"])
+        ds = np.abs(g["scores"] - w["scores"])
+        exact &= not db.any() and not ds.any()
+        if len(db):
+            if (db > box_tol[0] + box_tol[1] * np.abs(w["boxes"])).any() \
+                    or (ds > score_tol).any():
+                raise AssertionError(f"{what} frame {i}: boxes off by "
+                                     f"{db.max()}, scores by {ds.max()}")
+            box_err = max(box_err, float(db.max()))
+            score_err = max(score_err, float(ds.max()))
+    return {"equal": bool(exact), "box_max_abs_err": box_err,
+            "score_max_abs_err": score_err}
+
+
+@contextlib.contextmanager
+def card_checks(device):
+    """While the block runs, each call of B1 (the path entry), B2 and B3
+    that launched its kernel on ``device`` (the wrapper's own count on that
+    card went up) is held against its plain version on the same inputs on
+    that card right after it (B1 and B2 equal, B3 within +-1 code) and
+    counted in ``checked``; the first inputs of each are kept (on
+    ``device``) for the device guard's check."""
+    from glsdet_tpu_torch.eval import two_stage
+    from glsdet_tpu_torch.eval.preprocess import mosaic_inputs_plain
+    from glsdet_tpu_torch.ops import nms as nms_mod
+    from glsdet_tpu_torch.ops import gn_kernel, nms_kernel, quant_static
+    from glsdet_tpu_torch.ops.gn_kernel import gn_relu_quant_acc_plain
+    from glsdet_tpu_torch.ops.nms import nms_sorted_plain
+    from glsdet_tpu_torch.ufp import paint_kernel
+
+    cap = {"checked": {"nms": 0, "paint": 0, "gn": 0},
+           "gn_max_abs_err": 0.0, "first": {}}
+    real = (nms_mod.nms_sorted_cuda, two_stage.paint_mosaic_inputs_cuda,
+            quant_static.gn_relu_quant_acc)
+    counts = {"nms": nms_kernel.launches_by_device,
+              "paint": paint_kernel.launches_by_device,
+              "gn": gn_kernel.launches_by_device}
+
+    def launch(kernel, fn, t, *args, **kw):
+        """The real wrapper's result, and whether it launched on
+        ``device``."""
+        before = counts[kernel][device.index]
+        out = fn(t, *args, **kw)
+        if t.device != device or counts[kernel][device.index] == before:
+            return out, False
+        cap["checked"][kernel] += 1
+        return out, True
+
+    def nms(bx, vd, thr, offset=0.0):
+        keep, mine = launch("nms", real[0], bx, vd, thr, offset)
+        if mine:
+            if not torch.equal(keep, nms_sorted_plain(bx, vd, thr, offset)):
+                raise AssertionError(f"B2 on {device} {tuple(bx.shape)}: "
+                                     "keep mask differs from plain")
+            cap["first"].setdefault("nms", (bx.clone(), vd.clone(), thr,
+                                            offset))
+        return keep
+
+    def paint(imgs, idx, regs, hw, mean, inv_std):
+        got, mine = launch("paint", real[1], imgs, idx, regs, hw, mean,
+                           inv_std)
+        if mine:
+            if not torch.equal(got, mosaic_inputs_plain(
+                    imgs, idx, regs, hw, mean.dtype, mean, inv_std)):
+                raise AssertionError(f"B1 on {device} at {hw}: differs "
+                                     "from mosaic_inputs_plain")
+            cap["first"].setdefault("paint", (imgs, idx.clone(),
+                                              regs.clone(), hw, mean,
+                                              inv_std))
+        return got
+
+    def gn(acc, deq, gamma, beta, s_out, **kw):
+        got, mine = launch("gn", real[2], acc, deq, gamma, beta, s_out,
+                           **kw)
+        if mine:
+            c = check_codes(got, gn_relu_quant_acc_plain(
+                acc, deq, gamma, beta, s_out, kw["groups"], kw["eps"],
+                kw["dtype"]), f"on {device} {tuple(acc.shape)}")
+            cap["gn_max_abs_err"] = max(cap["gn_max_abs_err"],
+                                        c["max_abs_err"])
+            if "gn" not in cap["first"] and acc.shape[1] <= 36:
+                cap["first"]["gn"] = (acc.clone(), deq, gamma, beta, s_out,
+                                      kw)
+        return got
+
+    nms_mod.nms_sorted_cuda = nms_kernel.nms_sorted_cuda = nms
+    two_stage.paint_mosaic_inputs_cuda = paint
+    quant_static.gn_relu_quant_acc = gn
+    try:
+        yield cap
+    finally:
+        nms_mod.nms_sorted_cuda = nms_kernel.nms_sorted_cuda = real[0]
+        two_stage.paint_mosaic_inputs_cuda = real[1]
+        quant_static.gn_relu_quant_acc = real[2]
+
+
+def check_device_guard(first, device) -> dict:
+    """Each kernel's wrapper called on ``device``'s tensors while cuda:0
+    is the current card: B1, B2, B3 (on inputs the path gave them there)
+    and B4 (a small bottleneck) against their plain versions on
+    ``device``; and inputs on two cards raise ValueError."""
+    from glsdet_tpu_torch.eval.preprocess import mosaic_inputs_plain
+    from glsdet_tpu_torch.ops.bottleneck_kernel import (
+        fused_bottleneck, fused_bottleneck_plain)
+    from glsdet_tpu_torch.ops.gn_kernel import (gn_relu_quant_acc,
+                                                gn_relu_quant_acc_plain)
+    from glsdet_tpu_torch.ops.nms import nms_sorted_plain
+    from glsdet_tpu_torch.ops.nms_kernel import nms_sorted_cuda
+    from glsdet_tpu_torch.ufp.paint_kernel import paint_mosaic_inputs_cuda
+
+    out = {}
+    with torch.cuda.device(0):
+        bx, vd, thr, off = first["nms"]
+        keep = nms_sorted_cuda(bx, vd, thr, off)
+        out["nms_equal"] = bool(torch.equal(
+            keep, nms_sorted_plain(bx, vd, thr, off)))
+        imgs, idx, regs, hw, mean, inv_std = first["paint"]
+        got = paint_mosaic_inputs_cuda(imgs, idx, regs, hw, mean, inv_std)
+        out["paint_equal"] = bool(torch.equal(got, mosaic_inputs_plain(
+            imgs, idx, regs, hw, mean.dtype, mean, inv_std)))
+        acc, deq, gamma, beta, s_out, kw = first["gn"]
+        out["gn"] = check_codes(
+            gn_relu_quant_acc(acc, deq, gamma, beta, s_out, **kw),
+            gn_relu_quant_acc_plain(acc, deq, gamma, beta, s_out,
+                                    kw["groups"], kw["eps"], kw["dtype"]),
+            f"guard on {device}")
+        g = torch.Generator(device).manual_seed(3)
+        c = 64
+        x = torch.randn(2, 16, 16, 4 * c, device=device, generator=g)
+        ops = [torch.randn(*s, device=device, generator=g) * 0.05
+               for s in ((4 * c, c), (c,), (9 * c, c), (c,), (c, 4 * c),
+                         (4 * c,))]
+        y = fused_bottleneck(x.bfloat16(), *ops).float()
+        ref = fused_bottleneck_plain(x.bfloat16(), *ops).float()
+        out["bottleneck_max_abs_err"] = float((y - ref).abs().max())
+        if out["bottleneck_max_abs_err"] > 5e-3 * float(ref.abs().max()):
+            raise AssertionError(f"B4 on {device}: {out}")
+        if not (out["nms_equal"] and out["paint_equal"]):
+            raise AssertionError(f"kernels on {device}: {out}")
+        try:
+            nms_sorted_cuda(bx, vd.to("cuda:0"), thr, off)
+        except ValueError:
+            out["mixed_cards_raise"] = True
+        else:
+            raise AssertionError("B2 took inputs on two cards")
+        torch.cuda.synchronize(device)
+    return out
+
+
+def replica_run(single, multi, frames, second) -> dict:
+    """The one-card pipeline once, then REPLICA_BATCHES batches of the
+    frames through ``multi`` (all submitted, then collected: the cards'
+    turns interleave), each equal to the one-card result, every kernel
+    launch on ``second`` held to plain (card_checks)."""
+    for p in (single, multi):
+        p.warmup(FRAME_HW)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    want = single.run_batch(frames)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    reset_launches()
+    with card_checks(second) as cap:
+        handles = [multi.submit_batch(frames)
+                   for _ in range(REPLICA_BATCHES)]
+        got = [multi.collect_batch(h) for h in handles]
+        for d in {torch.device(x) for x in multi.devices}:
+            torch.cuda.synchronize(d)
+    launches, per_card = read_launches(), read_launches_by_card()
+    for kernel, cards in per_card.items():
+        if sum(cards.values()) != launches[kernel]:
+            raise AssertionError(f"{kernel}: launches per card {cards}, "
+                                 f"{launches[kernel]} in all")
+        if kernel in cap["checked"] and cap["checked"][kernel] != cards.get(
+                str(second), 0):
+            raise AssertionError(f"{kernel}: {cap['checked'][kernel]} "
+                                 f"launches on {second} held to plain, "
+                                 f"{cards.get(str(second), 0)} counted")
+    served_on = [str(h.chunks[0][1].device) for h in handles]
+    if served_on != [str(multi.devices[k % 2])
+                     for k in range(REPLICA_BATCHES)]:
+        raise AssertionError(f"batches served on {served_on}")
+    errs = [same_detections(want, g, f"replica batch {k}", REPLICA_BOX_TOL,
+                            REPLICA_SCORE_TOL) for k, g in enumerate(got)]
+    check_results(want, len(frames))
+    if min(cap["checked"].values() if single.quant8 else
+           (cap["checked"]["nms"], cap["checked"]["paint"])) < 1:
+        raise AssertionError(f"kernels on {second}: {cap['checked']}")
+    return {"served_on": served_on, "launches": launches,
+            "launches_per_card": per_card,
+            "checked_on_second": cap["checked"],
+            "gn_max_abs_err": cap["gn_max_abs_err"],
+            "batches": errs, "one_card_s": one_s,
+            "one_card_img_per_s": len(frames) / one_s,
+            "one_card_peak_mem_bytes": peak}, cap["first"]
+
+
+def replica_facades(frames, paths, devs) -> dict:
+    """TwoStageDetector(devices=) against the one-card facade: two
+    detect_batch calls of the frames (the first card's turn, then the
+    second's), each equal to the one-card answers."""
+    one = make_facade(paths)
+    try:
+        want = one.detect_batch(frames)
+    finally:
+        one.close()
+    multi = make_facade(paths, devices=devs)
+    try:
+        if [str(d) for d in multi.pipeline.devices] != devs:
+            raise AssertionError(f"facade devices {multi.pipeline.devices}")
+        got = [multi.detect_batch(frames) for _ in devs]
+    finally:
+        multi.close()
+    check_served(want, len(frames), multi.score_thr)
+    return {"turns": [same_detections(want, g, f"facade turn {k}",
+                                      REPLICA_BOX_TOL, REPLICA_SCORE_TOL)
+                      for k, g in enumerate(got)]}
+
+
+def scan_groups_exact(single, scan, dev) -> dict:
+    """Each stage of ``scan`` (SCAN_WIDTH groups) on SCAN_FRAMES frames,
+    and on a stage-2 group of SCAN_FRAMES mosaics made from that chunk's
+    packed jobs (its largest bucket's, repeated), torch.equal to
+    ``single`` (the same models) called on each group alone."""
+    from glsdet_tpu_torch.eval.two_stage import unpack_detections
+
+    w = SCAN_WIDTH
+    got = scan.coarse_packed(dev)
+    want = torch.cat([single.coarse_packed(dev[s:s + w])
+                      for s in range(0, SCAN_FRAMES, w)])
+    jobs = scan._pack_chunk([FRAME_HW] * SCAN_FRAMES,
+                            list(range(SCAN_FRAMES)),
+                            unpack_detections(got.cpu().numpy()))
+    bucket, job_list = max(jobs.items(), key=lambda kv: len(kv[1]))
+    job_list = (job_list * SCAN_FRAMES)[:SCAN_FRAMES]
+    idx = torch.tensor([j[1] for j in job_list]).to(dev.device)
+    regs = torch.from_numpy(np.stack([j[2] for j in job_list])).to(
+        dev.device)
+    got2 = scan.stage2_packed(dev, idx, regs, bucket)
+    want2 = torch.cat([single.stage2_packed(dev, idx[s:s + w],
+                                            regs[s:s + w], bucket)
+                       for s in range(0, SCAN_FRAMES, w)])
+    out = {"coarse_equal": bool(torch.equal(got, want)),
+           "stage2_equal": bool(torch.equal(got2, want2)),
+           "stage2_bucket": bucket}
+    if not (out["coarse_equal"] and out["stage2_equal"]):
+        raise AssertionError(f"scan_width groups differ from the groups "
+                             f"run alone: {out}")
+    return out
+
+
+def replica_scan(single, frames, peak16) -> dict:
+    """SCAN_FRAMES frames as one chunk, flat and in SCAN_WIDTH groups, on
+    the bf16 models of ``single`` (max_batch N_FRAMES = SCAN_WIDTH): the
+    peak memory predicted from the one-card run of N_FRAMES (``peak16``;
+    printed before the runs) and measured, img/s; each stage's groups
+    equal to the groups run alone (scan_groups_exact); the grouped run
+    against the flat one, which sums its convolutions at another batch
+    size (cuDNN's algorithms are chosen per shape, and bf16 rounds the
+    difference into other detections), as two bf16 runs are compared:
+    the top 10 detections of each frame matched both ways (matched_share:
+    same label, IoU > 0.5, score within 0.3) at SCAN_MATCHED at least."""
+    if single.max_batch != SCAN_WIDTH:
+        raise AssertionError("the groups' reference must run SCAN_WIDTH")
+    frames = (frames * (SCAN_FRAMES // len(frames) + 1))[:SCAN_FRAMES]
+    frame_bytes = int(np.prod(FRAME_HW)) * 3
+    # a group holds what one chunk of N_FRAMES held, beside the extra
+    # frames; the flat chunk twice the activations
+    log("replicas_scan_prediction", one_card_peak_bytes=peak16,
+        scan_peak_bytes=peak16 + (SCAN_FRAMES - N_FRAMES) * frame_bytes,
+        flat_peak_bytes=2 * (peak16 - N_FRAMES * frame_bytes)
+        + SCAN_FRAMES * frame_bytes)
+    flat = make_pipeline((single.coarse, single.mp), max_batch=SCAN_FRAMES)
+    scan = make_pipeline((single.coarse, single.mp), max_batch=SCAN_FRAMES,
+                         scan_width=SCAN_WIDTH)
+    out = {}
+    try:
+        for name, p in (("flat", flat), ("scan", scan)):
+            p.warmup(FRAME_HW)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                res = p.run_batch(frames)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            out[name] = {"peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                         "img_per_s": SCAN_FRAMES / min(times),
+                         "detections": sum(len(r["boxes"]) for r in res),
+                         "results": res}
+        out["groups"] = scan_groups_exact(
+            single, scan, torch.from_numpy(np.stack(frames)).to(DEVICE))
+    finally:
+        flat.close()
+        scan.close()
+    want, got = out["flat"].pop("results"), out["scan"].pop("results")
+    check_results(got, SCAN_FRAMES)
+    out["matched"] = [matched_share(want, got), matched_share(got, want)]
+    if min(out["matched"]) < SCAN_MATCHED:
+        raise AssertionError(f"scan_width: {out}")
+    return {"frames": SCAN_FRAMES, "scan_width": SCAN_WIDTH,
+            "frame_bytes": frame_bytes, **out}
+
+
+def replica_costs(single, single8, bf16_ips) -> dict:
+    """cost_analysis at the bench frames' size for the bf16, static-int8
+    and fused pipelines on the card, the flops equal across the three;
+    the coarse stage's flops also counted on the CPU in float32 (batch 1;
+    the CPU's stage 2 at full width would take tens of seconds, and
+    tests/test_torch_cost.py holds both stages' CPU count to the card's at
+    test widths); per stage at the first bucket, and at 1152; the
+    achieved TFLOP/s of the one-card bf16 run."""
+    from glsdet_tpu_torch.eval.two_stage import TwoStagePipeline
+    from glsdet_tpu_torch.ops.cost import count_cost
+    from glsdet_tpu_torch.ops.fused_infer import wrap_model_fused
+
+    coarse, mp = seeded_models()
+    cpu = TwoStagePipeline(copy.deepcopy(coarse), copy.deepcopy(mp),
+                           COARSE_HW, mosaic_buckets=BUCKETS,
+                           coarse_score_thr=1e-4, pack_mode="bucket-fit",
+                           max_batch=1, device="cpu")
+    fused = make_pipeline((coarse, wrap_model_fused(mp)))
+    try:
+        t0 = time.perf_counter()
+        costs = {"bf16": single.cost_analysis(FRAME_HW),
+                 "int8": single8.cost_analysis(FRAME_HW),
+                 "fused": fused.cost_analysis(FRAME_HW)}
+        at_1152 = single.cost_analysis(FRAME_HW, bucket=1152)
+        with count_cost() as counter:
+            cpu.coarse_packed(torch.zeros((1, *FRAME_HW, 3),
+                                          dtype=torch.uint8))
+        seconds = time.perf_counter() - t0
+    finally:
+        cpu.close()
+        fused.close()
+    for stage in ("coarse", "stage2"):
+        flops = {k: c[stage]["flops"] for k, c in costs.items()}
+        if stage == "coarse":
+            flops["cpu_float32"] = counter.flops
+        if len(set(flops.values())) != 1:
+            raise AssertionError(f"cost_analysis {stage} flops differ: "
+                                 f"{flops}")
+    per_image = {bk: c["coarse"]["flops"] + c["stage2"]["flops"]
+                 for bk, c in ((costs["bf16"]["bucket"], costs["bf16"]),
+                               (1152, at_1152))}
+    return {**costs, "cpu_float32_coarse": counter.as_dict(),
+            "bf16_1152": at_1152, "seconds": seconds,
+            "gflop_per_image": {str(k): v / 1e9
+                                for k, v in per_image.items()},
+            "achieved_tflops": {str(k): bf16_ips * v / 1e12
+                                for k, v in per_image.items()},
+            "share_of_bf16_peak": {str(k): bf16_ips * v / PEAK_BF16
+                                   for k, v in per_image.items()}}
+
+
+def replica_devices():
+    """The card count, and the two devices the phase serves on in turn:
+    two cards where there are two, else the one card twice."""
+    cards = torch.cuda.device_count()
+    return cards, (["cuda:0", "cuda:1"] if cards >= 2
+                   else ["cuda:0", "cuda:0"])
+
+
+def replica_launches(rep, kernel) -> dict:
+    """A kernel's launches in the replicas phase's two-card runs, per
+    mode and card, as its wrapper counted them."""
+    return {mode: rep[mode]["launches_per_card"][kernel]
+            for mode in ("bf16", "int8")}
+
+
+def phase_replicas(frames, paths) -> dict:
+    """Serving on two cards in turn, scan_width groups, cost_analysis
+    (module docstring, phase 15b)."""
+    from glsdet_tpu_torch.native.build import BUILD_DIR
+    from glsdet_tpu_torch.ops.quant_static import load_scales
+
+    t0 = time.perf_counter()
+    cards, devs = replica_devices()
+    second = torch.device(devs[1])
+    out = {"cards": min(cards, 2), "devices": devs,
+           "device_guard_checked": cards >= 2}
+    scales = load_scales(os.path.join(BUILD_DIR, "int8_scales.json"))
+    single = make_pipeline(seeded_models())
+    models8 = seeded_models()
+    single8 = make_pipeline(copy.deepcopy(models8), quant8="static",
+                            act_scales=scales)
+    try:
+        multi = make_pipeline((single.coarse, single.mp), devices=devs)
+        try:
+            out["bf16"], first = replica_run(single, multi, frames, second)
+        finally:
+            multi.close()
+        multi8 = make_pipeline(models8, quant8="static", act_scales=scales,
+                               devices=devs)
+        try:
+            out["int8"], first8 = replica_run(single8, multi8, frames,
+                                              second)
+        finally:
+            multi8.close()
+        if cards >= 2:
+            out["device_guard"] = check_device_guard({**first, **first8},
+                                                     second)
+        del first, first8
+        out["facade"] = replica_facades(frames, paths, devs)
+        out["scan"] = replica_scan(single, frames,
+                                   out["bf16"]["one_card_peak_mem_bytes"])
+        out["cost"] = replica_costs(single, single8,
+                                    out["bf16"]["one_card_img_per_s"])
+    finally:
+        single.close()
+        single8.close()
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"replicas": out}), flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3354,6 +3849,64 @@ def loop_multiscale(ds, tmp) -> dict:
             "ms_per_step": sum(gaps[1:]) / max(len(gaps) - 1, 1), **run}
 
 
+class PrefetchProbe(LoopProbe):
+    """A LoopProbe that hands out ``n`` batches made before the first is
+    handed out: the host time between them is the steps' alone.  The
+    first call draws them from the real loader; later calls hand out the
+    same batches again."""
+
+    def __init__(self, real, n):
+        super().__init__(real)
+        self.n, self.batches = n, None
+
+    def __call__(self, *args, **kw):
+        if self.batches is None:
+            inner = self.real(*args, **kw)
+            try:
+                self.batches = [next(inner) for _ in range(self.n)]
+            finally:
+                inner.close()
+        for batch in self.batches:
+            self.times.append(time.perf_counter())
+            self.keys.append(sorted(batch))
+            yield batch
+
+
+def loop_groups(ds, tmp) -> dict:
+    """train(coarse_det) of 4 steps one at a time and in groups of two
+    (train.steps_per_call; phase 15b's training part), both on the same
+    4 batches, made (by 4 loader workers) before the first step: the
+    loop's record of its groups (steps 0 and 2 for K = 2, none for
+    K = 1), the log at steps 2 and 4, finite losses, and each run's host
+    ms a step after the first."""
+    from glsdet_tpu_torch.train import loop
+
+    out = {}
+    for k in (1, 2):
+        cfg = loop_cfg("coarse_det", ds, os.path.join(tmp, f"groups{k}"), **{
+            "train.epochs": 1, "train.warmup_epochs": 1,
+            "train.num_last_epochs": 0, "train.ckpt_interval": 10,
+            "train.steps_per_call": k, "train.log_interval": 2})
+        if k == 1:
+            probe = PrefetchProbe(loop.train_loader, 4)
+        probe.times, probe.keys = [], []
+        with LogRecords() as rec:
+            state, logs, gaps, run = run_train(cfg, probe, max_steps=4)
+        groups = rec.ints(r"step (\d+): group of (\d+) steps")
+        steps = [e["step"] for e in logs]
+        want = [(0, 2), (2, 2)] if k == 2 else []
+        if state.step != 4 or steps != [2, 4] or groups != want:
+            raise AssertionError(f"steps_per_call={k}: step {state.step}, "
+                                 f"log at {steps}, groups {groups}")
+        del state
+        torch.cuda.empty_cache()
+        out[f"k{k}"] = {"groups": groups, "logged_steps": steps,
+                        "loss": [e["loss"] for e in logs],
+                        "ms_per_step": sum(gaps[1:]) / (len(gaps) - 1),
+                        **run}
+    return {"steps": 4, **out}
+
+
 def loop_geom(ds, tmp) -> dict:
     cfg = loop_cfg("coarse_det", ds, os.path.join(tmp, "geom"), **{
         "train.epochs": 1, "train.warmup_epochs": 1,
@@ -3518,6 +4071,7 @@ def phase_train_loop(smi: str, yolox: dict, tmp: str):
                       if k not in ("ann_file", "img_root")}
     out["coarse_det"] = loop_coarse(ds, tmp, yolox["timed"]["ms_per_step"])
     out["multiscale"] = loop_multiscale(ds, tmp)
+    out["groups"] = loop_groups(ds, tmp)
     out["device_geom"] = loop_geom(ds, tmp)
     out["mp_det_res50"] = loop_mpdet(ds, tmp)
     out["card_vs_cpu"] = loop_card_vs_cpu(ds, tmp)
@@ -5955,6 +6509,16 @@ def dist_rank_main() -> None:
     if not parallel.maybe_init_distributed(device="cuda"):
         raise RuntimeError("no process group configured")
     out = dist_rank(job)
+    if "train_argv" in job:
+        # the train command in these ranks, in a group of its own
+        from glsdet_tpu_torch.tools import train as train_tool
+
+        t0 = time.perf_counter()
+        train_tool.main([*job["train_argv"], "--dist-coordinator",
+                         f"127.0.0.1:{job['train_port']}",
+                         "--dist-num-processes", str(out["world_size"]),
+                         "--dist-process-id", str(out["rank"])])
+        out["train_command_s"] = time.perf_counter() - t0
     with open(os.path.join(job["root"],
                            f"{job['tag']}_r{out['rank']}.json"), "w") as f:
         json.dump(out, f)
@@ -6033,32 +6597,34 @@ def check_ranks(ranks, one) -> dict:
     return {"ranks": ranks}
 
 
-def dist_commands(ds, root, nproc, backend) -> dict:
-    """tools/dist_launch.py train coarse_det for one epoch of 2 steps on
-    DIST_TRAIN_FRAMES of the loop frames (rank 0 alone writes the
-    checkpoint and the log), then dist_launch test with that checkpoint
-    on the eval frames: its --out, written by rank 0, equal to one
-    process's tools.test --out."""
+def dist_train_argv(ds, root) -> list:
+    """The train command's arguments for one epoch of 2 steps of
+    coarse_det on DIST_TRAIN_FRAMES of the loop frames, which the
+    two-rank launch runs after its steps (dist_rank_main)."""
+    eval_split(ds, root, "dist_train", DIST_TRAIN_FRAMES)
+    return ["coarse_det", "--ann", os.path.join(root, "dist_train.json"),
+            "--img-root", ds["img_root"], "--work-dir",
+            os.path.join(root, "dist_work"), "--cfg-options",
+            "train.epochs=1", "train.num_last_epochs=0",
+            "train.log_interval=1", "data.num_workers=0",
+            "data.mosaic=False", "data.mixup=False"]
+
+
+def dist_commands(ds, root, nproc, backend, ranks) -> dict:
+    """The two-rank launch's train command (one epoch of 2 steps: rank 0
+    alone writes the checkpoint and the log), then tools/dist_launch.py
+    test with that checkpoint on the eval frames: its --out, written by
+    rank 0, equal to one process's tools.test --out."""
     from glsdet_tpu_torch.tools import dist_launch
     from glsdet_tpu_torch.tools import test as test_tool
 
-    eval_split(ds, root, "dist_train", DIST_TRAIN_FRAMES)
     work = os.path.join(root, "dist_work")
     launcher = [] if backend == "nccl" else ["--backend", backend]
-    opts = ["--cfg-options", "train.epochs=1", "train.num_last_epochs=0",
-            "train.log_interval=1", "data.num_workers=0",
-            "data.mosaic=False", "data.mixup=False"]
-    t0 = time.perf_counter()
-    rc = dist_launch.main([*launcher, "train", "coarse_det", str(nproc),
-                           "--ann", os.path.join(root, "dist_train.json"),
-                           "--img-root",
-                           ds["img_root"], "--work-dir", work, *opts])
-    train_s = time.perf_counter() - t0
+    train_s = max(r["train_command_s"] for r in ranks)
     logs = read_log(work)
-    if rc != 0 or sorted(os.listdir(work)) != ["epoch_1.pt",
-                                               "train.log.json"] \
+    if sorted(os.listdir(work)) != ["epoch_1.pt", "train.log.json"] \
             or [e["step"] for e in logs] != [1, 2]:
-        raise AssertionError(f"dist_launch train: rc {rc}, "
+        raise AssertionError(f"train across {nproc} ranks: "
                              f"{os.listdir(work)}, log {logs}")
     for e in logs:
         check_finite("dist_launch train", {k: v for k, v in e.items()
@@ -6125,9 +6691,11 @@ def phase_dist(smi: str, ds, tmp: str) -> dict:
     init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device=DEVICE,
                      backend="nccl")
     out["nccl_1"] = check_ranks([dist_rank(job)], one)
-    out["two_ranks"] = check_ranks(
-        dist_launch_ranks(dict(job, tag="two"), 2, backend), one)
-    out["commands"] = dist_commands(ds, root, 2, backend)
+    out["two_ranks"] = check_ranks(dist_launch_ranks(
+        dict(job, tag="two", train_argv=dist_train_argv(ds, root),
+             train_port=free_port()), 2, backend), one)
+    out["commands"] = dist_commands(ds, root, 2, backend,
+                                    out["two_ranks"]["ranks"])
     out["launches"] = {"nms": {
         tag: sum(r["eval"]["launches"] for r in out[tag]["ranks"])
         for tag in ("nccl_1", "two_ranks")}}
@@ -6190,6 +6758,7 @@ def main() -> None:
         serve = phase_serve(frames, dev_frames, paths)
         ladder = phase_serve_ladder(frames, paths)
         serve8 = phase_serve_int8(frames, paths, serve)
+        rep = phase_replicas(frames, paths)
         phase_detector(frames, paths)
     phase_train(smi)
     yolox = phase_train_yolox(smi)
@@ -6263,7 +6832,8 @@ def main() -> None:
          "analysis_plain_ms": an["nms"]["per_run"]["plain_ms"],
          "analysis_bound_ms": an["nms"]["per_run"]["bound_ms"],
          "analysis_max_abs_err": an["nms"]["max_abs_err"],
-         **dist_nms(dist)},
+         **dist_nms(dist),
+         "replicas_launches_per_card": replica_launches(rep, "nms")},
         {"name": "paint_mosaic", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/paint.cu",
          "replaces": "glsdet_tpu/ufp/pallas_paint.py:368",
@@ -6287,7 +6857,8 @@ def main() -> None:
          "workflow_launches": wf["launches"]["paint_inputs"],
          "workflow_eval_ms": {f"{t['hw']}x{t['batch']}": t["ms"]
                               for t in wf["cycle_kernels"]["paint"]},
-         "workflow_max_abs_err": 0.0},
+         "workflow_max_abs_err": 0.0,
+         "replicas_launches_per_card": replica_launches(rep, "paint")},
         {"name": "gn_relu_quant", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/gn_quant.cu",
          "replaces": "glsdet_tpu/ops/pallas_gn.py:173",
@@ -6308,7 +6879,9 @@ def main() -> None:
          "workflow_test_int8_levels": [
              {k: t[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                                 "max_abs_err")}
-             for t in wf["test_int8"]["gn"]]},
+             for t in wf["test_int8"]["gn"]],
+         "replicas_launches_per_card": replica_launches(rep, "gn"),
+         "replicas_max_abs_err": rep["int8"]["gn_max_abs_err"]},
         {"name": "fused_bottleneck", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/bottleneck.cu",
          "replaces": "glsdet_tpu/ops/pallas_bottleneck.py:212",

@@ -301,8 +301,10 @@ class TwoStageDetector:
     ``quant8="static"`` serves static int8: with ``int8_scales`` (a
     saved-scales JSON path or the ``(coarse, mp)`` pair) at once, else
     after calibrating on the first batch's first 4 frames, saving the
-    scales when ``int8_scales`` names a path.  ``devices=`` (several
-    cards in turn) is not ported yet (ROADMAP.md, queue A item 6).
+    scales when ``int8_scales`` names a path.  ``devices=`` (a list of
+    cards, in place of ``device``) serves the batches on them in turn
+    (``TwoStagePipeline(devices=)``); the lazy calibration runs on the
+    first, and its scales quantize every card's copy.
     """
 
     _needs_calibration = False
@@ -322,12 +324,7 @@ class TwoStageDetector:
                  int8_scales=None,
                  devices=None,
                  device="cuda"):
-        if devices is not None:
-            raise NotImplementedError(
-                "devices=: serving across several cards is not ported yet "
-                "(ROADMAP.md, queue A item 6)")
-
-        resolve_device(device)
+        resolve_device(devices[0] if devices else device)
 
         def models():
             # float32 on the CPU: the pipeline makes its int8 copies from
@@ -362,7 +359,7 @@ class TwoStageDetector:
             max_batch=max_batch,
             fuse_global=fuse_global,
             fusion_nms_thr=e.fusion_nms_iou,
-            device=device)
+            device=device, devices=devices)
         self._scales_path, scales = _scales_arg(quant8, int8_scales)
         self._needs_calibration = quant8 == "static" and scales is None
         self._pipe = TwoStagePipeline(

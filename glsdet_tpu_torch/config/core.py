@@ -75,12 +75,11 @@ class TrainConfig:
     emd_start_epoch: int = 2
     ckpt_interval: int = 1
     log_interval: int = 50
-    # optimizer steps per device dispatch (train/steps.py
-    # make_scan_train_step). K>1 runs K steps as ONE lax.scan program —
-    # fewer dispatches (wins on high-latency links; the reference's
-    # runner is strictly one-iter-per-dispatch). Host hooks (OT update,
-    # logging) fire at group boundaries, so ot_interval and log_interval
-    # must be multiples of K (validated at loop start).
+    # optimizer steps per group (train/loop.py). K>1 runs K steps back
+    # to back with no host read between them (the reference's runner is
+    # strictly one iteration at a time). Host hooks (OT update, logging)
+    # fire at group boundaries, so ot_interval and log_interval must be
+    # multiples of K (validated at loop start).
     steps_per_call: int = 1
     # multi-scale training (yolox family only).  Non-empty = every
     # multiscale_interval steps the train size hops to a deterministic

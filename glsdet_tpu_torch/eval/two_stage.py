@@ -31,13 +31,35 @@ fused kernel (``csrc/bottleneck.cu``).  The pipeline's cast of the model
 to bfloat16 leaves the folded biases in float32.  Fused serving is float
 only: a wrapped MP-Det with ``quant8`` raises.
 
-Left out for now (see ROADMAP.md): multi-device round robin, the
-scan-width grouping and ``cost_analysis``.
+Several cards, as in the JAX package: ``devices=["cuda:0", "cuda:1",
+...]`` serves each ``submit_batch`` on the next card of the list in turn
+(round robin; the stages of a batch stay on its card).  Each card holds
+its own copy of the stage nets (float, int8 or fused) and of the
+normalisation constants, made at construction from the first card's: the
+int8 copies are quantized once, on the first card, so every card serves
+the same codes from the same scales.  No collective runs: batches are
+independent.
+
+``scan_width``, as in the JAX package: a chunk of ``b`` frames (or a
+stage-2 bucket group of ``b`` mosaics) with ``b > scan_width`` and ``b %
+scan_width == 0`` runs its stage in ``b / scan_width`` groups of
+``scan_width``, one after the other, their outputs concatenated on the
+card: one read-back per chunk and per stage-2 group as without groups,
+while the live activations are one group's.  The JAX pipeline pads each
+chunk to a power of two first; the port does not pad, so the rule applies
+to the chunk as it runs (a chunk of 24 at ``scan_width=16`` runs flat).
+Each group launches the painter once.
+
+:meth:`TwoStagePipeline.cost_analysis` gives the products and bytes per
+image of the two stages (``eval/cost.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 from concurrent.futures import ThreadPoolExecutor
+import itertools
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -152,6 +174,21 @@ def _unmap_and_nms(det_boxes, det_scores, det_labels, det_valid, regions,
             torch.gather(det_labels, 1, idx), out_valid)
 
 
+def _device_key(device: torch.device) -> torch.device:
+    """``device`` with its index: ``cuda`` is the current card."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _on(device: torch.device):
+    """Make ``device`` current for the work of a stage (a no-op on the
+    CPU)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 class _BatchHandle:
     """In-flight batch of the submit / dispatch / collect protocol."""
 
@@ -188,6 +225,13 @@ class TwoStagePipeline:
     no foreground region then returns its coarse set.  ``pack_mode`` and
     ``bucket_policy`` as in the module docstring; both raise the JAX
     package's ``ValueError`` on other values.
+
+    ``devices``: a list of devices (``torch.device`` s or strings, all of
+    one type) to serve on in turn, in place of ``device`` (module
+    docstring); ``coarse``/``mp``, ``coarse_net``/``mp_net`` are the
+    first device's.  A device may be listed twice (two turns of one
+    card share its copy).  ``scan_width``: a positive int or None
+    (module docstring).
     """
 
     def __init__(self, coarse_model: torch.nn.Module,
@@ -201,8 +245,23 @@ class TwoStagePipeline:
                  max_batch: int = 4, pack_threads: Optional[int] = None,
                  quant8=False, act_scales=None, fuse_global: bool = False,
                  fusion_nms_thr: float = 0.65, bucket_policy: str = "image",
-                 pack_mode: str = "square", device="cuda"):
+                 pack_mode: str = "square", device="cuda", devices=None,
+                 scan_width: Optional[int] = None):
+        if devices:
+            devices = [_device_key(resolve_device(d)) for d in devices]
+            if len({d.type for d in devices}) > 1:
+                raise ValueError(f"devices {devices}: expected devices of "
+                                 "one type")
+            device = devices[0]
         self.device = resolve_device(device)
+        self.devices = list(devices) if devices else [
+            _device_key(self.device)]
+        self._turns = itertools.cycle(self.devices)
+        self._pinned = False        # calibrating: every batch on devices[0]
+        if scan_width is not None and int(scan_width) < 1:
+            raise ValueError(f"scan_width {scan_width!r}: expected a "
+                             "positive int or None")
+        self.scan_width = int(scan_width) if scan_width else None
         if self.device.type == "cuda":
             # float32 math stays float32 (the proxy-score products and
             # the decode); the bfloat16 convolutions are unaffected
@@ -256,6 +315,16 @@ class TwoStagePipeline:
         self.pack_mode = pack_mode
         # made here, so that the stages copy nothing to the card
         self._mean, self._inv_std = norm_constants(self.dtype, self.device)
+        # per device: (coarse_net, mp_net, mean, inv_std), the first
+        # device's the ones above, the others' copies of them
+        first = self.devices[0]
+        self._replicas = {first: (self.coarse_net, self.mp_net, self._mean,
+                                  self._inv_std)}
+        for d in self.devices:
+            if d not in self._replicas:
+                self._replicas[d] = (copy.deepcopy(self.coarse_net).to(d),
+                                     copy.deepcopy(self.mp_net).to(d),
+                                     *norm_constants(self.dtype, d))
         # host UFP packing pool: frames pack independently and the C++
         # packer releases the GIL; None = min(8, cpus), <= 1 = inline
         if pack_threads is None:
@@ -270,16 +339,45 @@ class TwoStagePipeline:
             self._pack_pool.shutdown(wait=True)
             self._pack_pool = None
 
+    # -- devices ---------------------------------------------------------
+
+    def _replica(self, device: torch.device) -> tuple:
+        """(coarse_net, mp_net, mean, inv_std) of ``device``."""
+        rep = self._replicas.get(_device_key(device))
+        if rep is None:
+            raise ValueError(f"device {device} is not one of the pipeline's "
+                             f"devices {self.devices}")
+        return rep
+
+    def _next_device(self) -> torch.device:
+        return self.devices[0] if self._pinned else next(self._turns)
+
+    def _groups(self, b: int) -> List[slice]:
+        """The ``scan_width`` groups of a stage of width ``b`` (the JAX
+        rule: ``b > scan_width`` and a multiple of it), else all of it."""
+        w = self.scan_width
+        if w and b > w and b % w == 0:
+            return [slice(s, s + w) for s in range(0, b, w)]
+        return [slice(0, b)]
+
     # -- device stages -------------------------------------------------
 
     @torch.inference_mode()
     def coarse_packed(self, imgs: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) uint8 device frames -> (B, max_coarse_dets, 7)
-        packed coarse detections in coarse-input coordinates."""
+        packed coarse detections in coarse-input coordinates, on the
+        frames' device, in ``scan_width`` groups where they apply."""
+        net = self._replica(imgs.device)[0]
+        with _on(imgs.device):
+            outs = [self._coarse_group(net, imgs[g])
+                    for g in self._groups(imgs.shape[0])]
+            return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+    def _coarse_group(self, net, imgs: torch.Tensor) -> torch.Tensor:
         x = coarse_inputs(imgs, self.coarse_hw, self.dtype)
         if self._capture is not None:
             self._capture[0].append(x)
-        cls, reg, obj = self.coarse_net(x)
+        cls, reg, obj = net(x)
         d = yolox_postprocess(cls, reg, obj, self.coarse_hw,
                               score_thr=self.coarse_score_thr,
                               max_dets=self.max_coarse)
@@ -297,14 +395,25 @@ class TwoStagePipeline:
         mosaic; regions (b, R, 7) float32 rows; gdets (b,
         max_coarse_dets, 7) the mosaics' frames' packed coarse detections
         in frame coordinates.  Returns (b, max_chip_dets, 7) packed
-        detections in frame coordinates."""
+        detections in frame coordinates, on the frames' device, in
+        ``scan_width`` groups where they apply."""
+        rep = self._replica(imgs.device)
+        with _on(imgs.device):
+            outs = [self._stage2_group(
+                rep, imgs, idx[g], regions[g], hw,
+                None if gdets is None else gdets[g])
+                for g in self._groups(idx.shape[0])]
+            return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+    def _stage2_group(self, rep, imgs, idx, regions, hw, gdets):
+        _, net, mean, inv_std = rep
         # one painter launch writes the normalized NHWC input (on the
         # CPU: mosaic_inputs_plain); MP-Det reads it as channels-last NCHW
-        x = paint_mosaic_inputs_cuda(imgs, idx, regions, hw, self._mean,
-                                     self._inv_std).permute(0, 3, 1, 2)
+        x = paint_mosaic_inputs_cuda(imgs, idx, regions, hw, mean,
+                                     inv_std).permute(0, 3, 1, 2)
         if self._capture is not None:
             self._capture[1].append(x)
-        cls, reg = self.mp_net(x)
+        cls, reg = net(x)
         d = gfl_postprocess(cls, reg, (hw, hw),
                             score_thr=self.chip_score_thr,
                             max_dets=self.max_chip)
@@ -317,16 +426,18 @@ class TwoStagePipeline:
         return pack_detections(*out)
 
     def capture_inputs(self, images: Sequence[np.ndarray]):
-        """One ``run_batch`` over ``images``, returning the model inputs
-        the stages saw: (normalized coarse batches, normalized mosaic
-        canvases), NCHW on the device."""
+        """One ``run_batch`` over ``images`` on the first device, returning
+        the model inputs the stages saw: (normalized coarse batches,
+        normalized mosaic canvases), NCHW on that device."""
         coarse_in: List[torch.Tensor] = []
         mosaic_in: List[torch.Tensor] = []
         self._capture = (coarse_in, mosaic_in)
+        self._pinned = True
         try:
             self.run_batch(list(images))
         finally:
             self._capture = None
+            self._pinned = False
         return coarse_in, mosaic_in
 
     def calibrate_int8(self, images: Sequence[np.ndarray],
@@ -338,7 +449,7 @@ class TwoStagePipeline:
         quant8="static", act_scales=...)``; ``save_scales`` persists them.
         Build this pipeline without quantization, and keep the sample
         small: the captured inputs stay on the device until the
-        calibration ends."""
+        calibration ends.  With ``devices`` it runs on the first one."""
         coarse_in, mosaic_in = self.capture_inputs(images)
         return (calibrate_scales(self.coarse, coarse_in, min_channels),
                 calibrate_scales(self.mp, mosaic_in, min_channels))
@@ -359,7 +470,8 @@ class TwoStagePipeline:
 
     def submit_batch(self, images: Sequence[np.ndarray]) -> _BatchHandle:
         """Phase 1: upload shape-grouped chunks and run their coarse
-        stage."""
+        stage, the whole batch on the next device in turn."""
+        target = self._next_device()
         by_shape: Dict[tuple, List[int]] = {}
         for i, img in enumerate(images):
             by_shape.setdefault(np.shape(img), []).append(i)
@@ -369,12 +481,13 @@ class TwoStagePipeline:
                 part = idxs[s:s + self.max_batch]
                 stack = torch.from_numpy(np.stack(
                     [np.asarray(images[i], np.uint8) for i in part]))
-                dev = stack.to(self.device)
+                dev = stack.to(target)
                 chunks.append((part, dev, self.coarse_packed(dev)))
         return _BatchHandle([np.shape(im)[:2] for im in images], chunks)
 
     def submit_device_batch(self, dev_stack: torch.Tensor) -> _BatchHandle:
-        """Phase 1 for a (B, H, W, 3) uint8 stack already on the device."""
+        """Phase 1 for a (B, H, W, 3) uint8 stack already on one of the
+        pipeline's devices, which serves it."""
         b, h0, w0 = dev_stack.shape[:3]
         chunk = (list(range(b)), dev_stack, self.coarse_packed(dev_stack))
         return _BatchHandle([(h0, w0)] * b, [chunk])
@@ -423,6 +536,7 @@ class TwoStagePipeline:
         regions takes its coarse set as its result."""
         ch, cw = self.coarse_hw
         for part, dev, packed in h.chunks:
+            target = dev.device         # stage 2 follows the chunk
             packed_np = packed.cpu().numpy()
             jobs = self._pack_chunk(h.shapes, part,
                                     unpack_detections(packed_np))
@@ -436,14 +550,14 @@ class TwoStagePipeline:
                             packed_np[row], w0 / cw, h0 / ch)))
             for bucket, job_list in jobs.items():
                 rows = [j[1] for j in job_list]
-                idx = torch.tensor(rows, dtype=torch.int64).to(self.device)
+                idx = torch.tensor(rows, dtype=torch.int64).to(target)
                 regs = torch.from_numpy(
-                    np.stack([j[2] for j in job_list])).to(self.device)
+                    np.stack([j[2] for j in job_list])).to(target)
                 gdets = None
                 if self.fuse_global:
                     h0, w0 = h.shapes[part[0]]
                     gdets = torch.from_numpy(_scale_packed(
-                        packed_np[rows], w0 / cw, h0 / ch)).to(self.device)
+                        packed_np[rows], w0 / cw, h0 / ch)).to(target)
                 out = self.stage2_packed(dev, idx, regs, bucket, gdets)
                 h.pending.extend((j[0], out, slot)
                                  for slot, j in enumerate(job_list))
@@ -486,20 +600,34 @@ class TwoStagePipeline:
     def warmup(self, image_hw: Tuple[int, int]) -> None:
         """Run both stages on blank inputs, per bucket, at batch 1 and
         ``max_batch`` (the batch sizes ``run_batch`` hits, as the JAX
-        package's warmup), the fusion included with ``fuse_global``:
-        loads the kernels library (building it on first use), initialises
-        cuDNN and the CUDA context, and grows the caching allocator to a
-        full batch, so the first served batch pays none of it."""
+        package's warmup), the fusion included with ``fuse_global``, on
+        every device: loads the kernels library (building it on first
+        use), initialises cuDNN and the CUDA context, and grows the
+        caching allocator to a full batch, so the first served batch pays
+        none of it."""
         regs = torch.from_numpy(regions_to_array([], self.max_regions))
-        for b in sorted({1, self.max_batch}):
-            frames = torch.zeros((b, *image_hw, 3), dtype=torch.uint8,
-                                 device=self.device)
-            self.coarse_packed(frames)
-            idx = torch.zeros((b,), dtype=torch.int64, device=self.device)
-            regs_b = regs.expand(b, -1, -1).contiguous().to(self.device)
-            gdets = (torch.zeros((b, self.max_coarse, 7), device=self.device)
-                     if self.fuse_global else None)
-            for bucket in self.buckets:
-                self.stage2_packed(frames, idx, regs_b, bucket, gdets)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in self._replicas:
+            for b in sorted({1, self.max_batch}):
+                frames = torch.zeros((b, *image_hw, 3), dtype=torch.uint8,
+                                     device=dev)
+                self.coarse_packed(frames)
+                idx = torch.zeros((b,), dtype=torch.int64, device=dev)
+                regs_b = regs.expand(b, -1, -1).contiguous().to(dev)
+                gdets = (torch.zeros((b, self.max_coarse, 7), device=dev)
+                         if self.fuse_global else None)
+                for bucket in self.buckets:
+                    self.stage2_packed(frames, idx, regs_b, bucket, gdets)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    def cost_analysis(self, image_hw: Tuple[int, int],
+                      bucket: Optional[int] = None,
+                      batch: Optional[int] = None) -> dict:
+        """Per image, the work of the two stages at the shapes
+        ``run_batch`` gives them, as the JAX package's ``cost_analysis``:
+        ``{"batch", "bucket", "coarse": {...}, "stage2": {...}}``, each
+        stage ``flops``, ``bytes`` and ``int8_flop_frac``
+        (``eval/cost.py: stage_costs`` says what each counts)."""
+        from glsdet_tpu_torch.eval.cost import stage_costs
+
+        return stage_costs(self, image_hw, bucket, batch)

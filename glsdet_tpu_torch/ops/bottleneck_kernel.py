@@ -12,7 +12,11 @@ ResNet.  With BN folded into each convolution:
 
 bf16 operands, f32 sums, bf16 intermediates, the result in ``x.dtype``.
 Tensors are NHWC.  On a CPU tensor the wrapper computes the plain version;
-on a CUDA tensor it launches the kernel or raises.
+on a CUDA tensor it launches the kernel on that tensor's card (operands on
+another card raise ``ValueError``) or raises.  Each launch reports to
+``ops/cost.py``'s active counter the three convolutions' 2 x MACs (34 C^2
+a pixel) and the bytes its bound counts: x read and y written in bf16,
+the packed weights and the biases read once.
 
 The kernel runs its products on ``wgmma`` and streams the weights through a
 ring in shared memory, one K-chunk at a time, multicast to the blocks of a
@@ -29,15 +33,19 @@ the fly when it is given no packed weights.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 import torch.nn.functional as F
 
 from glsdet_tpu_torch.native import kernels
+from glsdet_tpu_torch.ops import cost
 
 # bottleneck widths C the kernel takes (4C = 64 ... 2048)
 KERNEL_C = (16, 32, 64, 128, 256, 512)
 
 launches = 0          # kernel launches since the last reset
+launches_by_device = collections.Counter()   # of them, per card index
 
 # The kernel's tile plan (``csrc/bottleneck.cu: Plan<C>``), per C: output
 # tile rows TH, cluster size CL, and for conv1, conv2, conv3 the K rows per
@@ -188,10 +196,16 @@ def fused_bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if any(t.data_ptr() % 16 for t in ops):
         raise ValueError("operands must be 16-byte aligned")
     lib = kernels.load_kernels()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    kernels.check(lib.glsdet_fused_bottleneck(
-        *(t.data_ptr() for t in ops), out.data_ptr(), bsz, h, w, c, stream),
-        "glsdet_fused_bottleneck")
+    with torch.cuda.device(x.device):
+        kernels.check(lib.glsdet_fused_bottleneck(
+            *(t.data_ptr() for t in ops), out.data_ptr(), bsz, h, w, c,
+            torch.cuda.current_stream().cuda_stream),
+            "glsdet_fused_bottleneck")
     launches += 1
+    launches_by_device[x.device.index] += 1
+    if cost.current() is not None:
+        cost.report(sum(map(cost.tensor_bytes, ops))
+                    + cost.tensor_bytes(out),
+                    flops=34 * c * c * bsz * h * w)
     return out.to(x.dtype)
 

@@ -11,7 +11,12 @@ every int8 head-tower convolution (``quant_static.py: _int8_head_forward``;
   so the towers write no float tensor between the GEMM and the GN.
 
 On a CPU tensor each wrapper computes its plain version; on a CUDA tensor
-it launches the kernel or raises.  Two differences from the JAX package,
+it launches the kernel on that tensor's card (an affine, scale or
+accumulator on another card raises ``ValueError``) or raises.  Each
+launch reports its bytes to ``ops/cost.py``'s active counter as the
+bound counts them: the source read once (int32 or bf16), the int8 codes
+written once; its few elementwise operations per value are not counted
+as products.  Two differences from the JAX package,
 both deliberate: the CUDA kernel has no eligibility gate (the Pallas
 kernel refused H or W not a multiple of 8, C not a multiple of 128 and
 levels over VMEM, and sent those to XLA), and nothing mirrors the
@@ -21,18 +26,21 @@ kernel.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
 import torch
 
 from glsdet_tpu_torch.native import kernels
+from glsdet_tpu_torch.ops import cost
 
 CHUNK_PIXELS = 256    # pixels per block of the streaming statistics pass
 MAX_C = 2048          # the kernels hold 2C scales and biases per block
 MAX_BATCH = 65535     # the kernels' grid holds one image per row
 
 launches = 0          # wrapper calls that launched the kernel since a reset
+launches_by_device = collections.Counter()   # of them, per card index
 
 # per (device, stream): MAX_BATCH uint32 counters of the streaming regime,
 # which the kernel leaves at 0; made once and never freed, so a call on
@@ -91,6 +99,9 @@ def gn_relu_quant_acc_plain(acc: torch.Tensor, deq: torch.Tensor,
 
 def _check_affine(c: int, dev: torch.device, **tensors) -> None:
     for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, the input on {dev}: "
+                             "inputs must share a card")
         if (t.dtype != torch.float32 or tuple(t.shape) != (c,)
                 or t.device != dev or not t.is_contiguous()):
             raise ValueError(f"{name}: expected contiguous ({c},) float32 "
@@ -150,16 +161,20 @@ def _launch(fn: str, x: torch.Tensor, deq, gamma, beta, s_out, g, eps):
     out = torch.empty((b, h, w, c), dtype=torch.int8, device=x.device)
     if x.numel() == 0:
         return out
-    work, counter = _scratch(x, b, h * w, c)
     lib = kernels.load_kernels()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     args = [x.data_ptr()] + ([] if deq is None else [deq.data_ptr()])
-    kernels.check(getattr(lib, fn)(
-        *args, gamma.data_ptr(), beta.data_ptr(), float(s_out), float(eps),
-        b, h * w, c, g, CHUNK_PIXELS, None if work is None else
-        work.data_ptr(), None if counter is None else counter.data_ptr(),
-        out.data_ptr(), stream), fn)
+    with torch.cuda.device(x.device):
+        work, counter = _scratch(x, b, h * w, c)
+        kernels.check(getattr(lib, fn)(
+            *args, gamma.data_ptr(), beta.data_ptr(), float(s_out),
+            float(eps), b, h * w, c, g, CHUNK_PIXELS,
+            None if work is None else work.data_ptr(),
+            None if counter is None else counter.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), fn)
     launches += 1
+    launches_by_device[x.device.index] += 1
+    if cost.current() is not None:
+        cost.report(cost.tensor_bytes(x) + cost.tensor_bytes(out))
     return out
 
 

@@ -34,6 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from glsdet_tpu_torch.ops import cost
+
 MM_MIN_ROWS = 17      # torch._int_mm on CUDA takes more than 16 rows
 MM_ALIGN = 8          # ... and inner/output sizes that are multiples of 8
 
@@ -142,6 +144,7 @@ class Int8Conv2d(nn.Module):
             raise TypeError("expected an int8 OIHW kernel")
         cout, cin_g, kh, kw = q_w.shape
         self.out_channels, self.kernel = cout, (kh, kw)
+        self.macs_per_pixel = cout * cin_g * kh * kw
         self.stride, self.padding = _pair(stride), _pair(padding)
         self.dilation = _pair(dilation)
         self.groups = groups
@@ -158,9 +161,24 @@ class Int8Conv2d(nn.Module):
     def forward(self, q_x: torch.Tensor, plain: bool = False
                 ) -> torch.Tensor:
         """``plain``: the float64 product on any device (the CPU route),
-        which ``chip_smoke.py`` holds the card's GEMM against."""
+        which ``chip_smoke.py`` holds the card's GEMM against.  Under
+        ``ops/cost.py: count_cost`` the convolution counts as 2 x its
+        MACs of int8 work, whichever route and padding runs it."""
         if q_x.dtype != torch.int8 or q_x.dim() != 4:
             raise TypeError("expected (B, H, W, C) int8 codes")
+        counter = cost.current()
+        if counter is None:
+            return self._forward(q_x, plain)
+        b, h, w, _ = q_x.shape
+        (kh, kw), (sh, sw) = self.kernel, self.stride
+        (ph, pw), (dh, dw) = self.padding, self.dilation
+        ho = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+        wo = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+        with counter.product(2 * b * ho * wo * self.macs_per_pixel,
+                             int8=True):
+            return self._forward(q_x, plain)
+
+    def _forward(self, q_x: torch.Tensor, plain: bool) -> torch.Tensor:
         if self.groups != 1:
             return _depthwise_int32(q_x, self.weight, self.stride,
                                     self.padding, self.dilation)

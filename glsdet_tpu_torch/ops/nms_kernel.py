@@ -3,7 +3,9 @@
 Replaces ``glsdet_tpu/ops/pallas_nms.py: nms_pallas_sorted``.  On a CPU
 tensor the wrapper computes the plain PyTorch version
 (``ops/nms.py: nms_sorted_plain``); on a CUDA tensor it launches the
-kernel or raises.
+kernel on that tensor's card (inputs on two cards raise) or raises.
+Each launch reports its bytes to ``ops/cost.py``'s active counter: the
+boxes and valid flags read, the keep flags written.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import collections
 import torch
 
 from glsdet_tpu_torch.native import kernels
+from glsdet_tpu_torch.ops import cost
 
 # the reduce pass keeps ceil(K/64) <= 64 words per row: the serving
 # budgets (<= 2000) and a TTA union (scales x flips x max_dets, 2400 at
@@ -20,6 +23,7 @@ from glsdet_tpu_torch.native import kernels
 MAX_K = 4096
 
 launches = 0          # kernel launches since the last reset
+launches_by_device = collections.Counter()   # of them, per card index
 # (B, K, offset, iou_threshold) of the launches since the last
 # ``shapes.clear()``, the latest 1024
 shapes = collections.deque(maxlen=1024)
@@ -48,12 +52,14 @@ def nms_sorted_cuda(boxes_sorted: torch.Tensor, valid: torch.Tensor,
         return keep
     mask = _mask_scratch(b, k, boxes_sorted.device)
     lib = kernels.load_kernels()
-    stream = torch.cuda.current_stream(boxes_sorted.device).cuda_stream
-    kernels.check(lib.glsdet_nms_sorted(
-        boxes_sorted.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-        mask.data_ptr(), b, k, mask.shape[-1], float(iou_threshold),
-        float(offset), stream), "glsdet_nms_sorted")
-    _count(b, k, offset, iou_threshold)
+    with torch.cuda.device(boxes_sorted.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        kernels.check(lib.glsdet_nms_sorted(
+            boxes_sorted.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+            mask.data_ptr(), b, k, mask.shape[-1], float(iou_threshold),
+            float(offset), stream), "glsdet_nms_sorted")
+    _count(b, k, offset, iou_threshold, boxes_sorted.device)
+    cost.report(b * k * (16 + 2))
     return keep
 
 
@@ -77,9 +83,10 @@ def _nms_sorted_fake(boxes_sorted, valid, iou_threshold, offset):
     return torch.empty_like(valid)
 
 
-def _count(b, k, offset, iou_threshold) -> None:
+def _count(b, k, offset, iou_threshold, device) -> None:
     global launches
     launches += 1
+    launches_by_device[device.index] += 1
     shapes.append((b, k, float(offset), float(iou_threshold)))
 
 
@@ -96,7 +103,10 @@ def _check(boxes_sorted: torch.Tensor, valid: torch.Tensor):
         raise ValueError(f"no NMS for device {boxes_sorted.device}")
     if boxes_sorted.dtype != torch.float32 or valid.dtype != torch.bool:
         raise TypeError("expected float32 boxes and bool valid")
-    if tuple(valid.shape) != (b, k) or valid.device != boxes_sorted.device:
+    if valid.device != boxes_sorted.device:
+        raise ValueError(f"boxes on {boxes_sorted.device}, valid on "
+                         f"{valid.device}: inputs must share a card")
+    if tuple(valid.shape) != (b, k):
         raise ValueError("valid must be (B, K) on the boxes' device")
     if not (boxes_sorted.is_contiguous() and valid.is_contiguous()):
         raise ValueError("boxes and valid must be contiguous")
@@ -122,17 +132,20 @@ def nms_passes(boxes_sorted: torch.Tensor, valid: torch.Tensor,
     mask = _mask_scratch(b, k, boxes_sorted.device)
     lib = kernels.load_kernels()
 
-    def stream():
-        return torch.cuda.current_stream(boxes_sorted.device).cuda_stream
+    dev = boxes_sorted.device
 
     def mask_pass():
-        kernels.check(lib.glsdet_nms_mask(
-            boxes_sorted.data_ptr(), mask.data_ptr(), b, k, mask.shape[-1],
-            float(iou_threshold), float(offset), stream()), "glsdet_nms_mask")
+        with torch.cuda.device(dev):
+            kernels.check(lib.glsdet_nms_mask(
+                boxes_sorted.data_ptr(), mask.data_ptr(), b, k,
+                mask.shape[-1], float(iou_threshold), float(offset),
+                torch.cuda.current_stream().cuda_stream), "glsdet_nms_mask")
 
     def reduce_pass():
-        kernels.check(lib.glsdet_nms_reduce(
-            mask.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k,
-            mask.shape[-1], stream()), "glsdet_nms_reduce")
+        with torch.cuda.device(dev):
+            kernels.check(lib.glsdet_nms_reduce(
+                mask.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k,
+                mask.shape[-1], torch.cuda.current_stream().cuda_stream),
+                "glsdet_nms_reduce")
 
     return mask_pass, reduce_pass, keep

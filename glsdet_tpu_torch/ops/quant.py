@@ -71,6 +71,7 @@ def _rewrite(module: nn.Module, min_channels: int,
             _rewrite(child, min_channels, min_kernel_area)
 
 
+@torch.no_grad()
 def quantize_dynamic(model: nn.Module, min_channels: int = 64,
                      min_kernel_area: int = 9,
                      dtype: torch.dtype = torch.float32,
@@ -79,7 +80,8 @@ def quantize_dynamic(model: nn.Module, min_channels: int = 64,
     (``"cuda"`` raises without a GPU), computing in ``dtype`` outside the
     int8 convolutions.  The defaults
     quantize the 3x3+ convolutions with >= 64 channels, as the JAX
-    package's.  ``model`` itself is left as it is."""
+    package's.  ``model`` itself is left as it is; the copy's tensors
+    hold no autograd history of its."""
     device = resolve_device(device)
     q = copy.deepcopy(model).float().eval()
     _rewrite(q, min_channels, min_kernel_area)

@@ -570,6 +570,7 @@ def _rewrite(module: nn.Module, prefix: str, scales, min_channels) -> None:
             _rewrite(child, name, scales, min_channels)
 
 
+@torch.no_grad()
 def quantize_static(model: nn.Module, scales: Dict[str, float],
                     min_channels: int = 32,
                     dtype: torch.dtype = torch.float32,
@@ -578,7 +579,9 @@ def quantize_static(model: nn.Module, scales: Dict[str, float],
     ``device`` (``"cuda"`` raises without a GPU), computing in ``dtype``
     outside the int8 domain.  ``scales`` comes from
     :func:`calibrate_scales` over the same model (the paths must match).
-    ``model`` itself is left as it is.  Inference only."""
+    ``model`` itself is left as it is.  Inference only: the copy's
+    tensors hold no autograd history of ``model``'s (it can be deep-copied
+    to another card)."""
     device = resolve_device(device)
     q = copy.deepcopy(model).float().eval()
     new = _quantized("", q, None, scales, min_channels)

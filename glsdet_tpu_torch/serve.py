@@ -421,8 +421,9 @@ class DetectionService:
         :class:`AsyncDetector` so concurrent ``/predictions`` requests
         are served with dynamic batching and (two-stage archives) the
         multi-stream pipelined worker.  ``devices`` (two-stage archives
-        only: several cards in turn) is not ported yet and raises in
-        ``TwoStageDetector``.
+        only) serves request batches on several cards in turn, in place of
+        ``device``; pair it with ``pipeline_depth > len(devices)`` so
+        every card stays busy.
         """
         manifest, ckpt = load_archive(path)
         qkw = {}

@@ -14,8 +14,10 @@ running server.
 
 The archives are the JAX CLI's (an archive it wrote serves here too);
 a checkpoint is a file of the port or an orbax directory of the JAX
-package.  ``--devices`` (two-stage batches spread over several cards)
-raises ``NotImplementedError`` (ROADMAP.md item 6).
+package.  ``--devices all`` (every card) or ``--devices N`` (the first
+N) serves two-stage request batches on those cards in turn; with
+``--async-batching`` the pipeline depth rises to ``N + 1`` so that every
+card stays busy, as in the JAX command.
 """
 
 from __future__ import annotations
@@ -120,8 +122,7 @@ def parser() -> argparse.ArgumentParser:
                    help="batches kept in flight (--async-batching)")
     s.add_argument("--devices", default=None,
                    help="'all' or a count: round-robin two-stage "
-                        "request batches over several cards (not "
-                        "ported: raises)")
+                        "request batches over several cards")
     add_device_arg(s)
 
     c = sub.add_parser("client", help="exercise a running server "
@@ -133,6 +134,24 @@ def parser() -> argparse.ArgumentParser:
     c.add_argument("--repeat", type=int, default=1,
                    help="POST the image N times and report latency")
     return ap
+
+
+def serving_devices(spec: str, device="cuda") -> list:
+    """``--devices``: ``all`` is every card, ``N`` the first N (all of
+    them where there are fewer, as the JAX command slices its device
+    list), as ``torch.device`` s of ``device``'s type; on the CPU (for
+    tests) ``N`` turns of it."""
+    import torch
+
+    from glsdet_tpu_torch.models.build import resolve_device
+
+    dev = resolve_device(device)
+    if spec != "all" and int(spec) < 1:
+        raise ValueError(f"--devices {spec}: expected 'all' or a count >= 1")
+    if dev.type == "cpu":
+        return [dev] * (1 if spec == "all" else int(spec))
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return cards if spec == "all" else cards[:int(spec)]
 
 
 def main(argv=None):
@@ -159,17 +178,19 @@ def main(argv=None):
         print(f"wrote {path}")
         return path
 
+    devices = None
     if args.devices:
-        raise NotImplementedError(
-            f"--devices {args.devices}: serving across several cards is "
-            "not ported yet (ROADMAP.md, queue A item 6)")
+        devices = serving_devices(args.devices, args.device)
+        if args.async_batching and args.pipeline_depth <= len(devices):
+            args.pipeline_depth = len(devices) + 1      # keep cards busy
     service = DetectionService()
     for path in sorted(glob.glob(os.path.join(args.model_store, "*.gtar"))):
         name = service.register_archive(
             path, async_batching=args.async_batching,
             max_batch=args.max_batch,
             batch_window_ms=args.batch_window_ms,
-            pipeline_depth=args.pipeline_depth, device=args.device)
+            pipeline_depth=args.pipeline_depth, devices=devices,
+            device=args.device)
         print(f"registered {name} from {path}")
     if not service.models:
         raise SystemExit(f"no .gtar archives in {args.model_store}")

@@ -18,9 +18,13 @@ does: the loss every 10 steps and the metrics at ``log_interval``.
 
 Every model family trains: ``yolox`` (with its ``variant``), ``ffa``
 (the 4-level model at strides 4-32, the ``adam_step`` recipe), ``mpdet``
-and ``gfl``.  Not ported yet, raising ``NotImplementedError``: scan
-groups of ``train.steps_per_call > 1`` (ROADMAP.md, queue A item 12: one
-CUDA graph per group would be their counterpart).
+and ``gfl``.  ``train.steps_per_call = K > 1`` runs groups of K steps
+back to back, with nothing read back between them, where a whole group
+fits in the epoch and under ``max_steps`` (single steps elsewhere), and
+the host hooks at group boundaries only (a hook fires when the step
+count crosses a multiple of its interval), as the JAX loop's scan groups
+(``make_scan_train_step`` there); a group reports its last step's
+metrics, with the loss NaN if any of its K losses is not finite.
 
 Across processes (``parallel/mesh.py``, one per card) ``cfg.data.
 batch_size`` is the global batch, as in the JAX loop: each rank loads
@@ -388,7 +392,7 @@ def _make_steps(cfg: Config, model: nn.Module):
 
 
 def _check_supported(cfg: Config) -> None:
-    """The JAX loop's ValueErrors, then what the port cannot do yet."""
+    """The JAX loop's ValueErrors, and the global batch's split."""
     t = cfg.train
     ms_sizes = tuple(t.multiscale_sizes or ())
     if ms_sizes:
@@ -413,9 +417,6 @@ def _check_supported(cfg: Config) -> None:
                     f"train.{knob}={val} must be a multiple of "
                     f"train.steps_per_call={spc} (host hooks run at "
                     "scan-group boundaries)")
-        raise NotImplementedError(
-            f"train.steps_per_call={spc}: scan groups of steps are not "
-            "ported yet (ROADMAP.md, queue A item 12)")
     world = mesh.world_size()
     if cfg.data.batch_size % world:
         raise ValueError(f"global batch {cfg.data.batch_size} not "
@@ -495,6 +496,8 @@ def _train_run(cfg: Config, dataset: Optional[CocoDataset], max_steps,
 
     step_fn, step_fn_l1, ms_steps = _make_steps(cfg, model)
     ms_sizes = tuple(t.multiscale_sizes or ())
+    # K steps a group (train.steps_per_call); hooks at group boundaries
+    spc = max(int(t.steps_per_call), 1)
 
     # each rank loads its slice of the global batch
     world, rank = mesh.world_size(), mesh.rank()
@@ -552,28 +555,48 @@ def _train_run(cfg: Config, dataset: Optional[CocoDataset], max_steps,
             while it < steps_per_epoch:
                 if max_steps is not None and global_step >= max_steps:
                     return state
-                batch = put_batch(next(loader))
-                if ms_steps:
-                    s = multiscale_size(global_step, ms_sizes,
-                                        t.multiscale_interval)
-                    logger.debug("step %d: multiscale size %d",
-                                 global_step, s)
-                    sized = ms_steps[s]
-                    fn_ms = sized[1] if last_phase else sized[0]
-                    state, metrics = fn_ms(state, batch)
-                else:
-                    state, metrics = fn(state, batch)
-                it += 1
-                global_step += 1
+                # a group only where a whole one fits; the epoch's and
+                # max_steps' tails run as single steps
+                stepped = (spc if spc > 1 and it + spc <= steps_per_epoch
+                           and (max_steps is None
+                                or global_step + spc <= max_steps) else 1)
+                if stepped > 1:
+                    logger.debug("step %d: group of %d steps", global_step,
+                                 stepped)
+                losses = []
+                for _ in range(stepped):
+                    batch = put_batch(next(loader))
+                    if ms_steps:
+                        s = multiscale_size(global_step, ms_sizes,
+                                            t.multiscale_interval)
+                        logger.debug("step %d: multiscale size %d",
+                                     global_step, s)
+                        sized = ms_steps[s]
+                        fn_ms = sized[1] if last_phase else sized[0]
+                        state, metrics = fn_ms(state, batch)
+                    else:
+                        state, metrics = fn(state, batch)
+                    losses.append(metrics["loss"])
+                if stepped > 1:
+                    # the last step's metrics; a non-finite loss at any
+                    # of the K steps trips the invalid-loss check now
+                    metrics = dict(metrics, loss=torch.where(
+                        torch.isfinite(torch.stack(losses)).all(),
+                        metrics["loss"], float("nan")))
+                it += stepped
+                global_step += stepped
 
-                # the JAX loop's periodic read bounds the work in flight
-                if global_step % 10 == 0:
+                # the JAX loop's periodic read bounds the work in flight:
+                # "crossed a multiple of 10" (% 10 == 0 for single steps)
+                if global_step % 10 < stepped:
                     float(metrics["loss"])
 
                 # OT hook: update_ot every ot_interval while epoch < stop
+                # (crossing, as above: an epoch's tail of single steps
+                # may leave the count off the group stride)
                 if (cfg.model.family == "mpdet"
                         and gepoch < t.ot_stop_epoch
-                        and global_step % t.ot_interval == 0):
+                        and global_step % t.ot_interval < stepped):
                     gen = torch.Generator(device=dev).manual_seed(
                         int(ot_rng.randint(2 ** 31)))
                     state.boiw = update_ot(state.boiw, gen,
@@ -583,7 +606,7 @@ def _train_run(cfg: Config, dataset: Optional[CocoDataset], max_steps,
                     if is_main:
                         logger.info("step %d: ran update_ot", global_step)
 
-                if global_step % t.log_interval == 0:
+                if global_step % t.log_interval < stepped:
                     vals = {k: float(v) for k, v in metrics.items()}
                     # CheckInvalidLossHook analog
                     if not np.isfinite(vals["loss"]):

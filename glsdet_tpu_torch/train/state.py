@@ -88,6 +88,22 @@ def state_dict(state: TrainState) -> Dict[str, Any]:
     }
 
 
+def _load_adam(state: TrainState, adam: Dict[str, Any]) -> None:
+    """Adam's moments by parameter name into the optimizer's state of
+    each parameter it trains (copies: Adam updates them in place)."""
+    named = dict(state.model.named_parameters())
+    trained = {id(p) for g in state.optimizer.param_groups
+               for p in g["params"]}
+    for name, mu in adam["exp_avg"].items():
+        p = named[name]
+        if id(p) in trained:
+            state.optimizer.state[p] = {
+                "step": torch.tensor(float(adam["step"]),
+                                     dtype=torch.float32),
+                "exp_avg": mu.to(p, copy=True),
+                "exp_avg_sq": adam["exp_avg_sq"][name].to(p, copy=True)}
+
+
 @torch.no_grad()
 def load_state_dict(state: TrainState, sd: Dict[str, Any]) -> TrainState:
     """Restore :func:`state_dict` into ``state`` in place (each tensor
@@ -95,8 +111,10 @@ def load_state_dict(state: TrainState, sd: Dict[str, Any]) -> TrainState:
 
     A JAX ``TrainState`` in the port's form (``utils/flax_import.py:
     checkpoint_from_flax``) loads too: its optimizer is the SGD momentum
-    trace by parameter name (each parameter's ``momentum_buffer``) and
-    the schedule count, and its ``generator`` is None (``state``'s
+    trace by parameter name (each parameter's ``momentum_buffer``) or
+    Adam's moments by parameter name (each trained parameter's
+    ``exp_avg``, ``exp_avg_sq`` and ``step`` in a ``torch.optim.Adam``),
+    and the schedule count; its ``generator`` is None (``state``'s
     generator stays)."""
     for key in ("step", "model", "optimizer", "ema_params", "boiw"):
         if key not in sd:
@@ -105,11 +123,17 @@ def load_state_dict(state: TrainState, sd: Dict[str, Any]) -> TrainState:
                              "loads through train/loop.py: load_weights)")
     opt = sd["optimizer"]
     if opt is None:
-        raise ValueError("the checkpoint's optimizer state cannot be "
-                         "carried (only an SGD momentum trace is)")
+        raise ValueError("the checkpoint holds no optimizer state (neither "
+                         "an SGD momentum trace nor Adam's moments)")
     state.step = int(sd["step"])
     state.model.load_state_dict(sd["model"], strict=True)
-    if "momentum" in opt:
+    if "adam" in opt:
+        if not isinstance(state.optimizer, torch.optim.Adam):
+            raise ValueError("the checkpoint holds Adam's moments; the "
+                             "optimizer is not Adam")
+        _load_adam(state, opt["adam"])
+        state.optimizer.count = int(opt["count"])
+    elif "momentum" in opt:
         named = dict(state.model.named_parameters())
         for name, buf in opt["momentum"].items():
             # a copy: the optimizer updates its buffers in place

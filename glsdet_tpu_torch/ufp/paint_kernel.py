@@ -18,6 +18,11 @@ Two entries share the kernel body:
   normalized in the same pass (plain version:
   ``eval/preprocess.py: mosaic_inputs_plain``).
 
+On a CUDA tensor each entry launches on the frames' card (inputs on two
+cards raise ``ValueError``) and reports to ``ops/cost.py``'s active
+counter the bytes its bound counts: the output written once, the region
+rows and the source pixels under the crops read once.
+
 Unlike the Pallas kernel, the CUDA kernel needs no per-tile tables: each
 block keeps the region rows that meet its band of canvas rows in shared
 memory, without a cap, so there is no table overflow and no fallback
@@ -28,16 +33,20 @@ tests/test_torch_paint.py.
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
 
 from glsdet_tpu_torch.native import kernels
+from glsdet_tpu_torch.ops import cost
 
 MAX_ROWS = 1024       # region rows per slot (csrc/paint.cu: kMaxRows)
 MAX_WIDTH = 8192      # canvas width (csrc/paint.cu: kMaxWidth)
 
 launches = 0          # kernel launches since the last reset, both entries
 inputs_launches = 0   # of them, the path entry's
+launches_by_device = collections.Counter()   # both entries', per card
 
 
 def _axis_taps(d: torch.Tensor, f: torch.Tensor):
@@ -122,10 +131,26 @@ def _check(images: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
     if rows.shape[1] > MAX_ROWS:
         raise ValueError(f"{rows.shape[1]} region rows > {MAX_ROWS}")
     if not all(t.device == images.device for t in (idx, rows)):
-        raise ValueError("images, idx and rows must share a device")
+        raise ValueError(f"images on {images.device}, idx on {idx.device}, "
+                         f"rows on {rows.device}: inputs must share a card")
     if not all(t.is_contiguous() for t in (images, idx, rows)):
         raise ValueError("images, idx and rows must be contiguous")
     return b
+
+
+def _report(images: torch.Tensor, rows: torch.Tensor,
+            out: torch.Tensor) -> None:
+    """The launch's bytes for an active cost counter: ``out`` written, the
+    rows and the source pixels under the crops (clipped to the frame)
+    read.  Reads the rows back, so only while counting."""
+    counter = cost.current()
+    if counter is None:
+        return
+    with counter.paused():
+        r = rows.to(torch.int64)
+        src = int((r[..., 2].clamp(0, images.shape[2])
+                   * r[..., 3].clamp(0, images.shape[1])).sum()) * 3
+    cost.report(cost.tensor_bytes(out) + cost.tensor_bytes(rows) + src)
 
 
 def assemble_mosaic_cuda_batch(images: torch.Tensor, idx: torch.Tensor,
@@ -147,13 +172,16 @@ def assemble_mosaic_cuda_batch(images: torch.Tensor, idx: torch.Tensor,
     if b == 0 or out_h == 0 or out_w == 0:
         return out
     lib = kernels.load_kernels()
-    stream = torch.cuda.current_stream(images.device).cuda_stream
     n_src, src_h, src_w = images.shape[:3]
-    kernels.check(lib.glsdet_paint_mosaic(
-        images.data_ptr(), n_src, src_h, src_w, idx.data_ptr(),
-        rows.data_ptr(), b, rows.shape[1], out.data_ptr(), out_h, out_w,
-        int(dtype == torch.bfloat16), stream), "glsdet_paint_mosaic")
+    with torch.cuda.device(images.device):
+        kernels.check(lib.glsdet_paint_mosaic(
+            images.data_ptr(), n_src, src_h, src_w, idx.data_ptr(),
+            rows.data_ptr(), b, rows.shape[1], out.data_ptr(), out_h, out_w,
+            int(dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream), "glsdet_paint_mosaic")
     launches += 1
+    launches_by_device[images.device.index] += 1
+    _report(images, rows, out)
     return out
 
 
@@ -177,8 +205,11 @@ def paint_mosaic_inputs_cuda(images: torch.Tensor, idx: torch.Tensor,
                                    inv_std)
     b = _check(images, idx, rows, hw)
     for name, t in (("mean", mean), ("inv_std", inv_std)):
+        if t.device != images.device:
+            raise ValueError(f"{name} on {t.device}, images on "
+                             f"{images.device}: inputs must share a card")
         if t.dtype != torch.bfloat16 or tuple(t.shape) != (3,) \
-                or t.device != images.device or not t.is_contiguous():
+                or not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous (3,) bfloat16 "
                              "tensor on the images' device")
     out = torch.empty((b, hw, hw, 3), dtype=torch.bfloat16,
@@ -186,15 +217,18 @@ def paint_mosaic_inputs_cuda(images: torch.Tensor, idx: torch.Tensor,
     if b == 0 or hw == 0:
         return out
     lib = kernels.load_kernels()
-    stream = torch.cuda.current_stream(images.device).cuda_stream
     n_src, src_h, src_w = images.shape[:3]
-    kernels.check(lib.glsdet_paint_mosaic_inputs(
-        images.data_ptr(), n_src, src_h, src_w, idx.data_ptr(),
-        rows.data_ptr(), b, rows.shape[1], mean.data_ptr(),
-        inv_std.data_ptr(), out.data_ptr(), hw, stream),
-        "glsdet_paint_mosaic_inputs")
+    with torch.cuda.device(images.device):
+        kernels.check(lib.glsdet_paint_mosaic_inputs(
+            images.data_ptr(), n_src, src_h, src_w, idx.data_ptr(),
+            rows.data_ptr(), b, rows.shape[1], mean.data_ptr(),
+            inv_std.data_ptr(), out.data_ptr(), hw,
+            torch.cuda.current_stream().cuda_stream),
+            "glsdet_paint_mosaic_inputs")
     launches += 1
     inputs_launches += 1
+    launches_by_device[images.device.index] += 1
+    _report(images, rows, out)
     return out
 
 

@@ -122,10 +122,46 @@ def optax_fields(node, name: str) -> list:
     return found
 
 
+def _unmasked(tree):
+    """A params-shaped optax tree without its masked leaves (optax's
+    ``MaskedNode`` of the parameters another partition owns, as
+    ``freeze_sections``' ``multi_transform`` leaves them, or what a
+    checkpoint keeps of one: None, an empty node); None if nothing is
+    left."""
+    if hasattr(tree, "_fields"):
+        tree = {f: getattr(tree, f) for f in tree._fields}
+    if isinstance(tree, Mapping):
+        kept = {k: v for k, v in ((k, _unmasked(v)) for k, v in tree.items())
+                if v is not None}
+        return kept or None
+    return tree
+
+
 def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """A flax ``params`` tree (or one shaped like it: the EMA, optax's
-    momentum trace) as port parameter names -> tensors."""
-    return state_dict_from_flax({"params": params})
+    momentum trace or Adam moments, their masked leaves left out) as port
+    parameter names -> tensors."""
+    return state_dict_from_flax({"params": _unmasked(params) or {}})
+
+
+def _adam_state(opt_state):
+    """optax's ``ScaleByAdamState`` in ``opt_state`` (the node with
+    ``mu`` and ``nu``), or None."""
+    if hasattr(opt_state, "_fields"):
+        opt_state = {f: getattr(opt_state, f) for f in opt_state._fields}
+    if isinstance(opt_state, Mapping):
+        if "mu" in opt_state and "nu" in opt_state:
+            return opt_state
+        nodes = opt_state.values()
+    elif isinstance(opt_state, (tuple, list)):
+        nodes = opt_state
+    else:
+        return None
+    for node in nodes:
+        found = _adam_state(node)
+        if found is not None:
+            return found
+    return None
 
 
 def _field(state, name: str):
@@ -139,9 +175,12 @@ def checkpoint_from_flax(state) -> Dict[str, Any]:
     ``tools/ckpt_tool.py strip``, or a bare ``params`` tree) in the
     port's checkpoint form: ``step``, ``model`` (parameters and BN
     statistics), ``ema_params``, ``boiw``, and ``optimizer`` as
-    ``{"momentum": {name: trace}, "count": n}`` (None when the state has
-    no SGD momentum trace: weights-only artifacts, or Adam's moments,
-    which are not carried).  ``generator`` is None: the JAX key is not
+    ``{"momentum": {name: trace}, "count": n}`` for the SGD recipes or
+    ``{"adam": {"exp_avg": {name: mu}, "exp_avg_sq": {name: nu}, "step":
+    n}, "count": n}`` for ``adam_step`` (optax's ``ScaleByAdamState``
+    and the schedule count), the parameters found by name through
+    whatever ``freeze_sections`` wraps (None when the state has neither:
+    weights-only artifacts).  ``generator`` is None: the JAX key is not
     carried."""
     if _field(state, "params") is None:             # bare params tree
         state = {"params": state}
@@ -160,11 +199,17 @@ def checkpoint_from_flax(state) -> Dict[str, Any]:
         out["ema_params"] = params_from_flax(ema)
     opt_state = _field(state, "opt_state")
     traces = optax_fields(opt_state, "trace")
+    counts = optax_fields(opt_state, "count")
+    count = int(_numpy(counts[-1])) if counts else 0
+    adam = _adam_state(opt_state)
     if len(traces) == 1:
-        counts = optax_fields(opt_state, "count")
-        out["optimizer"] = {
-            "momentum": params_from_flax(traces[0]),
-            "count": int(_numpy(counts[-1])) if counts else 0}
+        out["optimizer"] = {"momentum": params_from_flax(traces[0]),
+                            "count": count}
+    elif adam is not None:
+        out["optimizer"] = {"adam": {
+            "exp_avg": params_from_flax(adam["mu"]),
+            "exp_avg_sq": params_from_flax(adam["nu"]),
+            "step": int(_numpy(adam["count"]))}, "count": count}
     b = _field(state, "boiw")
     out["boiw"] = None if b is None else {
         "embedding": torch.from_numpy(np.array(
@@ -181,12 +226,13 @@ def train_state_from_flax(state, model: nn.Module,
                           optimizer: torch.optim.Optimizer,
                           generator: torch.Generator) -> TrainState:
     """A port :class:`TrainState` over ``model`` / ``optimizer`` (the
-    port's ``mp_det_sgd`` or ``yolox_sgd``) holding a JAX ``TrainState``
-    (the object of numpy leaves or its raw checkpoint tree): the weights
-    and BN statistics are loaded into ``model``; the momentum trace
-    becomes each parameter's ``momentum_buffer`` and the schedule count
-    ``optimizer.count``.  The JAX key is not carried: ``generator`` takes
-    its place."""
+    port's ``mp_det_sgd``, ``yolox_sgd`` or ``ScheduledAdam``) holding a
+    JAX ``TrainState`` (the object of numpy leaves or its raw checkpoint
+    tree): the weights and BN statistics are loaded into ``model``; the
+    momentum trace becomes each parameter's ``momentum_buffer``, or Adam's
+    ``mu``, ``nu`` and count its ``exp_avg``, ``exp_avg_sq`` and
+    ``step``, and the schedule count ``optimizer.count``.  The JAX key is
+    not carried: ``generator`` takes its place."""
     sd = checkpoint_from_flax(state)
     dev = next(model.parameters()).device
     target = TrainState.create(model, optimizer, generator)

@@ -296,15 +296,26 @@ def test_build_model_families_still_to_port_raise(family):
 
 
 def test_devices_and_cuda_without_a_card_raise():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        apis.TwoStageDetector("coarse_det", devices=["cuda:0"],
-                              device="cpu")
+    """``devices=`` builds a facade serving on each device in turn (two
+    handles to the CPU here; tests/test_torch_replicas.py holds its
+    answers); on ``cuda`` devices without a card it raises, as the
+    default device does."""
+    det = apis.TwoStageDetector("coarse_det", coarse_options=COARSE_OPTS,
+                                mp_options=MP_OPTS, devices=["cpu", "cpu"])
+    try:
+        assert det.pipeline.devices == [torch.device("cpu")] * 2
+        assert det._pipe_kwargs["devices"] == ["cpu", "cpu"]
+    finally:
+        det.close()
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     for make in (lambda: build_model(get_config("coarse_det")),
                  lambda: apis.Detector("coarse_det", options=DET_OPTS),
                  lambda: apis.TwoStageDetector(
                      "coarse_det", coarse_options=COARSE_OPTS,
-                     mp_options=MP_OPTS)):
+                     mp_options=MP_OPTS),
+                 lambda: apis.TwoStageDetector(
+                     "coarse_det", coarse_options=COARSE_OPTS,
+                     mp_options=MP_OPTS, devices=["cuda:0", "cuda:1"])):
         with pytest.raises(RuntimeError, match="no GPU"):
             make()

@@ -808,11 +808,11 @@ def test_fused_resnet_launches_once_per_eligible_block(card, fused_resnet):
         assert rel < 0.15, rel
 
 
-def _small_pipeline(card, mode):
+def _small_pipeline(card, mode, **more):
     """A small two-stage pipeline on the card: YOLOX-nano at 64x64,
     MP-Det ResNet-18, buckets 128/256, seeded weights; bf16, static int8
     (calibrated by a bf16 pipeline), fused, or bf16 with global-local
-    fusion."""
+    fusion; ``more``: further pipeline arguments."""
     from glsdet_tpu_torch.eval.two_stage import TwoStagePipeline
     from glsdet_tpu_torch.models import YOLOXDetector
 
@@ -821,16 +821,17 @@ def _small_pipeline(card, mode):
         return YOLOXDetector(10, "nano", generator=g), MPDet(10, 18,
                                                              generator=g)
 
-    kw = dict(coarse_score_thr=1e-6, mosaic_buckets=(128, 256), max_batch=4,
-              pack_threads=1, device=card)
+    kw = {**dict(coarse_score_thr=1e-6, mosaic_buckets=(128, 256),
+                 max_batch=4, pack_threads=1, device=card), **more}
     if mode == "fused":
         coarse, mp = models()
         return TwoStagePipeline(coarse, wrap_model_fused(mp), (64, 64), **kw)
     if mode == "fuse_global":
         return TwoStagePipeline(*models(), (64, 64), fuse_global=True, **kw)
-    pipe = TwoStagePipeline(*models(), (64, 64), **kw)
     if mode == "bf16":
-        return pipe
+        return TwoStagePipeline(*models(), (64, 64), **kw)
+    pipe = TwoStagePipeline(*models(), (64, 64),
+                            **{**kw, "devices": None})
     rs = np.random.RandomState(1)
     scales = pipe.calibrate_int8(
         [rs.randint(0, 256, (96, 160, 3), np.uint8) for _ in range(2)])
@@ -887,6 +888,183 @@ def test_serving_stages_do_not_sync_with_the_host(card, mode):
             assert torch.isfinite(out).all()
     finally:
         pipe.close()
+
+
+# Several cards, scan_width groups and cost_analysis
+
+
+@pytest.fixture
+def two_cards(card):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def _kernel_call(kernel, dev, rs):
+    """(wrapper call, plain call) of one kernel on tensors on ``dev``."""
+    if kernel == "nms":
+        bx = torch.from_numpy(_det_boxes(rs, 2, 300)).to(dev)
+        vd = torch.from_numpy(rs.rand(2, 300) > 0.2).to(dev)
+        return (lambda: nms_kernel.nms_sorted_cuda(bx, vd, 0.6),
+                lambda: tnms.nms_sorted_plain(bx, vd, 0.6), (bx, vd))
+    if kernel == "paint":
+        imgs = torch.from_numpy(rs.randint(0, 256, (2, 60, 90, 3)).astype(
+            np.uint8)).to(dev)
+        idx = torch.tensor([1, 0], device=dev)
+        rows = torch.tensor([[[0, 0, 40, 30, 0, 0, 2], [10, 5, 30, 20, 80,
+                                                         60, 1]]] * 2,
+                            dtype=torch.float32, device=dev)
+        mean, inv_std = norm_constants(torch.bfloat16, dev)
+        return (lambda: paint_kernel.paint_mosaic_inputs_cuda(
+                    imgs, idx, rows, 128, mean, inv_std),
+                lambda: mosaic_inputs_plain(imgs, idx, rows, 128,
+                                            torch.bfloat16, mean, inv_std),
+                (imgs, idx))
+    if kernel == "gn":
+        acc = torch.from_numpy(rs.randint(-30000, 30000, (2, 18, 18, 256))
+                               .astype(np.int32)).to(dev)
+        deq = torch.full((256,), 1e-4, device=dev)
+        gamma, beta = torch.ones(256, device=dev), torch.zeros(256,
+                                                               device=dev)
+        return (lambda: gn_kernel.gn_relu_quant_acc(acc, deq, gamma, beta,
+                                                    0.02),
+                lambda: gn_kernel.gn_relu_quant_acc_plain(
+                    acc, deq, gamma, beta, 0.02), (acc, deq))
+    c = 64
+    x = torch.from_numpy(rs.randn(2, 16, 16, 4 * c).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    ops = [torch.from_numpy(0.05 * rs.randn(*s).astype(np.float32)).to(dev)
+           for s in ((4 * c, c), (c,), (9 * c, c), (c,), (c, 4 * c),
+                     (4 * c,))]
+    return (lambda: bk.fused_bottleneck(x, *ops),
+            lambda: bk.fused_bottleneck_plain(x, *ops), (x, ops[0]))
+
+
+@pytest.mark.parametrize("kernel", ["nms", "paint", "gn", "bottleneck"])
+def test_kernels_launch_on_their_tensors_card(two_cards, kernel):
+    """Each wrapper, given tensors on cuda:1 while cuda:0 is current,
+    launches there (its per-device attributes and caches included),
+    counted on that card, and agrees with its plain version; inputs on
+    two cards raise."""
+    first, second = two_cards
+    run, plain, pair = _kernel_call(kernel, second,
+                                    np.random.RandomState(0))
+    module = {"nms": nms_kernel, "paint": paint_kernel, "gn": gn_kernel,
+              "bottleneck": bk}[kernel]
+    with torch.cuda.device(first):
+        before = module.launches
+        on_second = module.launches_by_device[second.index]
+        got = run()
+        torch.cuda.synchronize(second)
+        assert module.launches == before + 1
+        assert module.launches_by_device[second.index] == on_second + 1
+    want = plain()
+    assert got.device == second
+    if kernel == "gn":
+        assert (got.int() - want.int()).abs().max() <= 1
+    elif kernel == "bottleneck":
+        err = (got.float() - want.float()).abs().max()
+        assert err <= 5e-3 * want.float().abs().max()
+    else:
+        assert torch.equal(got, want)
+    moved = pair[1].to(first)
+    with pytest.raises(ValueError, match="card|on cuda"):
+        if kernel == "nms":
+            nms_kernel.nms_sorted_cuda(pair[0], moved, 0.6)
+        elif kernel == "paint":
+            rows = torch.zeros((2, 1, 7), device=second)
+            paint_kernel.paint_mosaic_inputs_cuda(
+                pair[0], moved, rows, 128,
+                *norm_constants(torch.bfloat16, second))
+        elif kernel == "gn":
+            gn_kernel.gn_relu_quant_acc(pair[0], moved,
+                                        torch.ones(256, device=second),
+                                        torch.zeros(256, device=second),
+                                        0.02)
+        else:
+            c = 64
+            bk.fused_bottleneck(pair[0], moved, torch.zeros(c, device=second),
+                                torch.zeros(9 * c, c, device=second),
+                                torch.zeros(c, device=second),
+                                torch.zeros(c, 4 * c, device=second),
+                                torch.zeros(4 * c, device=second))
+
+
+@pytest.mark.parametrize("mode", ["bf16", "static_int8"])
+def test_two_card_pipeline_equals_one_card(two_cards, mode):
+    """Batches served in turn on cuda:0 and cuda:1 give the one-card
+    pipeline's detections (the int8 copies quantized once, from the same
+    scales)."""
+    rs = np.random.RandomState(0)
+    frames = [rs.randint(0, 256, (96, 160, 3), np.uint8) for _ in range(4)]
+    one = _small_pipeline(two_cards[0], mode)
+    two = _small_pipeline(two_cards[0], mode, devices=list(two_cards))
+    try:
+        want = one.run_batch(frames)
+        handles = [two.submit_batch(frames) for _ in range(2)]
+        assert [h.chunks[0][1].device for h in handles] == list(two_cards)
+        for got in [two.collect_batch(h) for h in handles]:
+            for a, b in zip(got, want):
+                assert len(a["boxes"]) == len(b["boxes"])
+                np.testing.assert_array_equal(a["labels"], b["labels"])
+                np.testing.assert_allclose(a["boxes"], b["boxes"],
+                                           atol=1e-2, rtol=1e-4)
+                np.testing.assert_allclose(a["scores"], b["scores"],
+                                           atol=1e-3)
+    finally:
+        one.close()
+        two.close()
+
+
+def test_scan_width_on_the_card(card):
+    """scan_width=2 over 4 frames: the coarse stage, and a stage-2 group
+    of 4 mosaics, torch.equal to the same models run on each group of 2
+    alone (on the card a flat chunk of 4 sums its bf16 convolutions at
+    another batch size: chip_smoke.py's replicas phase compares it)."""
+    from glsdet_tpu_torch.eval.two_stage import unpack_detections
+
+    rs = np.random.RandomState(0)
+    frames = torch.from_numpy(rs.randint(0, 256, (4, 96, 160, 3)).astype(
+        np.uint8)).to(card)
+    two = _small_pipeline(card, "bf16", max_batch=2)
+    scan = _small_pipeline(card, "bf16", scan_width=2)
+    try:
+        got = scan.coarse_packed(frames)
+        assert torch.equal(got, torch.cat([two.coarse_packed(frames[:2]),
+                                           two.coarse_packed(frames[2:])]))
+        jobs = scan._pack_chunk([(96, 160)] * 4, list(range(4)),
+                                unpack_detections(got.cpu().numpy()))
+        bucket, job_list = max(jobs.items(), key=lambda kv: len(kv[1]))
+        job_list = (job_list * 4)[:4]
+        idx = torch.tensor([j[1] for j in job_list]).to(card)
+        regs = torch.from_numpy(np.stack([j[2] for j in job_list])).to(card)
+        before = paint_kernel.launches
+        out = scan.stage2_packed(frames, idx, regs, bucket)
+        assert paint_kernel.launches == before + 2      # one a group
+        assert torch.equal(out, torch.cat(
+            [two.stage2_packed(frames, idx[:2], regs[:2], bucket),
+             two.stage2_packed(frames, idx[2:], regs[2:], bucket)]))
+    finally:
+        two.close()
+        scan.close()
+
+
+def test_cost_analysis_flops_on_the_card_equal_the_cpus(card):
+    """The same products counted on the card (cuDNN, torch._int_mm) as
+    on the CPU, for bf16 and static int8 (B4's count: chip_smoke.py's
+    replicas phase, at ResNet-50)."""
+    cpu = _small_pipeline(torch.device("cpu"), "bf16")
+    want = cpu.cost_analysis((96, 160), batch=2)
+    cpu.close()
+    for mode in ("bf16", "static_int8"):
+        pipe = _small_pipeline(card, mode)
+        try:
+            got = pipe.cost_analysis((96, 160), batch=2)
+        finally:
+            pipe.close()
+        for stage in ("coarse", "stage2"):
+            assert got[stage]["flops"] == want[stage]["flops"], (mode, stage)
+            assert got[stage]["bytes"] > 0
 
 
 # MP-Det training at a small size

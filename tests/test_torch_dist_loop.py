@@ -20,9 +20,14 @@ across two processes by ``tools/dist_launch.py``.
   either way): the COCO stats within 1e-3, as ``tools.test``'s tests
   hold them; both ranks score the same set, equal to the port's
   one-process ``run_eval``'s.
-- ``dist_launch train`` then ``dist_launch test`` (2 processes each,
-  ``--device cpu``): both exit 0, the checkpoint is written once, and
-  the test's ``--out`` (written by rank 0) equals one process's.
+- ``dist_launch train`` and ``dist_launch test`` (2 processes each,
+  ``--device cpu``, at the same time; the test on the checkpoint of the
+  ranks' ``train()`` above, whose options are the train command's; the
+  train command's with ``train.steps_per_call=2`` added, so that its
+  epoch runs as one group of two steps): both exit 0, the checkpoint and
+  the log are written once, the group's checkpoint holds the ranks'
+  single steps' weights within 1e-6 of each leaf's max, and the test's
+  ``--out`` (written by rank 0) equals one process's.
 """
 
 import concurrent.futures
@@ -45,7 +50,7 @@ from glsdet_tpu_torch.tools import dist_launch
 from glsdet_tpu_torch.tools import test as test_tool
 from glsdet_tpu_torch.utils.flax_import import state_dict_from_flax
 import torch_dist_worker as W
-from torch_port_util import write_png_dataset
+from torch_port_util import assert_leaf_close, write_png_dataset
 from torch_tools_util import (COARSE_CLI, calibrate_batch_stats, frame,
                               gts_from_dump, seeded_variables, write_set)
 
@@ -301,24 +306,28 @@ def test_run_eval_mesh_matches_jax(ranks, eval_case, monkeypatch):
                          W.NC, mesh=j_data_mesh(2), device="cpu")
 
 
-def test_dist_launch_train_and_test(tmp_path, monkeypatch):
+def test_dist_launch_train_and_test(tmp_path, monkeypatch, ranks):
+    """``dist_launch train`` and, at the same time, ``dist_launch test``
+    of the checkpoint the ranks' ``train()`` wrote with the same options
+    (and one process's ``tools.test`` of it, and a launch that fails)."""
     for k in ENV:
         monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv("OMP_NUM_THREADS", "2")
     monkeypatch.setenv("PYTHONPATH", W.ROOT)
     ann, img_root = write_png_dataset(str(tmp_path / "ds"))
-    pool = concurrent.futures.ThreadPoolExecutor(2)
+    pool = concurrent.futures.ThreadPoolExecutor(3)
     # a failing rank ends the launch with its code (beside the others)
     failing = pool.submit(dist_launch.main, [
         "test", "coarse_det", "2", "--ann", ann, "--img-root", img_root,
         "--device", "cpu", "--ckpt", str(tmp_path / "missing.pt")])
     work = str(tmp_path / "work")
-    opts = ["--cfg-options", *TRAIN_OPTS]
-    assert dist_launch.main([
+    # the launch trains its epoch as one group of the two steps
+    opts = ["--cfg-options", *TRAIN_OPTS, "train.steps_per_call=2",
+            "train.log_interval=2"]
+    training = pool.submit(dist_launch.main, [
         "train", "coarse_det", "2", "--ann", ann, "--img-root", img_root,
-        "--work-dir", work, "--device", "cpu", *opts]) == 0
-    assert sorted(os.listdir(work)) == ["epoch_1.pt", "train.log.json"]
-    ckpt = os.path.join(work, "epoch_1.pt")
+        "--work-dir", work, "--device", "cpu", *opts])
+    ckpt = os.path.join(ranks["work"], "epoch_1.pt")
     out = str(tmp_path / "dist.json")
     test_opts = ["--cfg-options", *COARSE_CLI, "eval.score_thr=0.001",
                  "data.batch_size=4"]
@@ -334,5 +343,15 @@ def test_dist_launch_train_and_test(tmp_path, monkeypatch):
     alone.result()
     with open(out) as f, open(one) as g:
         assert json.load(f) == json.load(g)
+    assert training.result() == 0
+    assert sorted(os.listdir(work)) == ["epoch_1.pt", "train.log.json"]
+    with open(os.path.join(work, "train.log.json")) as f:
+        assert [json.loads(line)["step"] for line in f] == [2]
+    # the group's state is the single steps' (the ranks' train())
+    grouped = torch.load(os.path.join(work, "epoch_1.pt"), weights_only=True)
+    single = torch.load(ckpt, weights_only=True)
+    assert grouped["step"] == single["step"] == 2
+    for k, v in single["model"].items():
+        assert_leaf_close(grouped["model"][k], v, k, 1e-6)
     assert failing.result() != 0
     pool.shutdown()

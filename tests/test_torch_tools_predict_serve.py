@@ -14,8 +14,10 @@ item 19.
 
 serve: ``archive`` writes the JAX CLI's manifest for the same arguments
 (a two-stage archive, with static int8 scales); ``serve`` on a free port
-in a thread answers ``client``'s POST of a PNG as the facade answers the
-frame; ``--devices`` raises naming item 6.
+in a thread, its two-stage batches served in turn on ``--devices 2``
+(two handles to the CPU), answers ``client``'s POST of a PNG as the
+one-device facade answers the frame; ``--devices`` parses into device
+handles.
 """
 
 import json
@@ -27,6 +29,7 @@ import zipfile
 import cv2
 import numpy as np
 import pytest
+import torch
 
 import glsdet_tpu.apis  # noqa: F401  (patched by name)
 import glsdet_tpu_torch.apis as tapis
@@ -175,9 +178,11 @@ def test_archive_serve_client(tmp_path):
         assert _manifest(tpath) == _manifest(jpath)
     os.remove(str(tmp_path / "store" / "t1.gtar"))
 
-    with pytest.raises(NotImplementedError, match="item 6"):
-        serve.main(["serve", "--model-store", str(tmp_path / "store"),
-                    "--devices", "2", "--device", "cpu"])
+    cpu = torch.device("cpu")
+    assert serve.serving_devices("2", "cpu") == [cpu, cpu]
+    assert serve.serving_devices("all", "cpu") == [cpu]
+    with pytest.raises(ValueError, match="count"):
+        serve.serving_devices("0", "cpu")
 
     servers = []
 
@@ -189,7 +194,7 @@ def test_archive_serve_client(tmp_path):
         mp.setattr(serve, "make_server", capture)
         thread = threading.Thread(target=serve.main, args=([
             "serve", "--model-store", str(tmp_path / "store"), "--port",
-            "0", "--device", "cpu"],), daemon=True)
+            "0", "--devices", "2", "--device", "cpu"],), daemon=True)
         thread.start()
         for _ in range(600):
             if servers or not thread.is_alive():

@@ -57,6 +57,21 @@ def test_reverse_naming_inverts_the_jax_rewrites(name):
 
 
 def jax_template(cfg_name, opts):
+    """The JAX model's initial variables (``PRNGKey(0)``): each config's
+    init is compiled once for the module, and every call gets its own
+    copy of the arrays."""
+    import jax
+
+    key = (cfg_name, tuple(sorted(opts.items())))
+    if key not in _TEMPLATES:
+        _TEMPLATES[key] = _jax_init(cfg_name, opts)
+    return jax.tree.map(np.copy, _TEMPLATES[key])
+
+
+_TEMPLATES = {}
+
+
+def _jax_init(cfg_name, opts):
     import jax
     import jax.numpy as jnp
 

@@ -68,11 +68,11 @@ def jax_two_stage_facade(variables=None):
 
 
 def pipe_kwargs(jdet) -> dict:
-    """The JAX facade's pipeline arguments without its weights and
-    devices, as the port takes them."""
+    """The JAX facade's pipeline arguments without its weights, as the
+    port takes them."""
     return {k: (tuple(v) if isinstance(v, list) else v)
             for k, v in jdet._pipe_kwargs.items()
-            if k not in ("coarse_vars", "mp_vars", "devices")}
+            if k not in ("coarse_vars", "mp_vars")}
 
 
 def flax_vars(module, x_nhwc: np.ndarray, seed: int = 0,
