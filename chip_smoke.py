@@ -430,6 +430,26 @@ Phases, in the order they run, each printing one line:
      float32, coarse threshold 1e-5), its --out equal to one process's
      tools.test --out.  Printed as one {"dist": ...} line; B2's entry of
      the kernel line adds the run_eval(mesh=) launches (dist_*).
+ 29. data_forms: the rest of the data layer.  (a) random_crop,
+     photometric_distortion, the shear, rotate and translate warps,
+     color, brightness, contrast, equalize and auto_augment over each of
+     its five sub-policies (every op applied) on a seeded 765x1360 frame
+     and a 61x45 one: the outputs' sha256 equal to AUGMENT_SHA256, which
+     the JAX package computes on the CPU test machine
+     (tests/test_torch_autoaugment.py), and each augmentation's host ms
+     per 765x1360 frame; rgb_to_gray_u8, equalize_hist_u8 and the three
+     warps on card tensors torch.equal to the CPU's.  (b) The committed
+     JPEG fixtures of tests/torch_fixtures/jpeg_forms (progressive from
+     cv2 and PIL, optimized tables, CMYK, a progressive file cut short)
+     decoded to the digests of OpenCV's pixels (JPEG_FORMS, recomputed
+     by tests/test_torch_jpeg.py); the 765x1360 progressive frame's
+     decode ms beside the baseline decode of the same pixels.  (c) The
+     765x1360 progressive and CMYK frames as raw bodies to make_server
+     over a TwoStageDetector (seeded full-width weights): each answer 200
+     and equal to the answer for the same pixels sent as a JSON array;
+     every B1 group and B2 launch of those requests held against its
+     plain version.  Printed as one {"data_forms": ...} line; B1's and
+     B2's entries of the kernel line add its launches (data_forms_*).
 Then one JSON line of per-kernel results (each with its bound: the bytes
 it must move at 3.35 TB/s or its operations at the card's peak for their
 type, whichever is longer) and, last, the device line.  A kernel's ``ms``
@@ -6725,6 +6745,290 @@ def dist_nms(d) -> dict:
                                     for n in ns)}
 
 
+# ---------------------------------------------------------------------------
+# 29. data_forms: the augmentations of the data layer's second half, the
+#     JPEG forms it reads (progressive, CMYK), and both served at full width
+# ---------------------------------------------------------------------------
+
+AUGMENT_HW = (FRAME_HW, (61, 45))
+AUGMENT_REPS = 2             # timed runs of each case after its digest run
+# sha256 of every augment_cases output on augment_inputs(), as the JAX
+# package computes them on the CPU test machine
+# (tests/test_torch_autoaugment.py recomputes it)
+AUGMENT_SHA256 = ("058d6afb4ccfae14755bd9a714720ea0"
+                  "ec403292f14ebde14742e9d2eefcb30c")
+JPEG_FORMS_DIR = os.path.join("tests", "torch_fixtures", "jpeg_forms")
+# name -> (sha256 of the file, sha256 of the RGB pixels OpenCV reads from
+# it: cv2.imread for the file cut short, cv2.imdecode for the others);
+# tests/torch_fixtures/make_jpeg_forms.py writes the files and prints
+# these, tests/test_torch_jpeg.py recomputes them
+JPEG_FORMS = {
+    "cmyk_765x1360.jpg": (
+        "f2a64e2338281b2d11b514bb5cd81af0be44ef18fd62c323a1eb54cb161fc627",
+        "e4972c1714842af82ca06f4b6b46f7fffc07704e1362289d27c70782a26bf08c"),
+    "cut_progressive.jpg": (
+        "01b2c324dff50f24d60f8cfb1615a5908e815e4713e356d783de79b58c43545a",
+        "9116d4c890f45f28cf349af7fc73370f4b203eed1d2a81837b30c20f4165812c"),
+    "pil_cmyk_progressive.jpg": (
+        "ff5e77b4dfbac1bc14ee3632a447af7c7f2ebf3ac97a748f7d99b410c15f01f5",
+        "a2a1c27bfec7b8d69747161de143c6ffa9a5754b9f21943408903feae1e916c7"),
+    "pil_optimized.jpg": (
+        "15bec2b898253b1a1590a05a14aebcb6c31f44388e6efa09f4f1c8b670bf4764",
+        "bbd6f1e90724c499e304fd355000224f86355f98a06c3b5896f35e6a317339d7"),
+    "pil_progressive.jpg": (
+        "8c2c8f02994145f61faafd331a6748f1e000f65b26ccbbe57c480bb380c847ea",
+        "ea639e84f065134b4fec4257c5d8e7a640556cb314f823484515dc8868a59d17"),
+    "progressive_444_rst.jpg": (
+        "347815e7c55d2990265dcf0d494078ba66ee3d31c2b95a504842c80eb6cfb8ee",
+        "bf3e34c4e18054c6bba168faec330c099878a2d84ce603cfa0d00b67f1e4595a"),
+    "progressive_765x1360.jpg": (
+        "e92fa18b247c0eb86fda06f5b339802e1cb3588ac0509f67f5f1768351ca0239",
+        "86c547c54dfde6c1a5efd6422b604857326512bad77a1c62db248c8a4c6b3c36"),
+    "progressive_grey.jpg": (
+        "b7b1e6d49b1eb838d601b61b9a155b6ef7d33e8637e3ae7c8e43dbc8d9bc4972",
+        "30813529b56fd18481e151189ef214a5fa89a5830bc224b2a404793b2b535959"),
+}
+FORMS_SERVED = ("progressive_765x1360.jpg", "cmyk_765x1360.jpg")
+FORMS_PROGRESSIVE_QUALITY = 80   # the full-width progressive fixture's
+FORMS_DECODE_REPS = 5
+
+
+def augment_cases(aug) -> list:
+    """(name, fn(img, boxes, labels, rng) -> tuple of arrays) of each
+    augmentation of ``aug`` (the port's ``data/augment.py``, or the JAX
+    package's where the CPU test recomputes the digest): every op
+    applied (``prob=1.0``), ``auto_augment`` once per sub-policy of
+    AUTOAUG_POLICIES_V0 with each of its ops applied."""
+    def forced(policy):
+        return (tuple((n, {**kw, "prob": 1.0}) for n, kw in policy),)
+
+    def crop(im, b, lb, r):
+        return aug.random_crop(im, b, lb, r, (im.shape[0] * 3 // 4,
+                                              im.shape[1] * 3 // 4))
+
+    cases = [
+        ("random_crop", crop),
+        ("photometric_distortion",
+         lambda im, b, lb, r: (aug.photometric_distortion(im, r),)),
+        ("shear_horizontal", lambda im, b, lb, r: aug.shear_aug(
+            im, b, lb, r, 6, "horizontal", prob=1.0)),
+        ("shear_vertical", lambda im, b, lb, r: aug.shear_aug(
+            im, b, lb, r, 6, "vertical", prob=1.0)),
+        ("rotate", lambda im, b, lb, r: aug.rotate_aug(
+            im, b, lb, r, 8, prob=1.0)),
+        ("translate_horizontal", lambda im, b, lb, r: aug.translate_aug(
+            im, b, lb, r, 8, "horizontal", prob=1.0)),
+        ("translate_vertical", lambda im, b, lb, r: aug.translate_aug(
+            im, b, lb, r, 8, "vertical", prob=1.0)),
+        ("color", lambda im, b, lb, r: (aug.color_aug(im, r, 6, prob=1.0),)),
+        ("brightness",
+         lambda im, b, lb, r: (aug.brightness_aug(im, r, 6, prob=1.0),)),
+        ("contrast",
+         lambda im, b, lb, r: (aug.contrast_aug(im, r, 6, prob=1.0),)),
+        ("equalize",
+         lambda im, b, lb, r: (aug.equalize_aug(im, r, prob=1.0),)),
+    ]
+    cases += [(f"auto_augment_{i}", lambda im, b, lb, r, p=p:
+               aug.auto_augment(im, b, lb, r, policies=forced(p)))
+              for i, p in enumerate(aug.AUTOAUG_POLICIES_V0)]
+    return cases
+
+
+def augment_inputs() -> list:
+    """(frame, boxes, labels) at each of AUGMENT_HW, seeded."""
+    rs = np.random.RandomState(19)
+    out = []
+    for h, w in AUGMENT_HW:
+        img = rs.randint(0, 256, (h, w, 3), np.uint8)
+        x1, y1 = rs.uniform(0, w - 8, 12), rs.uniform(0, h - 8, 12)
+        boxes = np.stack([x1, y1, x1 + rs.uniform(2, w / 3, 12),
+                          y1 + rs.uniform(2, h / 3, 12)], 1)
+        out.append((img, boxes.astype(np.float32),
+                    rs.randint(0, 10, 12).astype(np.int32)))
+    return out
+
+
+def augment_digest(aug, times=None) -> str:
+    """sha256 of every augment_cases output (dtype, shape and bytes) on
+    augment_inputs(), case i drawing from RandomState(i); with ``times``
+    (a dict) also each case's host ms on the full frame, the mean of
+    AUGMENT_REPS more runs."""
+    chunks = []
+    for img, boxes, labels in augment_inputs():
+        for i, (name, fn) in enumerate(augment_cases(aug)):
+            for out in fn(img, boxes, labels, np.random.RandomState(i)):
+                out = np.ascontiguousarray(out)
+                chunks += [f"{out.dtype}{out.shape}".encode(), out]
+            if times is not None and img.shape[:2] == FRAME_HW:
+                t0 = time.perf_counter()
+                for _ in range(AUGMENT_REPS):
+                    fn(img, boxes, labels, np.random.RandomState(i))
+                times[name] = 1e3 * (time.perf_counter() - t0) / AUGMENT_REPS
+    return sha256(chunks)
+
+
+def forms_twins() -> dict:
+    """rgb_to_gray_u8, equalize_hist_u8 and warp_affine_u8 (the shear,
+    rotate and translate matrices, border 128) on card tensors
+    torch.equal to the CPU's on the full frame."""
+    from glsdet_tpu_torch.ops.image import (equalize_hist_u8, rgb_to_gray_u8,
+                                            rotation_matrix_2d,
+                                            warp_affine_u8)
+
+    img = torch.from_numpy(augment_inputs()[0][0])
+    dev = img.to(DEVICE)
+    h, w = FRAME_HW
+    checks = {
+        "rgb_to_gray_u8": (rgb_to_gray_u8, (), {}),
+        "equalize_hist_u8": (lambda x: torch.stack(
+            [equalize_hist_u8(x[..., c].contiguous()) for c in range(3)],
+            -1), (), {}),
+        "warp_shear": (warp_affine_u8, (np.array([[1, 0.18, 0], [0, 1, 0]]),
+                                        FRAME_HW), {"border_value": 128}),
+        "warp_rotate": (warp_affine_u8, (rotation_matrix_2d(
+            (w / 2, h / 2), -24.0, 1.0), FRAME_HW), {"border_value": 128}),
+        "warp_translate": (warp_affine_u8, (np.array([[1, 0, 0],
+                                                      [0, 1, -200.0]]),
+                                            FRAME_HW), {"border_value": 128}),
+    }
+    out = {}
+    for name, (fn, args, kw) in checks.items():
+        want = fn(img, *args, **kw)
+        got = fn(dev, *args, **kw)
+        torch.cuda.synchronize()
+        if got.device.type != "cuda" or not torch.equal(got.cpu(), want):
+            raise AssertionError(f"{name}: the card's output differs from "
+                                 "the CPU's")
+        out[name] = {"equal": True, "shape": list(want.shape)}
+    return out
+
+
+def forms_decode() -> dict:
+    """The committed fixtures decoded to OpenCV's pixels (JPEG_FORMS); the
+    full-width progressive frame's and CMYK frame's decode ms beside the
+    baseline decode of the same pixels (the port's encoder, 4:2:0, the
+    progressive file's quality).  Returns the decoded frames too."""
+    from glsdet_tpu_torch.data.image_io import (decode_jpeg, encode_jpeg,
+                                                read_image)
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        JPEG_FORMS_DIR)
+    if sorted(os.listdir(root)) != sorted(JPEG_FORMS):
+        raise AssertionError(f"{root}: {sorted(os.listdir(root))}")
+    files, pixels = {}, {}
+    for name, (want_bytes, want_pixels) in JPEG_FORMS.items():
+        path = os.path.join(root, name)
+        with open(path, "rb") as f:
+            data = f.read()
+        img = (read_image(path) if name.startswith("cut_")
+               else decode_jpeg(data))
+        if sha256([data]) != want_bytes or sha256([img]) != want_pixels:
+            raise AssertionError(f"{name}: decoded pixels differ from "
+                                 "OpenCV's")
+        files[name] = data
+        pixels[name] = img
+
+    def ms(data):
+        t0 = time.perf_counter()
+        for _ in range(FORMS_DECODE_REPS):
+            decode_jpeg(data)
+        return 1e3 * (time.perf_counter() - t0) / FORMS_DECODE_REPS
+
+    prog, cmyk = FORMS_SERVED
+    baseline = encode_jpeg(pixels[prog], FORMS_PROGRESSIVE_QUALITY)
+    timing = {"progressive_ms": ms(files[prog]),
+              "baseline_same_pixels_ms": ms(baseline),
+              "cmyk_ms": ms(files[cmyk]),
+              "progressive_bytes": len(files[prog]),
+              "baseline_bytes": len(baseline),
+              "cmyk_bytes": len(files[cmyk])}
+    return {"fixtures": len(files), "equal": True, "full_width": timing,
+            "bytes_total": sum(len(d) for d in files.values())}, files, \
+        pixels
+
+
+def post_body(base, body):
+    import urllib.request
+
+    req = urllib.request.Request(base + "/predictions/glsdet", data=body,
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.status, json.loads(r.read())
+
+
+def forms_serve(paths, files, pixels) -> dict:
+    """The full-width progressive and CMYK frames as raw bodies to
+    make_server over a TwoStageDetector, and the same pixels as JSON
+    arrays: answers 200 and equal; every B1 group and B2 launch of the
+    requests held against its plain version, the launches counted."""
+    import base64
+    import threading
+
+    from glsdet_tpu_torch.serve import DetectionService, make_server
+
+    facade = make_facade(paths)
+    service = DetectionService()
+    service.register("glsdet", facade)
+    server = make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    out = {}
+    try:
+        facade.detect_batch([pixels[n] for n in FORMS_SERVED])  # warm
+        with capture_path(False) as cap:
+            for name in FORMS_SERVED:
+                img = pixels[name]
+                array = json.dumps({"image": base64.b64encode(
+                    img.tobytes()).decode(), "shape": list(img.shape),
+                    "dtype": "uint8"}).encode()
+                t0 = time.perf_counter()
+                raw = post_body(base, files[name])
+                raw_ms = 1e3 * (time.perf_counter() - t0)
+                arr = post_body(base, array)
+                if raw[0] != 200 or arr[0] != 200 or raw[1] != arr[1]:
+                    raise AssertionError(f"{name}: the raw body's answer "
+                                         "differs from the JSON array's")
+                if not raw[1]:
+                    raise AssertionError(f"{name}: no detections served")
+                out[name] = {"detections": len(raw[1]), "equal": True,
+                             "raw_request_ms": raw_ms,
+                             "raw_bytes": len(files[name]),
+                             "array_bytes": len(array)}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        facade.close()
+    all_captured(cap, "data_forms HTTP")
+    return {"frames": out, "launches": cap["launches"],
+            "nms": check_nms_masks(cap["nms"], "data_forms HTTP"),
+            "paint": check_paint_groups(cap["groups"])}
+
+
+def phase_data_forms(smi: str) -> dict:
+    """The rest of the data layer on the card machine (module docstring,
+    phase 29)."""
+    from glsdet_tpu_torch.data import augment
+
+    t0 = time.perf_counter()
+    times = {}
+    digest = augment_digest(augment, times)
+    if digest != AUGMENT_SHA256:
+        raise AssertionError(f"augmentations: sha256 {digest}, the JAX "
+                             f"package's {AUGMENT_SHA256}")
+    out = {"card": smi, "augment": {"sha256_equal": True,
+                                    "host_ms_per_frame": times,
+                                    "frame_hw": list(FRAME_HW)},
+           "twins": forms_twins()}
+    out["decode"], files, pixels = forms_decode()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["serve"] = forms_serve(write_seeded_models(tmp), files, pixels)
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"data_forms": out}), flush=True)
+    return out
+
+
 def main() -> None:
     # float32 products of the plain versions stay float32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6774,6 +7078,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         wf = phase_workflow(smi, tmp)
         an = phase_analysis(smi, tmp, wf)
+    forms = phase_data_forms(smi)
     launches = bf16["launches"]
     eval_nms = {run: ev[run]["nms"] for run in
                 ("coarse_det", "mp_det_res50", "tta", "ufpmp_bf16",
@@ -6833,6 +7138,9 @@ def main() -> None:
          "analysis_bound_ms": an["nms"]["per_run"]["bound_ms"],
          "analysis_max_abs_err": an["nms"]["max_abs_err"],
          **dist_nms(dist),
+         "data_forms_launches": forms["serve"]["launches"]["nms"],
+         "data_forms_shapes": forms["serve"]["nms"]["shapes"],
+         "data_forms_max_abs_err": 0.0,
          "replicas_launches_per_card": replica_launches(rep, "nms")},
         {"name": "paint_mosaic", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/paint.cu",
@@ -6858,6 +7166,10 @@ def main() -> None:
          "workflow_eval_ms": {f"{t['hw']}x{t['batch']}": t["ms"]
                               for t in wf["cycle_kernels"]["paint"]},
          "workflow_max_abs_err": 0.0,
+         "data_forms_launches": forms["serve"]["launches"]["paint_inputs"],
+         "data_forms_ms": {f"{t['hw']}x{t['batch']}": t["ms"]
+                           for t in forms["serve"]["paint"]},
+         "data_forms_max_abs_err": 0.0,
          "replicas_launches_per_card": replica_launches(rep, "paint")},
         {"name": "gn_relu_quant", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/gn_quant.cu",

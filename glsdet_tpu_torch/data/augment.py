@@ -1,25 +1,34 @@
-"""Host-side training augmentations of the YOLOX recipe, the port's copy
-of ``glsdet_tpu.data.augment``'s ``letterbox``, ``sample_hsv_deltas``,
-``hsv_aug``, ``random_flip``, ``mosaic4_params``, ``mosaic4_boxes``,
-``mosaic4``, ``random_affine_params``, ``random_affine``,
-``affine_boxes`` and ``mixup`` (reference: ``yolox-ufp/mmdet/datasets/
-pipelines/transforms.py`` Mosaic :1947, RandomAffine :2480, MixUp
-:2216, YOLOXHSVRandomAug :2698).
+"""Host-side training augmentations, the port's copy of
+``glsdet_tpu.data.augment``: the YOLOX recipe (``letterbox``,
+``sample_hsv_deltas``, ``hsv_aug``, ``random_flip``, ``mosaic4_params``,
+``mosaic4_boxes``, ``mosaic4``, ``random_affine_params``,
+``random_affine``, ``affine_boxes``, ``mixup``; reference:
+``yolox-ufp/mmdet/datasets/pipelines/transforms.py`` Mosaic :1947,
+RandomAffine :2480, MixUp :2216, YOLOXHSVRandomAug :2698), mmdet's
+``random_crop`` and ``photometric_distortion`` (transforms.py :712,
+:940), the box-aware AutoAugment family (``shear_aug``, ``rotate_aug``,
+``translate_aug``, ``color_aug``, ``brightness_aug``, ``contrast_aug``,
+``equalize_aug``, ``AUTOAUG_POLICIES_V0``, ``auto_augment``; mmdet
+``auto_augment.py``) and the ``Albu`` bridge (transforms.py:1320).
 
 Parameter sampling and box geometry are the JAX package's numpy code,
 carried over line for line: the same ``RandomState`` draws in the same
 order give bit-equal boxes.  The pixels go through the port's own
 counterparts of the OpenCV calls, each held to the OpenCV of the JAX
-package's tests value for value (``tests/test_torch_augment.py``):
+package's tests value for value (``tests/test_torch_augment.py``,
+``tests/test_torch_autoaugment.py``):
 
 - ``cv2.resize`` (INTER_LINEAR) -> ``ops/image.py: resize_linear_u8``;
 - ``cv2.warpAffine`` -> ``ops/image.py: warp_affine_u8``;
+- ``cv2.getRotationMatrix2D`` -> ``ops/image.py: rotation_matrix_2d``;
+- ``cv2.cvtColor`` RGB2GRAY -> ``ops/image.py: rgb_to_gray_u8``;
+- ``cv2.equalizeHist`` -> ``ops/image.py: equalize_hist_u8``;
 - ``cv2.cvtColor`` RGB <-> HSV on uint8 -> :func:`rgb_to_hsv_cv` and
   :func:`hsv_to_rgb_cv` below.
 
-The rest of the JAX module (``random_crop``, ``photometric_distortion``,
-the auto-augment family, ``Albu``) is not ported yet (ROADMAP.md, queue
-A item 11).
+The arithmetic around those calls stays the JAX package's numpy
+expressions, dtypes included (``contrast_aug`` adds a float64 mean to a
+float32 image, which NumPy 2 computes in float64).
 """
 
 from __future__ import annotations
@@ -30,7 +39,9 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from glsdet_tpu_torch.ops.image import resize_linear_u8, warp_affine_u8
+from glsdet_tpu_torch.ops.image import (equalize_hist_u8, resize_linear_u8,
+                                        rgb_to_gray_u8, rotation_matrix_2d,
+                                        warp_affine_u8)
 
 _F32 = np.float32
 _HSV_SHIFT = 12
@@ -287,7 +298,7 @@ def random_affine(img: np.ndarray, boxes: np.ndarray, labels: np.ndarray,
     mat = random_affine_params(rng, (h0, w0), out_size, max_rotate,
                                max_translate, scale_range, max_shear)
     out = warp_affine_u8(_u8(img), mat[:2], out_size,
-                         border_value=int(pad_val)).numpy()
+                         border_value=pad_val).numpy()
     boxes, labels = affine_boxes(mat, boxes, labels, out_size)
     return out, boxes, labels
 
@@ -323,3 +334,277 @@ def mixup(img_a, boxes_a, labels_a, img_b, boxes_b, labels_b,
     labels = (np.concatenate([labels_a, labels_b])
               if len(labels_b) else labels_a)
     return out, boxes, labels
+
+
+def random_crop(img: np.ndarray, boxes: np.ndarray, labels: np.ndarray,
+                rng: np.random.RandomState,
+                crop_hw: Tuple[int, int]):
+    """RandomCrop (transforms.py:712): crop a window, shift boxes, drop
+    boxes whose center leaves the window."""
+    h0, w0 = img.shape[:2]
+    ch, cw = min(crop_hw[0], h0), min(crop_hw[1], w0)
+    y0 = rng.randint(0, h0 - ch + 1)
+    x0 = rng.randint(0, w0 - cw + 1)
+    out = img[y0:y0 + ch, x0:x0 + cw]
+    if len(boxes):
+        b = boxes.copy()
+        b[:, [0, 2]] -= x0
+        b[:, [1, 3]] -= y0
+        cx = (b[:, 0] + b[:, 2]) / 2
+        cy = (b[:, 1] + b[:, 3]) / 2
+        keep = (cx >= 0) & (cx < cw) & (cy >= 0) & (cy < ch)
+        b[:, [0, 2]] = b[:, [0, 2]].clip(0, cw)
+        b[:, [1, 3]] = b[:, [1, 3]].clip(0, ch)
+        boxes, labels = b[keep], labels[keep]
+    return out, boxes, labels
+
+
+def photometric_distortion(img: np.ndarray, rng: np.random.RandomState,
+                           brightness_delta: int = 32,
+                           contrast_range=(0.5, 1.5),
+                           saturation_range=(0.5, 1.5),
+                           hue_delta: int = 18) -> np.ndarray:
+    """PhotoMetricDistortion (transforms.py:940): random brightness /
+    contrast / saturation / hue, each applied with p=0.5, contrast order
+    randomized."""
+    out = img.astype(np.float32)
+    if rng.randint(2):
+        out += rng.uniform(-brightness_delta, brightness_delta)
+    contrast_first = rng.randint(2)
+    if contrast_first and rng.randint(2):
+        out *= rng.uniform(*contrast_range)
+    hsv = rgb_to_hsv_cv(out.clip(0, 255).astype(np.uint8)).astype(np.float32)
+    if rng.randint(2):
+        hsv[..., 1] *= rng.uniform(*saturation_range)
+    if rng.randint(2):
+        hsv[..., 0] = (hsv[..., 0] + rng.uniform(-hue_delta, hue_delta)) % 180
+    out = hsv_to_rgb_cv(hsv.clip(0, 255).astype(np.uint8)).astype(np.float32)
+    if not contrast_first and rng.randint(2):
+        out *= rng.uniform(*contrast_range)
+    return out.clip(0, 255).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# AutoAugment (box-aware policy augmentation)
+# ---------------------------------------------------------------------------
+# Behavioral reference: mmdet/datasets/pipelines/auto_augment.py —
+# ``AutoAugment`` picks ONE policy (a list of op dicts, each with its own
+# ``prob``) uniformly per sample; geometric ops (Shear/Rotate/Translate)
+# warp boxes with the image and drop boxes that leave the canvas;
+# photometric ops (Color/Brightness/Contrast/Equalize) touch pixels only.
+# ``level`` in [0, 10] scales each op's magnitude exactly as the
+# reference's ``level_to_value`` / ``level_to_mag`` helpers do.
+
+_MAX_LEVEL = 10
+
+
+def _warp_with_boxes(img, boxes, labels, mat, pad_val=128.0,
+                     min_size=2.0):
+    """Apply a 2x3 affine to image + boxes on the same canvas; boxes are
+    re-fit to warped corners, clipped, and dropped below ``min_size``."""
+    h, w = img.shape[:2]
+    out = warp_affine_u8(_u8(img), mat, (h, w),
+                         border_value=pad_val).numpy()
+    if len(boxes):
+        n = len(boxes)
+        corners = np.ones((n * 4, 3), np.float64)
+        corners[:, :2] = boxes[:, [0, 1, 2, 1, 0, 3, 2, 3]].reshape(-1, 2)
+        warped = (np.vstack([mat, [0, 0, 1]]) @ corners.T).T[:, :2]
+        warped = warped.reshape(n, 8)
+        xs, ys = warped[:, 0::2], warped[:, 1::2]
+        new = np.stack([xs.min(1), ys.min(1), xs.max(1), ys.max(1)], 1)
+        new[:, [0, 2]] = new[:, [0, 2]].clip(0, w)
+        new[:, [1, 3]] = new[:, [1, 3]].clip(0, h)
+        wh = new[:, 2:4] - new[:, :2]
+        keep = (wh > min_size).all(axis=1)
+        boxes, labels = new[keep].astype(np.float32), labels[keep]
+    return out, boxes, labels
+
+
+def shear_aug(img, boxes, labels, rng, level, direction="horizontal",
+              max_shear_magnitude=0.3, prob=0.5, random_negative=True):
+    """Shear (auto_augment.py Shear): magnitude = level/10 * 0.3."""
+    if rng.rand() > prob:
+        return img, boxes, labels
+    mag = level / _MAX_LEVEL * max_shear_magnitude
+    if random_negative and rng.rand() < 0.5:
+        mag = -mag
+    if direction == "horizontal":
+        mat = np.array([[1, mag, 0], [0, 1, 0]], np.float64)
+    else:
+        mat = np.array([[1, 0, 0], [mag, 1, 0]], np.float64)
+    return _warp_with_boxes(img, boxes, labels, mat)
+
+
+def rotate_aug(img, boxes, labels, rng, level, max_rotate_angle=30.0,
+               prob=0.5, random_negative=True):
+    """Rotate (auto_augment.py Rotate): angle = level/10 * 30deg about
+    the image center."""
+    if rng.rand() > prob:
+        return img, boxes, labels
+    ang = level / _MAX_LEVEL * max_rotate_angle
+    if random_negative and rng.rand() < 0.5:
+        ang = -ang
+    h, w = img.shape[:2]
+    mat = rotation_matrix_2d((w / 2, h / 2), ang, 1.0)
+    return _warp_with_boxes(img, boxes, labels, mat)
+
+
+def translate_aug(img, boxes, labels, rng, level,
+                  direction="horizontal", max_translate_offset=250.0,
+                  prob=0.5, random_negative=True):
+    """Translate (auto_augment.py Translate): offset = level/10 * 250px."""
+    if rng.rand() > prob:
+        return img, boxes, labels
+    off = int(level / _MAX_LEVEL * max_translate_offset)
+    if random_negative and rng.rand() < 0.5:
+        off = -off
+    if direction == "horizontal":
+        mat = np.array([[1, 0, off], [0, 1, 0]], np.float64)
+    else:
+        mat = np.array([[1, 0, 0], [0, 1, off]], np.float64)
+    return _warp_with_boxes(img, boxes, labels, mat)
+
+
+def _gray(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_RGB2GRAY)`` of a uint8 RGB frame."""
+    return rgb_to_gray_u8(_u8(img)).numpy()
+
+
+def color_aug(img, rng, level, prob=0.5):
+    """ColorTransform: blend with grayscale, factor = level/10."""
+    if rng.rand() > prob:
+        return img
+    factor = level / _MAX_LEVEL
+    gray = _gray(img)[..., None]
+    out = (img.astype(np.float32) * factor
+           + gray.astype(np.float32) * (1 - factor))
+    return out.clip(0, 255).astype(np.uint8)
+
+
+def brightness_aug(img, rng, level, prob=0.5):
+    """BrightnessTransform: scale toward black, factor = level/10."""
+    if rng.rand() > prob:
+        return img
+    factor = level / _MAX_LEVEL
+    return (img.astype(np.float32) * factor).clip(0, 255).astype(np.uint8)
+
+
+def contrast_aug(img, rng, level, prob=0.5):
+    """ContrastTransform: blend with the mean-gray image (the mean is a
+    numpy float64, so the blend runs in float64 as the JAX package's
+    does)."""
+    if rng.rand() > prob:
+        return img
+    factor = level / _MAX_LEVEL
+    mean = _gray(img).mean()
+    out = img.astype(np.float32) * factor + mean * (1 - factor)
+    return out.clip(0, 255).astype(np.uint8)
+
+
+def equalize_aug(img, rng, prob=0.5):
+    """EqualizeTransform: per-channel histogram equalization."""
+    if rng.rand() > prob:
+        return img
+    return np.stack([equalize_hist_u8(_u8(img[..., c])).numpy()
+                     for c in range(3)], -1)
+
+
+# The reference's detection policy set (auto_augment.py policies used by
+# mmdet detection configs): per sample pick one sub-policy at random.
+AUTOAUG_POLICIES_V0 = (
+    (("translate", dict(level=8, direction="horizontal", prob=0.6)),
+     ("rotate", dict(level=8, prob=0.6))),
+    (("shear", dict(level=6, direction="vertical", prob=0.6)),
+     ("brightness", dict(level=6, prob=0.6))),
+    (("rotate", dict(level=10, prob=0.6)),
+     ("color", dict(level=6, prob=0.6))),
+    (("translate", dict(level=8, direction="vertical", prob=0.6)),
+     ("equalize", dict(prob=0.8)),),
+    (("shear", dict(level=8, direction="horizontal", prob=0.6)),
+     ("contrast", dict(level=6, prob=0.6))),
+)
+
+
+def auto_augment(img, boxes, labels, rng: np.random.RandomState,
+                 policies=AUTOAUG_POLICIES_V0):
+    """Apply one randomly chosen sub-policy (mmdet AutoAugment.__call__:
+    ``np.random.choice(policies)`` then sequential ops)."""
+    policy = policies[rng.randint(len(policies))]
+    for name, kw in policy:
+        if name == "shear":
+            img, boxes, labels = shear_aug(img, boxes, labels, rng, **kw)
+        elif name == "rotate":
+            img, boxes, labels = rotate_aug(img, boxes, labels, rng, **kw)
+        elif name == "translate":
+            img, boxes, labels = translate_aug(
+                img, boxes, labels, rng, **kw)
+        elif name == "color":
+            img = color_aug(img, rng, **kw)
+        elif name == "brightness":
+            img = brightness_aug(img, rng, **kw)
+        elif name == "contrast":
+            img = contrast_aug(img, rng, **kw)
+        elif name == "equalize":
+            img = equalize_aug(img, rng, **kw)
+        else:
+            raise ValueError(f"unknown autoaugment op {name!r}")
+    return img, boxes, labels
+
+
+class Albu:
+    """Albumentations bridge (mmdet ``Albu`` analog, transforms.py:1320).
+
+    Builds an albumentations ``Compose`` from dict specs
+    (``{"type": name_or_class, **kwargs}``; nested ``transforms`` lists
+    build recursively, so ``OneOf`` etc. work) and applies it to the
+    functional ``(img, boxes xyxy, labels)`` triple this data layer
+    uses.  Labels stay in sync when transforms drop boxes via the
+    reference's idx_mapper filtration trick (transforms.py:1466-1494).
+
+    Gated on the package: raises ImportError with install guidance when
+    albumentations is missing (neither the CPU test machine nor the GPU
+    machine has it; ``tests/test_torch_albu.py`` runs the bridge through
+    a minimal protocol shim and the gate directly).
+    """
+
+    def __init__(self, transforms: Sequence[dict],
+                 bbox_params: Optional[dict] = None):
+        try:
+            import albumentations
+        except ImportError as e:
+            raise ImportError(
+                "the Albu bridge (mmdet transforms.py:1320 analog) needs "
+                "the optional albumentations package: pip install "
+                "albumentations") from e
+        self._A = albumentations
+        bp = dict(format="pascal_voc", label_fields=["idx_mapper"])
+        if bbox_params:
+            bp.update(bbox_params)
+            bp["label_fields"] = ["idx_mapper"]  # labels ride the mapper
+            bp.pop("filter_lost_elements", None)
+        self.aug = albumentations.Compose(
+            [self._build(t) for t in transforms],
+            bbox_params=albumentations.BboxParams(**bp))
+
+    def _build(self, cfg: dict):
+        args = dict(cfg)
+        obj_type = args.pop("type")
+        cls = (getattr(self._A, obj_type) if isinstance(obj_type, str)
+               else obj_type)
+        if "transforms" in args:
+            args["transforms"] = [self._build(t)
+                                  for t in args["transforms"]]
+        return cls(**args)
+
+    def __call__(self, img: np.ndarray, boxes: np.ndarray,
+                 labels: np.ndarray):
+        res = self.aug(image=img,
+                       bboxes=[tuple(map(float, b)) for b in boxes],
+                       idx_mapper=list(range(len(boxes))))
+        keep = np.asarray(res["idx_mapper"], np.int64)
+        out_boxes = np.asarray(res["bboxes"],
+                               np.float32).reshape(-1, 4)
+        out_labels = (np.asarray(labels)[keep] if len(keep)
+                      else np.zeros((0,), np.int64))
+        return res["image"], out_boxes, out_labels

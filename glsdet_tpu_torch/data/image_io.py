@@ -6,20 +6,23 @@ and sizes with PIL (``data/visdrone.py``); the GPU machine has none of
 them, so the port reads them itself, equal to ``cv2.imread(path)`` (and
 ``cv2.imdecode``) after BGR -> RGB value for value:
 
-- JPEG: Huffman sequential (baseline and extended, SOF0/SOF1), 8-bit,
-  grey or three components, any integral sampling (4:4:4, 4:2:2, 4:2:0,
-  4:4:0, 4:1:1), restart intervals, decoded as libjpeg-turbo decodes by
+- JPEG: Huffman sequential (baseline and extended, SOF0/SOF1) and
+  progressive (SOF2), 8-bit, grey, three components or four (CMYK, as
+  PIL and Adobe write it, converted to RGB as OpenCV converts it), any
+  integral sampling (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1), restart
+  intervals, optimized tables, decoded as libjpeg-turbo decodes by
   default (``native/jpeg.cpp``: the islow IDCT, fancy upsampling, its
   YCbCr tables), with the EXIF orientation of the first APP1 segment
-  applied as ``IMREAD_COLOR`` applies it.  Progressive, arithmetic-coded,
-  lossless, hierarchical, 12-bit and CMYK/YCCK files raise
-  ``NotImplementedError`` naming ROADMAP.md queue A item 16.  Bytes cut
-  short raise ``ValueError`` where ``cv2.imdecode`` returns ``None``;
-  a file cut short inside its scan reads as ``cv2.imread`` reads it (mid
-  grey from the block where the data ran out).  Entropy data libjpeg
+  applied as ``IMREAD_COLOR`` applies it.  Arithmetic-coded, lossless,
+  hierarchical, 12-bit and YCCK files raise ``NotImplementedError``
+  naming ROADMAP.md queue A item 16.  Bytes cut short raise
+  ``ValueError`` where ``cv2.imdecode`` returns ``None``; a file cut
+  short reads as ``cv2.imread`` reads it (mid grey from the block where
+  a sequential scan's data ran out; a progressive image from the scans
+  it has, block-smoothed as libjpeg smooths it).  Entropy data libjpeg
   would decode only with warnings and substitutes (a bad Huffman code, a
-  restart marker out of sequence) raises ``ValueError`` (ROADMAP.md
-  section C);
+  restart marker out of sequence, progressive scans out of order) raises
+  ``ValueError`` (ROADMAP.md section C);
 - PNG, every colour type (grey, RGB, palette, grey+alpha, RGBA), bit
   depths 1, 2, 4, 8 and 16, interlaced (Adam7) or not: the IDAT stream
   inflates with the standard library's ``zlib`` and its rows are
@@ -67,7 +70,10 @@ _lib: Optional[ctypes.CDLL] = None
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8"
-_JPEG_ITEM = "ROADMAP.md, queue A item 16"
+_JPEG_ITEM = ("the port decodes baseline, extended and progressive "
+              "Huffman JPEGs of 1, 3 or 4 (CMYK) components and refuses "
+              "arithmetic-coded, lossless, hierarchical, 12-bit and YCCK "
+              "files: ROADMAP.md, queue A item 16")
 # samples per pixel of the PNG colour types: grey, RGB, palette,
 # grey+alpha, RGBA, and the bit depths each allows
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}

@@ -1,11 +1,17 @@
-// Baseline JPEG decoding and encoding for data/image_io.py, equal to what
+// JPEG decoding and baseline encoding for data/image_io.py, equal to what
 // cv2.imread / cv2.imdecode (IMREAD_COLOR) and cv2.imencode(".jpg") give
 // with OpenCV's bundled libjpeg-turbo at its defaults.
 //
 // Decoding repeats libjpeg-turbo's default decompression step by step:
-//   - Huffman sequential scans (SOF0/SOF1, 8-bit samples, 1 or 3
+//   - Huffman sequential scans (SOF0/SOF1, 8-bit samples, 1, 3 or 4
 //     components, interleaved or not, restart intervals, the standard
 //     tables where a DHT is missing, as jdhuff.c supplies them);
+//   - Huffman progressive scans (SOF2) into a coefficient buffer of the
+//     whole image, as jdphuff.c decodes them: DC first and refinement
+//     scans (interleaved or not), AC first scans with EOB runs and AC
+//     refinement scans (one component each), spectral selection,
+//     successive approximation and restart intervals; the scans' order
+//     checked as jdphuff.c checks it (coef_bits);
 //   - jpeg_idct_islow (jidctint.c: CONST_BITS 13, PASS1_BITS 2), the
 //     results clamped to [0, 255] as the SIMD IDCTs that OpenCV runs
 //     clamp them (the C range-limit table agrees wherever an output lies
@@ -17,7 +23,10 @@
 //     edge rows replicated as jdmainct.c's context rows replicate them,
 //     and int_upsample's replication for other integral factors (4:1:1);
 //   - the fixed-point YCbCr -> RGB tables of jdcolor.c, and the colour
-//     space chosen as jdapimin.c: default_decompress_parms chooses it.
+//     space chosen as jdapimin.c: default_decompress_parms chooses it;
+//     four components are CMYK (no Adobe marker, or Adobe transform 0),
+//     which OpenCV converts as icvCvt_CMYK2BGR_8u_C4C3R does: each of
+//     C, M, Y to k - ((255 - x) * k >> 8), as R, G, B.
 // Where a scan's data ends early (at a marker, or at the end of the
 // bytes), libjpeg decodes the block that ran out with zero bits and
 // leaves every later block of the scan at zero (mid grey); so does this
@@ -27,8 +36,15 @@
 // memory source suspends and imdecode returns nothing (refused here).
 // A marker segment cut short is refused by both.  Entropy data that
 // libjpeg would decode only with warnings and substitutes (a bad Huffman
-// code, a coefficient past the block, a restart marker out of sequence)
-// is refused.
+// code, a coefficient past the block, a restart marker out of sequence,
+// a progression out of order) is refused.
+//
+// A progressive image whose scans stop before every low coefficient is
+// exact (a file cut short, or closed with EOI early) is block-smoothed
+// as libjpeg-turbo 2.1+ smooths it (jdcoefct.c: smoothing_ok and
+// decompress_smooth_data); a complete file never is.
+// YCCK (Adobe transform 2), arithmetic coding, lossless, hierarchical
+// and 12-bit files are refused as unsupported forms.
 //
 // Encoding repeats libjpeg-turbo's compression at jpeg_set_defaults +
 // jpeg_set_quality(q, TRUE): jccolor.c's RGB -> YCbCr tables, 4:2:0 with
@@ -203,6 +219,12 @@ struct Comp {
   bool scanned = false;
   uint16_t q[64];           // latched at the first scan, natural order
   std::vector<uint8_t> plane;
+  // progressive: every block's coefficients (stride / 8 blocks a row,
+  // natural order), and the successive-approximation bit each
+  // coefficient has reached (jdphuff.c's coef_bits, -1 before any scan)
+  std::vector<int16_t> coef;
+  int coef_bits[64];
+  int prev_bits[64];        // coef_bits before the component's last scan
 };
 
 struct BitReader {
@@ -285,6 +307,14 @@ struct BitReader {
   }
   // bits consumed past a marker: the entropy data was cut short
   bool overran() const { return cnt < pad; }
+  // the natural index of zigzag position k; past the block, libjpeg's
+  // jpeg_natural_order[] extra entries land on 63, which the zero bits
+  // after the data ran out may reach (in real data it is refused)
+  int natural(int k) const {
+    if (k <= 63) return kNatural[k];
+    if (!overran()) corrupt("corrupt JPEG data: coefficient past the block");
+    return 63;
+  }
 };
 
 // jpeg_idct_islow, outputs clamped (see the file comment)
@@ -403,7 +433,7 @@ struct Decoder {
   int width = 0, height = 0, ncomp = 0;
   int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   int restart = 0;
-  bool have_sof = false, jfif = false, adobe = false;
+  bool have_sof = false, jfif = false, adobe = false, progressive = false;
   int adobe_transform = -1;
   int orientation = 1;
   bool seen_app1 = false;
@@ -413,6 +443,10 @@ struct Decoder {
   Huff dc_tbl[4], ac_tbl[4];
 
   bool eof_eoi;  // file mode: the end of the bytes reads as EOI
+  int scans = 0;       // SOS markers read (input_scan_number)
+  // jdcoefct.c's last_good_iMCU_row: the iMCU row where a scan's data
+  // ran out; block smoothing takes the bits before the last scan past it
+  int last_good = 1 << 30;
 
   Decoder(const uint8_t* d, size_t n, bool file_mode)
       : data(d), end(d + n), p(d), eof_eoi(file_mode) {}
@@ -487,17 +521,19 @@ struct Decoder {
     width = u16();
     ncomp = byte();
     if (len != 8 + 3 * ncomp) corrupt("bad SOF length");
-    if (m != 0xC0 && m != 0xC1) {
+    if (m != 0xC0 && m != 0xC1 && m != 0xC2) {
       const bool arith = m >= 0xC9;
-      const char* what = m == 0xC2 || m == 0xCA ? "progressive" :
+      const char* what = m == 0xC9 ? "sequential" :
+                         m == 0xCA ? "progressive" :
                          m == 0xC3 || m == 0xCB ? "lossless" : "hierarchical";
       unsupported(std::string(arith ? "arithmetic-coded " : "") + what +
                   " JPEG");
     }
+    progressive = m == 0xC2;
     if (prec != 8)
       unsupported(std::to_string(prec) + "-bit JPEG samples");
-    if (ncomp != 1 && ncomp != 3)
-      unsupported(std::to_string(ncomp) + "-component (CMYK or YCCK) JPEG");
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
+      unsupported(std::to_string(ncomp) + "-component JPEG");
     if (width <= 0 || height <= 0) corrupt("JPEG with an empty image (DNL)");
     for (int i = 0; i < ncomp; ++i) {
       Comp& c = comp[i];
@@ -605,8 +641,8 @@ struct Decoder {
       const int r = rs >> 4, sz = rs & 15;
       if (sz) {
         k += r;
-        if (k > 63) corrupt("corrupt JPEG data: coefficient past the block");
-        blk[kNatural[k]] = (int16_t)br.receive_extend(sz);
+        const int pos = br.natural(k);
+        blk[pos] = (int16_t)br.receive_extend(sz);
       } else if (r == 15) {
         k += 15;
       } else {
@@ -614,6 +650,106 @@ struct Decoder {
       }
     }
     idct_islow(blk, c.q, out, c.stride);
+  }
+
+  // jdphuff.c: decode_mcu_DC_first / _DC_refine, one block
+  void dc_first(BitReader& br, Comp& c, int16_t* blk, int al) {
+    const int s = br.decode(dc_tbl[c.dc]);
+    c.pred += br.receive_extend(s);
+    blk[0] = (int16_t)(c.pred * (1 << al));
+  }
+  static void dc_refine(BitReader& br, int16_t* blk, int al) {
+    if (br.get(1)) blk[0] = (int16_t)(blk[0] | (1 << al));
+  }
+
+  // jdphuff.c: decode_mcu_AC_first, one block
+  void ac_first(BitReader& br, const Huff& ac, int16_t* blk, int ss, int se,
+                int al, int& eobrun) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    for (int k = ss; k <= se; ++k) {
+      const int rs = br.decode(ac);
+      const int r = rs >> 4, sz = rs & 15;
+      if (sz) {
+        k += r;
+        const int pos = br.natural(k);
+        blk[pos] = (int16_t)(br.receive_extend(sz) * (1 << al));
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += br.get(r);
+        --eobrun;
+        break;
+      }
+    }
+  }
+
+  // jdphuff.c: decode_mcu_AC_refine, one block
+  static void correct(BitReader& br, int16_t& coef, int p1) {
+    if (br.get(1) && (coef & p1) == 0)
+      coef = (int16_t)(coef + (coef >= 0 ? p1 : -p1));
+  }
+  void ac_refine(BitReader& br, const Huff& ac, int16_t* blk, int ss, int se,
+                 int al, int& eobrun) {
+    const int p1 = 1 << al;
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        const int rs = br.decode(ac);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          if (s != 1 && !br.overran())
+            corrupt("corrupt JPEG data: bad refinement code");
+          s = br.get(1) ? p1 : -p1;
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += br.get(r);
+          break;
+        }
+        // past the nonzero coefficients (each with its correction bit)
+        // and r zero ones, to the new coefficient's position
+        do {
+          int16_t& coef = blk[kNatural[k]];
+          if (coef != 0) {
+            correct(br, coef, p1);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) blk[br.natural(k)] = (int16_t)s;
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t& coef = blk[kNatural[k]];
+        if (coef != 0) correct(br, coef, p1);
+      }
+      --eobrun;
+    }
+  }
+
+  // jdphuff.c: start_pass_phuff_decoder's checks of a scan's parameters
+  // and of the order of the scans
+  void check_progression(Comp** sc, int ns, int ss, int se, int ah, int al) {
+    bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
+    if (ah != 0 && al != ah - 1) bad = true;
+    if (al > 13 || bad) corrupt("bad progressive scan parameters");
+    for (int i = 0; i < ns; ++i) {
+      int* bits = sc[i]->coef_bits;
+      for (int k = ss < 1 ? ss : 1; k <= (se > 9 ? se : 9); ++k)
+        sc[i]->prev_bits[k] = scans > 1 ? bits[k] : 0;
+      if (ss != 0 && bits[0] < 0)
+        corrupt("corrupt JPEG data: AC scan before the DC scan");
+      for (int k = ss; k <= se; ++k) {
+        if (ah != (bits[k] < 0 ? 0 : bits[k]))
+          corrupt("corrupt JPEG data: progressive scans out of order");
+        bits[k] = al;
+      }
+    }
   }
 
   void read_scan() {
@@ -633,19 +769,32 @@ struct Decoder {
       if (sc[i]->dc > 3 || sc[i]->ac > 3) corrupt("bad SOS table slot");
     }
     const int ss = byte(), se = byte(), a = byte();
-    if (ss != 0 || se != 63 || a != 0) corrupt("bad sequential scan parameters");
+    const int ah = a >> 4, al = a & 15;
+    ++scans;
+    if (!progressive && (ss != 0 || se != 63 || a != 0))
+      corrupt("bad sequential scan parameters");
+    if (progressive) check_progression(sc, ns, ss, se, ah, al);
+    // the tables the scan reads: a progressive DC refinement reads none,
+    // a DC scan no AC table, an AC scan no DC table
+    const bool need_dc = !progressive || (ss == 0 && ah == 0);
+    const bool need_ac = !progressive || ss != 0;
     for (int i = 0; i < ns; ++i) {
       Comp& c = *sc[i];
       if (!c.scanned) {
         if (!qt_defined[c.tq]) corrupt("JPEG component without a DQT");
         memcpy(c.q, qt[c.tq], sizeof(c.q));
-        // blocks a short scan leaves out stay at zero: mid grey
-        c.plane.assign((size_t)c.stride * c.rows, 128);
+        if (progressive) {
+          c.coef.assign((size_t)c.stride * c.rows, 0);  // 64 per 8x8 block
+        } else {
+          // blocks a short scan leaves out stay at zero: mid grey
+          c.plane.assign((size_t)c.stride * c.rows, 128);
+        }
         c.scanned = true;
       }
       c.pred = 0;
       // jdhuff.c: a missing table of slot 0 or 1 is the standard one
       for (int dc = 1; dc >= 0; --dc) {
+        if (!(dc ? need_dc : need_ac)) continue;
         Huff& h = dc ? dc_tbl[c.dc] : ac_tbl[c.ac];
         const int slot = dc ? c.dc : c.ac;
         if (!h.defined) {
@@ -664,6 +813,25 @@ struct Decoder {
       nx = mcux;
       ny = mcuy;
     }
+    int eobrun = 0;
+    // one block of a scan: decoded into its plane (sequential) or into
+    // the coefficient buffer (progressive)
+    auto block = [&](BitReader& br, Comp& c, int by, int bx) {
+      if (!progressive) {
+        decode_block(br, c, dc_tbl[c.dc], ac_tbl[c.ac],
+                     c.plane.data() + (size_t)by * 8 * c.stride + bx * 8);
+        return;
+      }
+      int16_t* blk = c.coef.data() + ((size_t)by * (c.stride / 8) + bx) * 64;
+      if (ss == 0) {
+        if (ah == 0) dc_first(br, c, blk, al);
+        else dc_refine(br, blk, al);
+      } else if (ah == 0) {
+        ac_first(br, ac_tbl[c.ac], blk, ss, se, al, eobrun);
+      } else {
+        ac_refine(br, ac_tbl[c.ac], blk, ss, se, al, eobrun);
+      }
+    };
     BitReader br;
     br.p = p;
     br.end = end;
@@ -689,27 +857,28 @@ struct Decoder {
           next_rst = (next_rst + 1) & 7;
           todo = restart;
           for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+          eobrun = 0;
         }
         if (insufficient) {
           if (restart) --todo;
           continue;
         }
         if (ns == 1) {
-          Comp& c = *sc[0];
-          decode_block(br, c, dc_tbl[c.dc], ac_tbl[c.ac],
-                       c.plane.data() + (size_t)my * 8 * c.stride + mx * 8);
+          block(br, *sc[0], my, mx);
         } else {
           for (int i = 0; i < ns; ++i) {
             Comp& c = *sc[i];
             for (int by = 0; by < c.v; ++by)
               for (int bx = 0; bx < c.h; ++bx)
-                decode_block(br, c, dc_tbl[c.dc], ac_tbl[c.ac],
-                             c.plane.data() +
-                                 (size_t)((my * c.v + by) * 8) * c.stride +
-                                 (mx * c.h + bx) * 8);
+                block(br, c, my * c.v + by, mx * c.h + bx);
           }
         }
-        if (br.overran()) insufficient = true;  // decoded with zero bits
+        if (!insufficient && br.overran()) {  // decoded with zero bits
+          insufficient = true;
+          // the iMCU row where the data ran out: an MCU row of an
+          // interleaved scan, v block rows of a component's own
+          last_good = ns == 1 ? my / sc[0]->v : my;
+        }
         if (restart) --todo;
       }
     }
@@ -719,14 +888,193 @@ struct Decoder {
   }
   int pending_marker = 0;
 
+  // jdcoefct.c: smoothing_ok, whether libjpeg smooths the blocks of a
+  // progressive image (some of its low coefficients not yet exact)
+  bool smoothing_ok() const {
+    static const int kLow[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool useful = false;
+    for (int i = 0; i < ncomp; ++i) {
+      const Comp& c = comp[i];
+      if (!c.scanned) return false;  // a quantisation table not latched
+      for (int k : kLow)
+        if (c.q[k] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k)
+        if (c.coef_bits[k] != 0) useful = true;
+    }
+    return useful;
+  }
+
+  // jdcoefct.c: decompress_smooth_data (libjpeg-turbo 2.1 and later):
+  // each block's DC and those of the 5x5 blocks around it estimate the
+  // low AC coefficients that are still zero and not known to be exact
+  // (and, while no AC coefficient has arrived, the DC itself); iMCU rows
+  // past the one where the data ran out take the bits before the last
+  // scan.  The block rows of the last iMCU row count as in
+  // jdcoefct.c (block_rows * total_iMCU_rows), which reaches the
+  // padding row below the image for some heights.
+  void smooth_plane(Comp& c) {
+    const int bw = c.stride / 8;
+    const int wib = (c.dw + 7) / 8, hib = (c.dh + 7) / 8;
+    const int64_t Q00 = c.q[0], Q01 = c.q[1], Q10 = c.q[8], Q20 = c.q[16],
+                  Q11 = c.q[9], Q02 = c.q[2], Q03 = c.q[3], Q12 = c.q[10],
+                  Q21 = c.q[17], Q30 = c.q[24];
+    int prev[10];
+    for (int k = 1; k < 10; ++k) prev[k] = scans > 1 ? c.prev_bits[k] : -1;
+    auto dc_at = [&](int row, int col) {
+      return (int)c.coef[((size_t)row * bw + col) * 64];
+    };
+    auto est = [](int64_t q, int64_t num, int al) {
+      int pred = (int)(((q << 7) + (num >= 0 ? num : -num)) / (q << 8));
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      return num >= 0 ? pred : -pred;
+    };
+    for (int r = 0; r < mcuy; ++r) {
+      int block_rows = c.v;
+      if (r == mcuy - 1) {
+        block_rows = hib % c.v;
+        if (block_rows == 0) block_rows = c.v;
+      }
+      const int image_block_rows = block_rows * mcuy;
+      const int* bits = r > last_good ? prev : c.coef_bits;
+      bool change_dc = true;
+      for (int k = 1; k < 10; ++k) change_dc = change_dc && bits[k] == -1;
+      for (int b = 0; b < block_rows; ++b) {
+        const int ib = r * block_rows + b, cur = r * c.v + b;
+        const int prv = ib > 0 ? cur - 1 : cur;
+        const int nxt = ib < image_block_rows - 1 ? cur + 1 : cur;
+        const int rows[5] = {ib > 1 ? cur - 2 : prv, prv, cur, nxt,
+                             ib < image_block_rows - 2 ? cur + 2 : nxt};
+        int D[5][5];  // DC01..DC25 of jdcoefct.c, row by row
+        for (int i = 0; i < 5; ++i)
+          for (int j = 0; j < 5; ++j) D[i][j] = dc_at(rows[i], 0);
+        const int last_col = wib - 1;
+        for (int bn = 0; bn <= last_col; ++bn) {
+          if (bn == 0 && bn < last_col)
+            for (int i = 0; i < 5; ++i) D[i][3] = D[i][4] = dc_at(rows[i], 1);
+          if (bn + 1 < last_col)
+            for (int i = 0; i < 5; ++i) D[i][4] = dc_at(rows[i], bn + 2);
+          const int DC01 = D[0][0], DC02 = D[0][1], DC03 = D[0][2],
+                    DC04 = D[0][3], DC05 = D[0][4], DC06 = D[1][0],
+                    DC07 = D[1][1], DC08 = D[1][2], DC09 = D[1][3],
+                    DC10 = D[1][4], DC11 = D[2][0], DC12 = D[2][1],
+                    DC13 = D[2][2], DC14 = D[2][3], DC15 = D[2][4],
+                    DC16 = D[3][0], DC17 = D[3][1], DC18 = D[3][2],
+                    DC19 = D[3][3], DC20 = D[3][4], DC21 = D[4][0],
+                    DC22 = D[4][1], DC23 = D[4][2], DC24 = D[4][3],
+                    DC25 = D[4][4];
+          int16_t ws[64];
+          memcpy(ws, c.coef.data() + ((size_t)cur * bw + bn) * 64, sizeof(ws));
+          int al;
+          if ((al = bits[1]) != 0 && ws[1] == 0)  // AC01
+            ws[1] = (int16_t)est(Q01, Q00 * (change_dc ?
+                (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 -
+                 13 * DC09 + 3 * DC10 - 3 * DC11 + 38 * DC12 - 38 * DC14 +
+                 3 * DC15 - 3 * DC16 + 13 * DC17 - 13 * DC19 + 3 * DC20 -
+                 DC21 - DC22 + DC24 + DC25) :
+                (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15)), al);
+          if ((al = bits[2]) != 0 && ws[8] == 0)  // AC10
+            ws[8] = (int16_t)est(Q10, Q00 * (change_dc ?
+                (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 +
+                 13 * DC07 + 38 * DC08 + 13 * DC09 - DC10 + DC16 -
+                 13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+                 3 * DC22 + 3 * DC23 + 3 * DC24 + DC25) :
+                (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23)), al);
+          if ((al = bits[3]) != 0 && ws[16] == 0)  // AC20
+            ws[16] = (int16_t)est(Q20, Q00 * (change_dc ?
+                (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 -
+                 14 * DC13 - 5 * DC14 + 2 * DC17 + 7 * DC18 + 2 * DC19 +
+                 DC23) :
+                (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23)), al);
+          if ((al = bits[4]) != 0 && ws[9] == 0)  // AC11
+            ws[9] = (int16_t)est(Q11, Q00 * (change_dc ?
+                (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 +
+                 9 * DC19 + DC21 - DC25) :
+                (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 +
+                 DC22 - DC24 + DC04 - DC06 + 10 * DC07 - 10 * DC09)), al);
+          if ((al = bits[5]) != 0 && ws[2] == 0)  // AC02
+            ws[2] = (int16_t)est(Q02, Q00 * (change_dc ?
+                (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 -
+                 14 * DC13 + 7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 +
+                 2 * DC19) :
+                (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15)), al);
+          if (change_dc) {
+            if ((al = bits[6]) != 0 && ws[3] == 0)  // AC03
+              ws[3] = (int16_t)est(Q03, Q00 * (DC07 - DC09 + 2 * DC12 -
+                                               2 * DC14 + DC17 - DC19), al);
+            if ((al = bits[7]) != 0 && ws[10] == 0)  // AC12
+              ws[10] = (int16_t)est(Q12, Q00 * (DC07 - 3 * DC08 + DC09 -
+                                                DC17 + 3 * DC18 - DC19), al);
+            if ((al = bits[8]) != 0 && ws[17] == 0)  // AC21
+              ws[17] = (int16_t)est(Q21, Q00 * (DC07 - DC09 - 3 * DC12 +
+                                                3 * DC14 + DC17 - DC19), al);
+            if ((al = bits[9]) != 0 && ws[24] == 0)  // AC30
+              ws[24] = (int16_t)est(Q30, Q00 * (DC07 + 2 * DC08 + DC09 -
+                                                DC17 - 2 * DC18 - DC19), al);
+            ws[0] = (int16_t)est(Q00, Q00 *
+                (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 -
+                 6 * DC06 + 6 * DC07 + 42 * DC08 + 6 * DC09 - 6 * DC10 -
+                 8 * DC11 + 42 * DC12 + 152 * DC13 + 42 * DC14 -
+                 8 * DC15 - 6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 -
+                 6 * DC20 - 2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 -
+                 2 * DC25), 0);
+          }
+          idct_islow(ws, c.q, c.plane.data() + (size_t)cur * 8 * c.stride + bn * 8,
+                     c.stride);
+          for (int i = 0; i < 5; ++i) {
+            D[i][0] = D[i][1];
+            D[i][1] = D[i][2];
+            D[i][2] = D[i][3];
+            D[i][3] = D[i][4];
+          }
+        }
+      }
+    }
+  }
+
+  // the progressive coefficient buffer through the IDCT into the planes
+  // (smoothed where libjpeg smooths); a component that no scan reached
+  // is mid grey (jddctmgr.c's zero multipliers)
+  void idct_planes() {
+    const bool smooth = smoothing_ok();
+    for (int i = 0; i < ncomp; ++i) {
+      Comp& c = comp[i];
+      c.plane.assign((size_t)c.stride * c.rows, 128);
+      if (!c.scanned) continue;
+      if (smooth) {
+        smooth_plane(c);
+        continue;
+      }
+      const int bw = c.stride / 8, bh = c.rows / 8;
+      for (int by = 0; by < bh; ++by)
+        for (int bx = 0; bx < bw; ++bx)
+          idct_islow(c.coef.data() + ((size_t)by * bw + bx) * 64, c.q,
+                     c.plane.data() + (size_t)by * 8 * c.stride + bx * 8,
+                     c.stride);
+    }
+  }
+
   void decode_all() {
     int m = read_markers(false);
+    if (ncomp == 4 && adobe && adobe_transform != 0)
+      unsupported("YCCK JPEG (Adobe transform " +
+                  std::to_string(adobe_transform) + ")");
+    for (int i = 0; i < ncomp; ++i)
+      for (int k = 0; k < 64; ++k) comp[i].coef_bits[k] = -1;
     while (m != 0xD9) {  // m is SOS
       read_scan();
       m = read_markers(false, pending_marker);
       pending_marker = 0;
     }
     if (!have_sof) corrupt("JPEG without SOF");
+    if (progressive) {
+      // jdinput.c: EOI before the first SOS is JERR_SOF_NO_SOS
+      bool any = false;
+      for (int i = 0; i < ncomp; ++i) any = any || comp[i].scanned;
+      if (!any) corrupt("JPEG without a scan");
+      idct_planes();
+      return;
+    }
     for (int i = 0; i < ncomp; ++i)
       if (!comp[i].scanned) corrupt("JPEG component without a scan");
   }
@@ -805,10 +1153,11 @@ struct Decoder {
       else if (adobe) rgb = adobe_transform == 0;
       else rgb = comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66;
     }
-    std::vector<uint8_t> rows((size_t)3 * width);
+    std::vector<uint8_t> rows((size_t)4 * width);
     uint8_t* r0 = rows.data();
     uint8_t* r1 = r0 + width;
     uint8_t* r2 = r1 + width;
+    uint8_t* r3 = r2 + width;
     for (int y = 0; y < height; ++y) {
       uint8_t* o = out + (size_t)y * width * 3;
       upsample_row(comp[0], y, r0);
@@ -818,6 +1167,16 @@ struct Decoder {
       }
       upsample_row(comp[1], y, r1);
       upsample_row(comp[2], y, r2);
+      if (ncomp == 4) {  // CMYK as stored; OpenCV's CMYK -> BGR, as RGB
+        upsample_row(comp[3], y, r3);
+        for (int x = 0; x < width; ++x) {
+          const int k = r3[x];
+          o[3 * x] = (uint8_t)(k - (((255 - r0[x]) * k) >> 8));
+          o[3 * x + 1] = (uint8_t)(k - (((255 - r1[x]) * k) >> 8));
+          o[3 * x + 2] = (uint8_t)(k - (((255 - r2[x]) * k) >> 8));
+        }
+        continue;
+      }
       if (rgb) {
         for (int x = 0; x < width; ++x) {
           o[3 * x] = r0[x];

@@ -4,7 +4,8 @@
 float batches (:func:`resize_bilinear`); the OpenCV calls of the
 corruptions and the CAM tool (``cv2.filter2D``, ``getRotationMatrix2D``,
 a float ``warpAffine``, INTER_AREA and INTER_NEAREST resizes of uint8
-frames, INTER_LINEAR of float images); and the float preprocessing of
+frames, INTER_LINEAR of float images) and of the auto-augment family
+(``cvtColor`` RGB2GRAY, ``equalizeHist``); and the float preprocessing of
 ``glsdet_tpu.ops.image`` built on the last: :func:`normalize_image`,
 :func:`resize_keep_ratio`, :func:`letterbox` (pad 128, float canvas; not
 ``data/augment.py: letterbox``, pad 114 on uint8 with ``cv2.resize``)
@@ -128,11 +129,13 @@ def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
 
 
 def warp_affine_u8(img: torch.Tensor, mat: np.ndarray,
-                   out_hw: Tuple[int, int], border_value: int = 114
+                   out_hw: Tuple[int, int], border_value: float = 114
                    ) -> torch.Tensor:
     """(H, W, C) uint8 -> (h, w, C) uint8, as ``cv2.warpAffine(img,
     mat[:2], (w, h), borderValue=(border_value,) * 3)`` (INTER_LINEAR,
-    constant border) computes it, on ``img``'s device.
+    constant border) computes it, on ``img``'s device.  OpenCV casts the
+    border value to the image's type first (``saturate_cast``: rounded
+    half to even, clamped to [0, 255]), so 114.6 borders as 115.
 
     OpenCV 4.11 replaced the fixed-point remap (``AB_BITS = 10``
     coordinates, 5-bit sub-pixel tables, 15-bit weights) with float32
@@ -159,7 +162,8 @@ def warp_affine_u8(img: torch.Tensor, mat: np.ndarray,
     if img.dtype != torch.uint8 or img.dim() != 3:
         raise ValueError(f"expected an (H, W, C) uint8 image, got "
                          f"{img.dtype} {tuple(img.shape)}")
-    out = _warp_linear(img, mat, out_hw, float(border_value))
+    border = float(np.clip(np.rint(border_value), 0, 255))
+    out = _warp_linear(img, mat, out_hw, border)
     return torch.round(out).clamp(0, 255).to(torch.uint8)
 
 
@@ -236,6 +240,48 @@ def rotation_matrix_2d(center: Tuple[float, float], angle: float,
     alpha, beta = np.cos(a) * scale, np.sin(a) * scale
     return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
                      [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+# OpenCV 5.0's RGB2GRAY on uint8: 15-bit weights of R, G and B that sum
+# to 1 << 15 (OpenCV 4 took 14 bits), rounded by adding half
+GRAY_BITS = 15
+GRAY_RGB = (9798, 19235, 3735)
+
+
+def rgb_to_gray_u8(img: torch.Tensor) -> torch.Tensor:
+    """(H, W, 3) uint8 RGB -> (H, W) uint8, as ``cv2.cvtColor(img,
+    cv2.COLOR_RGB2GRAY)`` computes it, on ``img``'s device: ``(9798 R +
+    19235 G + 3735 B + 2^14) >> 15``.  ``tests/test_torch_autoaugment.py``
+    holds it equal to OpenCV over every RGB triple."""
+    if img.dtype != torch.uint8 or img.dim() != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected an (H, W, 3) uint8 image, got "
+                         f"{img.dtype} {tuple(img.shape)}")
+    x = img.to(torch.int32)
+    r, g, b = GRAY_RGB
+    y = (x[..., 0] * r + x[..., 1] * g + x[..., 2] * b
+         + (1 << (GRAY_BITS - 1))) >> GRAY_BITS
+    return y.to(torch.uint8)
+
+
+def equalize_hist_u8(img: torch.Tensor) -> torch.Tensor:
+    """(H, W) uint8 -> (H, W) uint8, as ``cv2.equalizeHist`` computes it,
+    on ``img``'s device: the histogram's first non-empty bin ``i`` maps
+    to 0 and bin ``j > i`` to ``sum(hist[i + 1 .. j]) * (255 / (total -
+    hist[i]))`` in float32, rounded half to even (``saturate_cast``); an
+    image of one value is left as it is."""
+    if img.dtype != torch.uint8 or img.dim() != 2:
+        raise ValueError(f"expected an (H, W) uint8 image, got "
+                         f"{img.dtype} {tuple(img.shape)}")
+    hist = torch.bincount(img.reshape(-1).to(torch.int64), minlength=256)
+    total = img.numel()
+    first = torch.argmax((hist > 0).to(torch.int32))
+    cum = torch.cumsum(hist, 0)
+    scale = (torch.tensor(255.0, dtype=torch.float32, device=img.device)
+             / (total - hist[first]).to(torch.float32))
+    lut = torch.round((cum - cum[first]).to(torch.float32) * scale)
+    lut = lut.clamp(0, 255).to(torch.uint8)
+    out = lut[img.to(torch.int64)]
+    return torch.where(hist[first] == total, img, out)
 
 
 def _reflect101(n: int, lo: int, hi: int) -> np.ndarray:

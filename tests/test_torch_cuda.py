@@ -1471,6 +1471,28 @@ def test_image_warp_and_resize_on_the_card_equal_the_cpu(card):
                            resize_linear_u8(img, hw))
 
 
+def test_gray_equalize_and_fractional_borders_on_the_card_equal_the_cpu(
+        card):
+    """The auto-augment family's OpenCV twins on the card: RGB2GRAY,
+    equalizeHist (single-valued included) and a warp with a fractional
+    border value, equal to the CPU's at an odd width."""
+    from glsdet_tpu_torch.ops.image import (equalize_hist_u8, rgb_to_gray_u8,
+                                            warp_affine_u8)
+
+    rs = np.random.RandomState(6)
+    img = torch.from_numpy(rs.randint(0, 256, (61, 45, 3), dtype=np.uint8))
+    assert torch.equal(rgb_to_gray_u8(img.to(card)).cpu(),
+                       rgb_to_gray_u8(img))
+    for plane in (img[..., 1].contiguous(),
+                  torch.full((9, 7), 77, dtype=torch.uint8)):
+        assert torch.equal(equalize_hist_u8(plane.to(card)).cpu(),
+                           equalize_hist_u8(plane))
+    mat = np.array([[0.9, 0.2, 5.3], [-0.1, 1.1, -4.2]])
+    assert torch.equal(
+        warp_affine_u8(img.to(card), mat, (40, 50), border_value=127.5).cpu(),
+        warp_affine_u8(img, mat, (40, 50), border_value=127.5))
+
+
 def test_train_from_png_files_makes_no_host_sync_between_reads(card,
                                                                tmp_path):
     """Three steps of ``train()`` (YOLOX-nano, 128x128, device colour)

@@ -107,12 +107,22 @@ def test_png_writer_uses_every_filter_and_reads_back(tmp_path, c):
 
 
 def test_jpeg_size_from_header_and_decode_raises(tmp_path):
-    """A baseline JPEG decodes now (``tests/test_torch_jpeg.py``); a
-    progressive one still raises naming item 16."""
+    """The size comes from the header; a progressive JPEG, which this
+    test held to the refusal naming item 16 before the decoder took it,
+    now reads as ``cv2.imread`` reads it (``tests/test_torch_jpeg.py``);
+    an arithmetic-coded one still raises naming item 16."""
     path = str(tmp_path / "f.jpg")
     cv2.imwrite(path, np.random.RandomState(0).randint(0, 256, (37, 53, 3),
                                                        np.uint8),
                 [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    assert image_io.image_size(path) == (53, 37)
+    np.testing.assert_array_equal(image_io.read_image(path),
+                                  cv2.imread(path)[..., ::-1])
+    with open(path, "rb") as f:
+        data = bytearray(f.read())
+    data[data.index(b"\xff\xc2") + 1] = 0xCA       # arithmetic progressive
+    with open(path, "wb") as f:
+        f.write(bytes(data))
     assert image_io.image_size(path) == (53, 37)
     with pytest.raises(NotImplementedError, match="queue A item 16"):
         image_io.read_image(path)
