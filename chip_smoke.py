@@ -450,6 +450,22 @@ Phases, in the order they run, each printing one line:
      every B1 group and B2 launch of those requests held against its
      plain version.  Printed as one {"data_forms": ...} line; B1's and
      B2's entries of the kernel line add its launches (data_forms_*).
+ 30. video: tools.predict video, the port's MPEG-4 Part 2 codec on the
+     host around the two-stage detector on the card.  A seeded 24-frame
+     765x1360 clip scrolling a few pixels a frame (video_clip, numpy
+     only) written by data/video.py's VideoWriter as .mp4 and .avi and
+     read back by its VideoReader: the sha256 of the clip, of both files'
+     bytes and of the decoded frames equal to VIDEO_SHA256, which the CPU
+     test machine computes (tests/test_torch_video.py, where OpenCV
+     decodes the same files to the same frames); host encode and decode
+     ms a frame.  Then predict.main(["video", clip.mp4, "--output", ...])
+     over seeded full-width weights (the coarse threshold 1e-4, so that
+     stage 2 fires): every B1 group and B2 launch of the run held against
+     its plain version (checked_path; the first launch of each B2 shape
+     and of each B1 bucket timed), detect ms a frame and the mode's
+     frames/s, and the output read back as 24 frames of 1360x764 at
+     25 fps.  Printed as one {"video": ...} line; B1's and B2's entries of
+     the kernel line add its launches (video_*).
 Then one JSON line of per-kernel results (each with its bound: the bytes
 it must move at 3.35 TB/s or its operations at the card's peak for their
 type, whichever is longer) and, last, the device line.  A kernel's ``ms``
@@ -7029,6 +7045,163 @@ def phase_data_forms(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 30. video: tools.predict video of a VisDrone-size clip, read and written
+#     by the port's MPEG-4 Part 2 codec on the host
+# ---------------------------------------------------------------------------
+
+VIDEO_FRAMES = 24
+VIDEO_FPS = 25.0
+VIDEO_SEED = 30
+# sha256 of video_clip(), of the .mp4 and .avi the port's VideoWriter makes
+# of it, and of the RGB frames its VideoReader decodes from each (equal):
+# as the CPU test machine computes them (tests/test_torch_video.py
+# recomputes them, and holds OpenCV's decode of the same files to the
+# same frames)
+VIDEO_SHA256 = {
+    "clip": "658b7dcbe714aab88dfcb9c49494dff7"
+            "12d07bc86749dc1fb433ed975921c28b",
+    "mp4": "e5c2b6c98d41beedb0ca1631e35ede7d"
+           "d74c5d97144a135e79ae8d5796e95673",
+    "avi": "17c6a44469a27eeaf029fd615a90630b"
+           "5787c49dd19cef598b174a670243cea6",
+    "decoded": "ad6cd57eb8e32545b2f732f819249c38"
+               "5f56826b86e46ab3046b29fde040a886",
+}
+
+
+def video_clip(h, w, n, seed):
+    """tests/torch_tools_util.py: scrolling_clip: a smooth seeded field
+    scrolling 2 px right and 1.5 px down a frame under a flat band, a red
+    block moving down it (numpy only, the same bytes on every machine)."""
+    rs = np.random.RandomState(seed)
+    fh, fw = h + 2 * n + 16, w + 2 * n + 16
+    coarse = rs.randint(30, 226, (fh // 8 + 2, fw // 8 + 2, 3))
+    field = np.kron(coarse, np.ones((8, 8, 1))).astype(np.float64)
+    c = np.pad(field, ((1, 0), (1, 0), (0, 0))).cumsum(0).cumsum(1)
+    k = 9
+    field = (c[k:, k:] - c[:-k, k:] - c[k:, :-k] + c[:-k, :-k]) / k ** 2
+    out = []
+    for t in range(n):
+        f = field[3 * t // 2:3 * t // 2 + h, 2 * t:2 * t + w].copy()
+        f[:h // 4] = (150, 170, 200)
+        f[8 + t:24 + t, 12:40] = (240, 30, 40)
+        out.append(np.clip(f + 0.5, 0, 255).astype(np.uint8))
+    return out
+
+
+def video_host(root) -> dict:
+    """The clip written as .mp4 and .avi by VideoWriter and decoded by
+    VideoReader: the sha256 of each, the files' paths and sizes, host
+    encode and decode ms a frame.  Runs on the host only."""
+    from glsdet_tpu_torch.data.video import VideoReader, VideoWriter
+
+    frames = video_clip(*FRAME_HW, VIDEO_FRAMES, VIDEO_SEED)
+    out = {"sha256": {"clip": sha256(frames)}, "paths": {}, "bytes": {},
+           "encode_ms": {}, "decode_ms": {}}
+    decoded = {}
+    for ext in ("mp4", "avi"):
+        path = os.path.join(root, f"clip.{ext}")
+        with VideoWriter(path, VIDEO_FPS, FRAME_HW[::-1]) as w:
+            for f in frames:
+                w.write(f)
+        with VideoReader(path) as r:
+            got = list(r)
+            meta = (r.frame_count, r.width, r.height, r.fps)
+        if meta != (VIDEO_FRAMES, FRAME_HW[1], FRAME_HW[0] & ~1, VIDEO_FPS):
+            raise AssertionError(f"video {ext}: read back as {meta}")
+        with open(path, "rb") as f:
+            out["sha256"][ext] = sha256([f.read()])
+        decoded[ext] = sha256(got)
+        out["paths"][ext] = path
+        out["bytes"][ext] = os.path.getsize(path)
+        out["encode_ms"][ext] = 1000 * w.seconds / VIDEO_FRAMES
+        out["decode_ms"][ext] = 1000 * r.seconds / len(got)
+    if decoded["mp4"] != decoded["avi"]:
+        raise AssertionError("video: the .mp4 and .avi decode differently")
+    out["sha256"]["decoded"] = decoded["mp4"]
+    return out
+
+
+def phase_video(smi: str) -> dict:
+    """tools.predict video on the card (module docstring, phase 30)."""
+    from glsdet_tpu_torch.apis import TwoStageDetector
+    from glsdet_tpu_torch.data.video import VideoReader
+    from glsdet_tpu_torch.ops.nms import nms_sorted_plain
+    from glsdet_tpu_torch.tools import predict
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        host = video_host(tmp)
+        if host["sha256"] != VIDEO_SHA256:
+            raise AssertionError(f"video: sha256 {host['sha256']}, the CPU "
+                                 f"test machine's {VIDEO_SHA256}")
+        paths = write_seeded_models(tmp)
+        dst = os.path.join(tmp, "out.mp4")
+        detect_s = []
+        real = TwoStageDetector.detect
+
+        def timed(self, image):
+            t = time.perf_counter()
+            res = real(self, image)
+            detect_s.append(time.perf_counter() - t)
+            return res
+
+        TwoStageDetector.detect = timed
+        try:
+            with capture_path(False) as cap:
+                got = predict.main([
+                    "video", host["paths"]["mp4"], "--output", dst,
+                    "--checkpoint", paths[0], "--mp-config",
+                    "mp_det_res50", "--mp-checkpoint", paths[1],
+                    "--draw-thr", "0.0", "--cfg-options",
+                    "eval.coarse_score_thr=1e-4", "--device", DEVICE])
+        finally:
+            TwoStageDetector.detect = real
+        # every B2 keep mask against nms_sorted_plain, the first launch of
+        # each shape also timed (timing all 96 costs ~10 s)
+        first, per_shape = {}, {}
+        for call in cap["nms"]:
+            key = (*call[0].shape[:2], call[2], call[3])
+            first.setdefault(key, call)
+            per_shape[key] = per_shape.get(key, 0) + 1
+            if not torch.equal(call[4], nms_sorted_plain(*call[:4])):
+                raise AssertionError("tools.predict video: a B2 keep mask "
+                                     "differs from nms_sorted_plain")
+        checked = checked_path(cap, "tools.predict video",
+                               nms=list(first.values()))
+        for row in checked["nms"]["shapes"]:
+            row["launches"] = per_shape[(row["batch"], row["k"],
+                                         row["threshold"], row["offset"])]
+        checked["nms"]["launches_checked"] = len(cap["nms"])
+        launches = checked["launches"]
+        if (got["frames"] != VIDEO_FRAMES or len(detect_s) != VIDEO_FRAMES
+                or launches["nms"] < VIDEO_FRAMES
+                or launches["paint_inputs"] < 1):
+            raise AssertionError(f"tools.predict video: {got}, {launches}")
+        with VideoReader(dst) as r:
+            back = list(r)
+            meta = (r.frame_count, r.width, r.height, r.fps)
+        want = (VIDEO_FRAMES, FRAME_HW[1], FRAME_HW[0] & ~1, VIDEO_FPS)
+        if meta != want or len(back) != VIDEO_FRAMES:
+            raise AssertionError(f"video output: {meta}, want {want}")
+        if not all(np.isfinite(b).all() and b.shape == (want[2], want[1], 3)
+                   for b in back):
+            raise AssertionError("video output: bad frames")
+    out = {"card": smi, "frames": VIDEO_FRAMES,
+           "frame_hw": [FRAME_HW[0] & ~1, FRAME_HW[1]],
+           "sha256_equal": True, "bytes": host["bytes"],
+           "host_decode_ms_per_frame": host["decode_ms"],
+           "host_encode_ms_per_frame": host["encode_ms"],
+           "detect_ms_per_frame": 1000 * float(np.mean(detect_s)),
+           "detect_ms_per_frame_after_first": 1000 * float(
+               np.mean(detect_s[1:])),
+           "frames_per_s": got["fps"], **checked,
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps({"video": out}), flush=True)
+    return out
+
+
 def main() -> None:
     # float32 products of the plain versions stay float32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7079,6 +7252,7 @@ def main() -> None:
         wf = phase_workflow(smi, tmp)
         an = phase_analysis(smi, tmp, wf)
     forms = phase_data_forms(smi)
+    vid = phase_video(smi)
     launches = bf16["launches"]
     eval_nms = {run: ev[run]["nms"] for run in
                 ("coarse_det", "mp_det_res50", "tta", "ufpmp_bf16",
@@ -7141,6 +7315,16 @@ def main() -> None:
          "data_forms_launches": forms["serve"]["launches"]["nms"],
          "data_forms_shapes": forms["serve"]["nms"]["shapes"],
          "data_forms_max_abs_err": 0.0,
+         "video_launches": vid["launches"]["nms"],
+         "video_shapes": [[t["batch"], t["k"], t["launches"]]
+                          for t in vid["nms"]["shapes"]],
+         "video_ms": {f"{t['batch']}x{t['k']}": t["ms"]
+                      for t in vid["nms"]["shapes"]},
+         "video_plain_ms": {f"{t['batch']}x{t['k']}": t["plain_ms"]
+                            for t in vid["nms"]["shapes"]},
+         "video_bound_ms": {f"{t['batch']}x{t['k']}": t["bound_ms"]
+                            for t in vid["nms"]["shapes"]},
+         "video_max_abs_err": 0.0,
          "replicas_launches_per_card": replica_launches(rep, "nms")},
         {"name": "paint_mosaic", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/paint.cu",
@@ -7170,6 +7354,14 @@ def main() -> None:
          "data_forms_ms": {f"{t['hw']}x{t['batch']}": t["ms"]
                            for t in forms["serve"]["paint"]},
          "data_forms_max_abs_err": 0.0,
+         "video_launches": vid["launches"]["paint_inputs"],
+         "video_ms": {f"{t['hw']}x{t['batch']}": t["ms"]
+                      for t in vid.get("paint", [])},
+         "video_plain_ms": {f"{t['hw']}x{t['batch']}": t["plain_ms"]
+                            for t in vid.get("paint", [])},
+         "video_bound_ms": {f"{t['hw']}x{t['batch']}": t["bound_ms"]
+                            for t in vid.get("paint", [])},
+         "video_max_abs_err": 0.0,
          "replicas_launches_per_card": replica_launches(rep, "paint")},
         {"name": "gn_relu_quant", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/gn_quant.cu",

@@ -92,7 +92,8 @@ def _get_lib() -> ctypes.CDLL:
             lib = ctypes.CDLL(build_shared(
                 "image_io", [os.path.join(_NATIVE, "png.cpp"),
                              os.path.join(_NATIVE, "jpeg.cpp")],
-                ["g++", "-O3", "-fPIC", "-std=c++17"], ["g++", "-shared"]))
+                ["g++", "-O3", "-fPIC", "-std=c++17"], ["g++", "-shared"],
+                deps=[os.path.join(_NATIVE, "simple_idct.h")]))
             lib.png_unfilter.restype = ctypes.c_int
             lib.png_unfilter.argtypes = [
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -105,6 +106,11 @@ def _get_lib() -> ctypes.CDLL:
             lib.jpeg_decode.argtypes = [
                 ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_size_t, ctypes.c_char_p,
+                ctypes.c_int]
+            lib.jpeg_decode_yuv420.restype = ctypes.c_int
+            lib.jpeg_decode_yuv420.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+                ctypes.c_size_t, ctypes.c_void_p, ctypes.c_char_p,
                 ctypes.c_int]
             lib.jpeg_encode.restype = ctypes.c_void_p
             lib.jpeg_encode.argtypes = [

@@ -63,6 +63,8 @@
 #include <string>
 #include <vector>
 
+#include "simple_idct.h"
+
 namespace {
 
 enum Status { kOk = 0, kCorrupt = 1, kUnsupported = 2 };
@@ -443,6 +445,9 @@ struct Decoder {
   Huff dc_tbl[4], ac_tbl[4];
 
   bool eof_eoi;  // file mode: the end of the bytes reads as EOI
+  // FFmpeg's mjpeg route (jpeg_decode_yuv420): dequantise and run its
+  // simple IDCT instead of jpeg_idct_islow
+  bool ffmpeg_idct = false;
   int scans = 0;       // SOS markers read (input_scan_number)
   // jdcoefct.c's last_good_iMCU_row: the iMCU row where a scan's data
   // ran out; block smoothing takes the bits before the last scan past it
@@ -648,6 +653,16 @@ struct Decoder {
       } else {
         break;
       }
+    }
+    if (ffmpeg_idct) {
+      // mjpegdec.c: the DC predicted from 4 << 8 (the level shift) in
+      // dequantised units and clipped to int16, each AC level times its
+      // step
+      int dc = blk[0] * c.q[0] + 1024;
+      blk[0] = (int16_t)(dc < -32768 ? -32768 : dc > 32767 ? 32767 : dc);
+      for (int k = 1; k < 64; ++k) blk[k] = (int16_t)(blk[k] * c.q[k]);
+      simple_idct::put(blk, out, c.stride, false);
+      return;
     }
     idct_islow(blk, c.q, out, c.stride);
   }
@@ -1637,6 +1652,46 @@ extern "C" int jpeg_decode(const uint8_t* data, size_t n, int file_mode,
     d.decode_all();
     if ((size_t)d.width * d.height * 3 > cap) corrupt("output buffer too small");
     d.to_rgb(out);
+    return kOk;
+  } catch (const JpegError& e) {
+    return fail(e, msg, msglen);
+  }
+}
+
+// Decode a baseline 4:2:0 YCbCr JPEG as FFmpeg's mjpeg decoder does for a
+// video frame (yuvj420p): the levels dequantised and put through FFmpeg's
+// simple IDCT, no upsampling or colour conversion.  `out` receives Y
+// (width x height), then Cb and Cr ((width + 1) / 2 x (height + 1) / 2);
+// dims = {width, height}.  Other JPEG forms return 2 (unsupported).
+extern "C" int jpeg_decode_yuv420(const uint8_t* data, size_t n, uint8_t* out,
+                                  size_t cap, int* dims, char* msg,
+                                  int msglen) {
+  try {
+    Decoder d(data, n, false);
+    d.ffmpeg_idct = true;
+    if (n < 2 || data[0] != 0xFF || data[1] != 0xD8) corrupt("not a JPEG file");
+    d.read_markers(true);
+    if (!d.have_sof) corrupt("JPEG without SOF");
+    if (d.progressive) unsupported("a progressive MJPEG frame");
+    if (d.ncomp != 3 || d.comp[0].h != 2 || d.comp[0].v != 2 ||
+        d.comp[1].h != 1 || d.comp[1].v != 1 || d.comp[2].h != 1 ||
+        d.comp[2].v != 1)
+      unsupported("an MJPEG frame that is not 4:2:0 YCbCr");
+    const int w = d.width, h = d.height, cw = (w + 1) / 2, ch = (h + 1) / 2;
+    dims[0] = w;
+    dims[1] = h;
+    if ((size_t)w * h + 2 * (size_t)cw * ch > cap) return kOk;
+    Decoder full(data, n, false);
+    full.ffmpeg_idct = true;
+    full.decode_all();
+    for (int i = 0; i < 3; ++i) {
+      const Comp& c = full.comp[i];
+      const int pw = i ? cw : w, ph = i ? ch : h;
+      if (c.plane.empty()) corrupt("MJPEG frame without a scan of every component");
+      for (int y = 0; y < ph; ++y)
+        memcpy(out + (size_t)y * pw, c.plane.data() + (size_t)y * c.stride, pw);
+      out += (size_t)pw * ph;
+    }
     return kOk;
   } catch (const JpegError& e) {
     return fail(e, msg, msglen);

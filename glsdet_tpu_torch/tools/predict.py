@@ -10,8 +10,18 @@ them, outlines in their class's colour without label text.
     python -m glsdet_tpu_torch.tools.predict predict frame.jpg \\
         --checkpoint coarse.pt --mp-config mp_det_res50 --mp-checkpoint mp.pt
 
-The ``video`` mode needs a video decoder, which the GPU machine does not
-have: it raises ``NotImplementedError`` (ROADMAP.md item 19).
+The ``video`` mode reads a clip with ``data/video.py: VideoReader``
+(MPEG-4 Part 2 or MJPEG in ``.mp4``/``.mov``/``.avi``, the frames
+``cv2.VideoCapture`` gives), detects and draws each frame and, with
+``--output``, writes them with ``VideoWriter`` (MPEG-4 Part 2, as the JAX
+CLI's ``cv2.VideoWriter(..., "mp4v", ...)``):
+
+    python -m glsdet_tpu_torch.tools.predict video clip.mp4 --output out.mp4 \\
+        --checkpoint coarse.pt --mp-config mp_det_res50 --mp-checkpoint mp.pt
+
+Other codecs (H.264, HEVC, ...) and the camera (``0`` or no input) raise
+``NotImplementedError`` (ROADMAP.md, queue A item 19); a file no container
+reader opens exits with the JAX CLI's ``cannot open video source``.
 """
 
 from __future__ import annotations
@@ -94,11 +104,41 @@ def mode_fps(det, args) -> dict:
     return {"images": args.test_interval, "fps": fps}
 
 
-def mode_video(det, args):
-    raise NotImplementedError(
-        "predict video: reading and writing video needs a video decoder "
-        "(the JAX CLI uses cv2.VideoCapture), which is not ported yet "
-        "(ROADMAP.md, queue A item 19)")
+def mode_video(det, args) -> dict:
+    from glsdet_tpu_torch.data.video import VideoReader, VideoWriter
+    from glsdet_tpu_torch.data.video_container import VideoOpenError
+
+    if args.input in (None, "0"):
+        raise NotImplementedError(
+            "predict video: reading a camera is not ported (the card's "
+            "machine has none; ROADMAP.md, queue A item 19)")
+    src = args.input
+    try:
+        reader = VideoReader(src)
+    except VideoOpenError:
+        raise SystemExit(f"cannot open video source {src!r}") from None
+    writer = None
+    n, t0 = 0, time.time()
+    try:
+        if args.output:
+            fps = args.video_fps or reader.fps or 25.0
+            writer = VideoWriter(args.output, fps,
+                                 (reader.width, reader.height))
+        for rgb in reader:
+            out, _ = annotate(det, rgb, args.draw_thr)
+            if writer is not None:
+                writer.write(np.asarray(out, np.uint8))
+            n += 1
+            if args.max_frames and n >= args.max_frames:
+                break
+    finally:
+        reader.close()
+        if writer is not None:
+            writer.close()
+    dt = time.time() - t0
+    print(f"{n} frames in {dt:.1f}s ({n / max(dt, 1e-9):.2f} FPS)"
+          + (f" -> {args.output}" if args.output else ""))
+    return {"frames": n, "fps": n / max(dt, 1e-9), "output": args.output}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -137,12 +177,10 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.mode != "video" and not args.input:
         ap.error(f"mode {args.mode} requires an input path")
-    if args.mode == "video":
-        mode_video(None, args)
     det = build_detector(args)
     try:
         return {"predict": mode_predict, "dir_predict": mode_dir_predict,
-                "fps": mode_fps}[args.mode](det, args)
+                "fps": mode_fps, "video": mode_video}[args.mode](det, args)
     finally:
         close = getattr(det, "close", None)
         if close is not None:

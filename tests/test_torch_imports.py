@@ -3,10 +3,10 @@
 Every module of ``glsdet_tpu_torch`` is imported in a fresh interpreter
 where ``sys.modules["jax"]`` and ``sys.modules["glsdet_tpu"]`` are None,
 so any import of either (a jax-free module of the JAX package included)
-raises there.  ``tensorstore``, ``orbax``, ``zstandard``, OpenCV, PIL and
-matplotlib are blocked the same way (the GPU machine has none of them),
-and no source of the port names the last three even in a function that
-only imports them when called.  The orbax reader
+raises there.  ``tensorstore``, ``orbax``, ``zstandard``, OpenCV, PIL,
+matplotlib and PyAV are blocked the same way (the GPU machine has none of
+them), and no source of the port names the last four even in a function
+that only imports them when called.  The orbax reader
 reads the committed JAX checkpoint fixtures there (the ``TrainState`` and
 the two-stage archive)."""
 
@@ -23,7 +23,7 @@ import glsdet_tpu_torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 BLOCKED = ("jax", "flax", "glsdet_tpu", "tensorstore", "orbax",
-           "zstandard", "cv2", "PIL", "matplotlib")
+           "zstandard", "cv2", "PIL", "matplotlib", "av")
 PROBE = """
 import importlib, json, pkgutil, sys
 BLOCKED = %r
@@ -88,6 +88,8 @@ def test_every_port_module_imports_without_jax():
                  "glsdet_tpu_torch.eval.fusion",
                  "glsdet_tpu_torch.models.build",
                  "glsdet_tpu_torch.data.image_io",
+                 "glsdet_tpu_torch.data.video",
+                 "glsdet_tpu_torch.data.video_container",
                  "glsdet_tpu_torch.data.augment",
                  "glsdet_tpu_torch.data.coco",
                  "glsdet_tpu_torch.data.visdrone",
@@ -157,9 +159,10 @@ def test_no_port_module_imports_opencv():
     assert bad == []
 
 
-@pytest.mark.parametrize("library", ["PIL", "matplotlib"])
+@pytest.mark.parametrize("library", ["PIL", "matplotlib", "av"])
 def test_no_port_module_imports_a_library_the_card_machine_lacks(library):
-    """Nor PIL nor matplotlib (the JAX package's predict CLI reads images
-    with PIL, its analysis tools plot with matplotlib)."""
+    """Nor PIL, matplotlib or PyAV (the JAX package's predict CLI reads
+    images with PIL, its analysis tools plot with matplotlib; video is
+    read without PyAV as without OpenCV)."""
     assert _importers(rf"^\s*(import {library}\b|from {library}[. ])") \
         == []

@@ -9,8 +9,18 @@ port draws equals the JAX CLI's there, but in the label boxes OpenCV
 writes its text into; outside the outlines' 3-pixel band (``cv2.
 rectangle`` at thickness 2) and the label boxes both images are the
 input.  Then the port's real two-stage facade predicts a frame
-(seeded YOLOX-nano and MP-Det-18), and ``video`` raises naming ROADMAP
-item 19.
+(seeded YOLOX-nano and MP-Det-18), and ``video`` of the camera raises
+naming ROADMAP item 19.
+
+video: the JAX CLI (``cv2.VideoCapture`` and ``cv2.VideoWriter``) and the
+port's (``data/video.py``) run the same clip (mp4v in .mp4 and .avi,
+MJPG in .avi, written by OpenCV) through the stub: each detector receives
+the same frames (``tests/test_torch_video.py``'s comparator: equal RGB),
+each writer the same drawings, and both outputs read back with the same
+frame count, size and fps, also with ``--max-frames`` and ``--video-fps``
+and without ``--output``; a file cut before its ``moov`` exits with the
+JAX CLI's message.  Then the port's seeded two-stage facade runs
+``video`` on a short clip.
 
 serve: ``archive`` writes the JAX CLI's manifest for the same arguments
 (a two-stage archive, with static int8 scales); ``serve`` on a free port
@@ -36,7 +46,9 @@ import glsdet_tpu_torch.apis as tapis
 from glsdet_tpu_torch.config import parse_cfg_options
 from glsdet_tpu_torch.data.image_io import read_image, write_jpeg, write_png
 from glsdet_tpu_torch.tools import predict, serve
-from torch_tools_util import COARSE_CLI, MP_CLI, frame, run_jax
+from torch_tools_util import (COARSE_CLI, MP_CLI, cv2_read, cv2_write, frame,
+                              run_jax, scrolling_clip)
+import glsdet_tpu_torch.data.video as tvideo
 
 NAMES = [f"class{k}" for k in range(10)]
 MAKE_SERVER = serve.make_server
@@ -152,6 +164,133 @@ def test_predict_runs_the_two_stage_facade(tmp_path):
     assert (drawn != src).any()
     with pytest.raises(NotImplementedError, match="item 19"):
         predict.main(["video", "0", "--device", "cpu"])
+
+
+class RecordingStub(StubDetector):
+    """The stub, keeping the frames each detector receives (one list a
+    detector built, in ``seen``)."""
+
+    seen = []
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.frames = []
+        RecordingStub.seen.append(self.frames)
+
+    def detect(self, image):
+        self.frames.append(np.array(image, copy=True))
+        return super().detect(image)
+
+
+REAL_CV2_WRITER = cv2.VideoWriter
+
+
+class Cv2Writer:
+    """cv2.VideoWriter, keeping the frames written (as RGB)."""
+
+    frames = []
+
+    def __init__(self, *a):
+        self.w = REAL_CV2_WRITER(*a)
+
+    def write(self, bgr):
+        Cv2Writer.frames.append(bgr[..., ::-1].copy())
+        self.w.write(bgr)
+
+    def release(self):
+        self.w.release()
+
+
+class PortWriter(tvideo.VideoWriter):
+    frames = []
+
+    def write(self, rgb):
+        PortWriter.frames.append(np.array(rgb, copy=True))
+        super().write(rgb)
+
+
+@pytest.fixture()
+def recording(monkeypatch):
+    RecordingStub.seen, Cv2Writer.frames, PortWriter.frames = [], [], []
+    for mod in (glsdet_tpu.apis, tapis):
+        monkeypatch.setattr(mod, "Detector", RecordingStub)
+        monkeypatch.setattr(mod, "TwoStageDetector", RecordingStub)
+    monkeypatch.setattr(tvideo, "VideoWriter", PortWriter)
+    return RecordingStub.seen
+
+
+@pytest.mark.parametrize("ext,fourcc", [(".mp4", "mp4v"), (".avi", "mp4v"),
+                                        (".avi", "MJPG")])
+def test_video_hands_the_jax_frames(tmp_path, recording, ext, fourcc):
+    clip = str(tmp_path / f"clip{ext}")
+    cv2_write(clip, scrolling_clip(121, 161, 14, seed=11), 29.97, fourcc)
+    jout, tout = str(tmp_path / "j.mp4"), str(tmp_path / "t.mp4")
+    run_jax("predict", ["video", clip, "--output", jout],
+            **{"cv2:VideoWriter": Cv2Writer})
+    got = predict.main(["video", clip, "--output", tout, "--device", "cpu"])
+    assert got["frames"] == 14 and got["fps"] > 0 and got["output"] == tout
+    jax_seen, port_seen = recording
+    assert len(jax_seen) == len(port_seen) == 14
+    for a, b in zip(jax_seen, port_seen):
+        assert a.shape == b.shape == (120, 160, 3) and np.array_equal(a, b)
+    assert len(Cv2Writer.frames) == len(PortWriter.frames) == 14
+    for src, want, have in zip(port_seen, Cv2Writer.frames,
+                               PortWriter.frames):
+        _check_drawn(src, have, want)
+    assert cv2_read(tout)[2:] == cv2_read(jout)[2:] == (
+        29.97, 14, (160, 120))
+
+
+def test_video_frame_limit_rate_and_no_output(tmp_path, recording, capsys):
+    clip = str(tmp_path / "clip.mp4")
+    cv2_write(clip, scrolling_clip(64, 96, 14, seed=12), 25.0)
+    jout, tout = str(tmp_path / "j.avi"), str(tmp_path / "t.avi")
+    opts = ["--max-frames", "5", "--video-fps", "10"]
+    run_jax("predict", ["video", clip, "--output", jout, *opts],
+            **{"cv2:VideoWriter": Cv2Writer})
+    got = predict.main(["video", clip, "--output", tout, *opts,
+                        "--device", "cpu"])
+    assert got["frames"] == 5
+    assert cv2_read(tout)[2:] == cv2_read(jout)[2:] == (10.0, 5, (96, 64))
+    capsys.readouterr()
+    run_jax("predict", ["video", clip], **{"cv2:VideoWriter": Cv2Writer})
+    jline = capsys.readouterr().out.strip().splitlines()[-1]
+    got = predict.main(["video", clip, "--device", "cpu"])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert got["frames"] == 14 and got["output"] is None
+    assert jline.startswith("14 frames in ") and line.startswith(
+        "14 frames in ") and "->" not in line + jline
+    assert [len(s) for s in recording] == [5, 5, 14, 14]
+
+
+def test_video_of_a_cut_file_exits_as_the_jax_cli(tmp_path, recording):
+    clip = str(tmp_path / "clip.mp4")
+    cv2_write(clip, scrolling_clip(48, 64, 4), 25.0)
+    b = open(clip, "rb").read()
+    open(clip, "wb").write(b[:b.index(b"moov") - 4])
+    with pytest.raises(SystemExit) as jerr:
+        run_jax("predict", ["video", clip])
+    with pytest.raises(SystemExit) as err:
+        predict.main(["video", clip, "--device", "cpu"])
+    assert err.value.code == jerr.value.code == (
+        f"cannot open video source {clip!r}")
+
+
+def test_video_runs_the_two_stage_facade(tmp_path):
+    clip, out = str(tmp_path / "clip.avi"), str(tmp_path / "out.mp4")
+    frames = scrolling_clip(120, 200, 3, seed=13)
+    with tvideo.VideoWriter(clip, 25.0, (200, 120)) as w:
+        for f in frames:
+            w.write(f)
+    got = predict.main([
+        "video", clip, "--output", out, "--mp-config", "mp_det_res50",
+        "--score-thr", "0.0", "--draw-thr", "0.0", "--cfg-options",
+        *COARSE_CLI, "--mp-cfg-options", *MP_CLI, "--device", "cpu"])
+    assert got["frames"] == 3
+    src = list(tvideo.VideoReader(clip))
+    drawn = list(tvideo.VideoReader(out))
+    assert len(drawn) == 3 and drawn[0].shape == (120, 200, 3)
+    assert any((d.astype(int) - s).any() for d, s in zip(drawn, src))
 
 
 def _manifest(path):

@@ -1,7 +1,8 @@
 """Shared helpers of the ``test_torch_tools_*`` tests: the JAX package's
 CLIs (``tools/<name>.py``) run in this process with ``sys.argv`` set,
 beside the port's ``glsdet_tpu_torch.tools.<name>.main(argv)``; a seeded
-frame set with ground truth and ignore regions; and a JAX ``TrainState``
+frame set with ground truth and ignore regions; a seeded scrolling clip
+and OpenCV's video writer and reader of it; and a JAX ``TrainState``
 of seeded weights written by the JAX package's ``save_checkpoint``
 (orbax), which both packages' CLIs read."""
 
@@ -12,6 +13,7 @@ import json
 import os
 import sys
 
+import cv2
 import jax
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ import pytest
 from glsdet_tpu_torch.data.image_io import write_png
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+cv2.utils.logging.setLogLevel(cv2.utils.logging.LOG_LEVEL_ERROR)
 CAT_IDS = [2 * i + 1 for i in range(10)]
 
 # the test configs: YOLOX-nano at 64x64 and MP-Det depth 18 at 128x128,
@@ -64,6 +67,64 @@ def frame(seed: int, hw) -> np.ndarray:
         y, x = rs.randint(0, h - bh), rs.randint(0, w - bw)
         img[y:y + bh, x:x + bw] = rs.randint(0, 256, 3)
     return img.astype(np.uint8)
+
+
+def scrolling_clip(h: int, w: int, n: int, seed: int = 0):
+    """``n`` RGB frames of a smooth seeded field scrolling 2 px right and
+    1.5 px down a frame under a flat band (a sky), with a red block
+    moving down it: P-VOPs carry motion and skip the band, which the
+    port's encoder quantises finer.  numpy only (``chip_smoke.py`` makes
+    the same clip)."""
+    rs = np.random.RandomState(seed)
+    fh, fw = h + 2 * n + 16, w + 2 * n + 16
+    coarse = rs.randint(30, 226, (fh // 8 + 2, fw // 8 + 2, 3))
+    field = np.kron(coarse, np.ones((8, 8, 1))).astype(np.float64)
+    c = np.pad(field, ((1, 0), (1, 0), (0, 0))).cumsum(0).cumsum(1)
+    k = 9
+    field = (c[k:, k:] - c[:-k, k:] - c[k:, :-k] + c[:-k, :-k]) / k ** 2
+    out = []
+    for t in range(n):
+        f = field[3 * t // 2:3 * t // 2 + h, 2 * t:2 * t + w].copy()
+        f[:h // 4] = (150, 170, 200)
+        f[8 + t:24 + t, 12:40] = (240, 30, 40)
+        out.append(np.clip(f + 0.5, 0, 255).astype(np.uint8))
+    return out
+
+
+def cv2_write(path, frames, fps, fourcc="mp4v"):
+    """RGB ``frames`` through ``cv2.VideoWriter`` (BGR, as OpenCV takes
+    them)."""
+    h, w = frames[0].shape[:2]
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc), fps, (w, h))
+    assert vw.isOpened()
+    for f in frames:
+        vw.write(np.ascontiguousarray(f[..., ::-1]))
+    vw.release()
+
+
+def cv2_read(path):
+    """(RGB frames, luma planes, fps, frame count, (width, height))."""
+    cap = cv2.VideoCapture(path)
+    meta = (cap.get(cv2.CAP_PROP_FPS), int(cap.get(cv2.CAP_PROP_FRAME_COUNT)),
+            (int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)),
+             int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))))
+    rgb = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            break
+        rgb.append(f[..., ::-1])
+    cap.release()
+    cap = cv2.VideoCapture(path)
+    cap.set(cv2.CAP_PROP_CONVERT_RGB, 0)
+    luma = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            break
+        luma.append(f.reshape(meta[2][1], meta[2][0]))
+    cap.release()
+    return (rgb, luma, *meta)
 
 
 def write_set(root: str, frames, gts=None, ignore=None,
