@@ -466,6 +466,21 @@ Phases, in the order they run, each printing one line:
      frames/s, and the output read back as 24 frames of 1360x764 at
      25 fps.  Printed as one {"video": ...} line; B1's and B2's entries of
      the kernel line add its launches (video_*).
+ 31. h264: tools.predict video of H.264 clips, read by the port's H.264
+     decoder (native/h264.cpp) on the host.  tests/h264_stream.py's
+     writer (numpy only, loaded from the checkout) makes two seeded
+     3-frame 1360x764 clips (coded as 1360x768, cropped): High profile
+     CABAC with 8x8 transforms (IPP) in .mp4 and Baseline CAVLC in .avi;
+     the sha256 of each file and of its decoded RGB frames equal to
+     H264_SHA256, which the CPU test machine computes and where OpenCV
+     decodes the same files to the same frames (tests/test_torch_h264.py);
+     host decode ms a frame, the writer's seconds and the decoder's g++
+     build (at first use, timed apart).  Then
+     predict.main(["video", clip, "--output", ...]) of each clip as in
+     phase 30 (every B1 group and B2 launch held against its plain
+     version), detect ms a frame and the mode's frames/s.  Printed as one
+     {"h264": ...} line; B1's and B2's entries of the kernel line add its
+     launches (h264_*).
 Then one JSON line of per-kernel results (each with its bound: the bytes
 it must move at 3.35 TB/s or its operations at the card's peak for their
 type, whichever is longer) and, last, the device line.  A kernel's ``ms``
@@ -7123,13 +7138,70 @@ def video_host(root) -> dict:
     return out
 
 
-def phase_video(smi: str) -> dict:
-    """tools.predict video on the card (module docstring, phase 30)."""
+def predict_video(src, dst, paths, want, what) -> dict:
+    """predict.main(["video", src, "--output", dst]) on the card over the
+    seeded weights at ``paths``: every B2 keep mask against
+    nms_sorted_plain (the first launch of each shape also timed), every
+    B1 group against mosaic_inputs_plain, one detect a frame; the output
+    read back as ``want`` (frame count, width, height, fps).  Returns
+    predict's result, detect's seconds a frame and checked_path's."""
     from glsdet_tpu_torch.apis import TwoStageDetector
     from glsdet_tpu_torch.data.video import VideoReader
     from glsdet_tpu_torch.ops.nms import nms_sorted_plain
     from glsdet_tpu_torch.tools import predict
 
+    detect_s = []
+    real = TwoStageDetector.detect
+
+    def timed(self, image):
+        t = time.perf_counter()
+        res = real(self, image)
+        detect_s.append(time.perf_counter() - t)
+        return res
+
+    TwoStageDetector.detect = timed
+    try:
+        with capture_path(False) as cap:
+            got = predict.main([
+                "video", src, "--output", dst, "--checkpoint", paths[0],
+                "--mp-config", "mp_det_res50", "--mp-checkpoint", paths[1],
+                "--draw-thr", "0.0", "--cfg-options",
+                "eval.coarse_score_thr=1e-4", "--device", DEVICE])
+    finally:
+        TwoStageDetector.detect = real
+    # every B2 keep mask against nms_sorted_plain, the first launch of
+    # each shape also timed (timing all of them costs ~10 s in phase 30)
+    first, per_shape = {}, {}
+    for call in cap["nms"]:
+        key = (*call[0].shape[:2], call[2], call[3])
+        first.setdefault(key, call)
+        per_shape[key] = per_shape.get(key, 0) + 1
+        if not torch.equal(call[4], nms_sorted_plain(*call[:4])):
+            raise AssertionError(f"{what}: a B2 keep mask differs from "
+                                 f"nms_sorted_plain")
+    checked = checked_path(cap, what, nms=list(first.values()))
+    for row in checked["nms"]["shapes"]:
+        row["launches"] = per_shape[(row["batch"], row["k"],
+                                     row["threshold"], row["offset"])]
+    checked["nms"]["launches_checked"] = len(cap["nms"])
+    launches = checked["launches"]
+    n = want[0]
+    if (got["frames"] != n or len(detect_s) != n or launches["nms"] < n
+            or launches["paint_inputs"] < 1):
+        raise AssertionError(f"{what}: {got}, {launches}")
+    with VideoReader(dst) as r:
+        back = list(r)
+        meta = (r.frame_count, r.width, r.height, r.fps)
+    if meta != want or len(back) != n:
+        raise AssertionError(f"{what}: output {meta}, want {want}")
+    if not all(np.isfinite(b).all() and b.shape == (want[2], want[1], 3)
+               for b in back):
+        raise AssertionError(f"{what}: bad output frames")
+    return {"got": got, "detect_s": detect_s, "checked": checked}
+
+
+def phase_video(smi: str) -> dict:
+    """tools.predict video on the card (module docstring, phase 30)."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         host = video_host(tmp)
@@ -7137,57 +7209,11 @@ def phase_video(smi: str) -> dict:
             raise AssertionError(f"video: sha256 {host['sha256']}, the CPU "
                                  f"test machine's {VIDEO_SHA256}")
         paths = write_seeded_models(tmp)
-        dst = os.path.join(tmp, "out.mp4")
-        detect_s = []
-        real = TwoStageDetector.detect
-
-        def timed(self, image):
-            t = time.perf_counter()
-            res = real(self, image)
-            detect_s.append(time.perf_counter() - t)
-            return res
-
-        TwoStageDetector.detect = timed
-        try:
-            with capture_path(False) as cap:
-                got = predict.main([
-                    "video", host["paths"]["mp4"], "--output", dst,
-                    "--checkpoint", paths[0], "--mp-config",
-                    "mp_det_res50", "--mp-checkpoint", paths[1],
-                    "--draw-thr", "0.0", "--cfg-options",
-                    "eval.coarse_score_thr=1e-4", "--device", DEVICE])
-        finally:
-            TwoStageDetector.detect = real
-        # every B2 keep mask against nms_sorted_plain, the first launch of
-        # each shape also timed (timing all 96 costs ~10 s)
-        first, per_shape = {}, {}
-        for call in cap["nms"]:
-            key = (*call[0].shape[:2], call[2], call[3])
-            first.setdefault(key, call)
-            per_shape[key] = per_shape.get(key, 0) + 1
-            if not torch.equal(call[4], nms_sorted_plain(*call[:4])):
-                raise AssertionError("tools.predict video: a B2 keep mask "
-                                     "differs from nms_sorted_plain")
-        checked = checked_path(cap, "tools.predict video",
-                               nms=list(first.values()))
-        for row in checked["nms"]["shapes"]:
-            row["launches"] = per_shape[(row["batch"], row["k"],
-                                         row["threshold"], row["offset"])]
-        checked["nms"]["launches_checked"] = len(cap["nms"])
-        launches = checked["launches"]
-        if (got["frames"] != VIDEO_FRAMES or len(detect_s) != VIDEO_FRAMES
-                or launches["nms"] < VIDEO_FRAMES
-                or launches["paint_inputs"] < 1):
-            raise AssertionError(f"tools.predict video: {got}, {launches}")
-        with VideoReader(dst) as r:
-            back = list(r)
-            meta = (r.frame_count, r.width, r.height, r.fps)
-        want = (VIDEO_FRAMES, FRAME_HW[1], FRAME_HW[0] & ~1, VIDEO_FPS)
-        if meta != want or len(back) != VIDEO_FRAMES:
-            raise AssertionError(f"video output: {meta}, want {want}")
-        if not all(np.isfinite(b).all() and b.shape == (want[2], want[1], 3)
-                   for b in back):
-            raise AssertionError("video output: bad frames")
+        run = predict_video(
+            host["paths"]["mp4"], os.path.join(tmp, "out.mp4"), paths,
+            (VIDEO_FRAMES, FRAME_HW[1], FRAME_HW[0] & ~1, VIDEO_FPS),
+            "tools.predict video")
+    got, detect_s, checked = run["got"], run["detect_s"], run["checked"]
     out = {"card": smi, "frames": VIDEO_FRAMES,
            "frame_hw": [FRAME_HW[0] & ~1, FRAME_HW[1]],
            "sha256_equal": True, "bytes": host["bytes"],
@@ -7199,6 +7225,130 @@ def phase_video(smi: str) -> dict:
            "frames_per_s": got["fps"], **checked,
            "seconds": time.perf_counter() - t0}
     print(json.dumps({"video": out}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 31. h264: tools.predict video of H.264 clips written by
+#     tests/h264_stream.py, read by the port's H.264 decoder on the host
+# ---------------------------------------------------------------------------
+
+H264_FRAMES = 3
+H264_HW = (764, 1360)   # coded as 1360x768 and cropped, as cameras write it
+H264_FPS = 25.0
+# the writer's Spec fields of each clip
+H264_CLIPS = {
+    "high_cabac.mp4": dict(profile=100, entropy="cabac", t8=True, refs=2,
+                           pcm=0.002, skip=0.6, coded=0.5, seed=31),
+    "baseline_cavlc.avi": dict(profile=66, entropy="cavlc", refs=2,
+                               pcm=0.002, skip=0.6, coded=0.5, seed=32),
+}
+# sha256 of each file and of the RGB frames VideoReader decodes from it,
+# as the CPU test machine computes them (tests/test_torch_h264.py
+# recomputes them and holds OpenCV's decode of the same files to the
+# same frames)
+H264_SHA256 = {
+    "high_cabac.mp4": {
+        "file": "627b6b5640ea51cd12097e8619776d28"
+                "6831997e2320e60382afc040b305fe34",
+        "decoded": "4e863f79fc64bd243847a5dbb6e1f9d9"
+                   "920846e8aa149058cba1d8f073cba62d"},
+    "baseline_cavlc.avi": {
+        "file": "781b95529df52fe03df2cf479955a67e"
+                "fd784038491b102e534f581be164d4a6",
+        "decoded": "4d22eb08f84e80c16d80dcb1f67ed2a6"
+                   "05d4f743773719412f5f9e94c60d24a5"},
+}
+
+
+def h264_writer():
+    """tests/h264_stream.py of this checkout (numpy only)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "h264_stream.py")
+    mod = sys.modules.get("h264_stream")
+    if mod is None or os.path.abspath(mod.__file__) != path:
+        spec = importlib.util.spec_from_file_location("h264_stream", path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["h264_stream"] = mod  # dataclasses look it up
+        spec.loader.exec_module(mod)
+    return mod
+
+
+def h264_host(root) -> dict:
+    """Each clip of H264_CLIPS written into ``root`` and decoded by
+    VideoReader: the sha256 of each file and of its RGB frames, paths and
+    sizes, the writer's seconds and host decode ms a frame (the headers'
+    pass at open included; the decoder's g++ build at first use is timed
+    apart).  Runs on the host only."""
+    from glsdet_tpu_torch.data.video import VideoReader, _get_h264
+
+    hs = h264_writer()
+    t = time.perf_counter()
+    _get_h264()
+    out = {"sha256": {}, "paths": {}, "bytes": {}, "writer_s": {},
+           "decode_ms": {}, "build_s": time.perf_counter() - t}
+    for name, fields in H264_CLIPS.items():
+        path = os.path.join(root, name)
+        t = time.perf_counter()
+        hs.write_clip(path, hs.Spec(width=H264_HW[1], height=H264_HW[0],
+                                    frames=H264_FRAMES, fps=H264_FPS,
+                                    **fields))
+        out["writer_s"][name] = time.perf_counter() - t
+        t = time.perf_counter()
+        with VideoReader(path) as r:
+            got = list(r)
+            meta = (r.frame_count, r.width, r.height, r.fps)
+        out["decode_ms"][name] = 1000 * (time.perf_counter() - t) / len(got)
+        if meta != (H264_FRAMES, H264_HW[1], H264_HW[0], H264_FPS):
+            raise AssertionError(f"h264 {name}: read back as {meta}")
+        with open(path, "rb") as f:
+            out["sha256"][name] = {"file": sha256([f.read()]),
+                                   "decoded": sha256(got)}
+        out["paths"][name] = path
+        out["bytes"][name] = os.path.getsize(path)
+    return out
+
+
+def phase_h264(smi: str) -> dict:
+    """tools.predict video of H.264 clips on the card (module docstring,
+    phase 31)."""
+    t0 = time.perf_counter()
+    clips = {}
+    launches = {"nms": 0, "paint_inputs": 0}
+    nms_rows, paint_rows = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        host = h264_host(tmp)
+        if host["sha256"] != H264_SHA256:
+            raise AssertionError(f"h264: sha256 {host['sha256']}, the CPU "
+                                 f"test machine's {H264_SHA256}")
+        paths = write_seeded_models(tmp)
+        for name in H264_CLIPS:
+            run = predict_video(
+                host["paths"][name], os.path.join(tmp, f"out_{name}.mp4"),
+                paths, (H264_FRAMES, H264_HW[1], H264_HW[0], H264_FPS),
+                f"tools.predict video {name}")
+            checked, detect_s = run["checked"], run["detect_s"]
+            for k in launches:
+                launches[k] += checked["launches"][k]
+            nms_rows += checked["nms"]["shapes"]
+            paint_rows += checked.get("paint", [])
+            clips[name] = {
+                "bytes": host["bytes"][name],
+                "writer_s": host["writer_s"][name],
+                "host_decode_ms_per_frame": host["decode_ms"][name],
+                "detect_ms_per_frame": 1000 * float(np.mean(detect_s)),
+                "detect_ms_per_frame_after_first": 1000 * float(
+                    np.mean(detect_s[1:])),
+                "frames_per_s": run["got"]["fps"],
+                "launches": checked["launches"]}
+    out = {"card": smi, "frames": H264_FRAMES, "frame_hw": list(H264_HW),
+           "sha256_equal": True, "decoder_build_s": host["build_s"],
+           "clips": clips, "launches": launches,
+           "nms": {"shapes": nms_rows}, "paint": paint_rows,
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps({"h264": out}), flush=True)
     return out
 
 
@@ -7253,6 +7403,7 @@ def main() -> None:
         an = phase_analysis(smi, tmp, wf)
     forms = phase_data_forms(smi)
     vid = phase_video(smi)
+    h264 = phase_h264(smi)
     launches = bf16["launches"]
     eval_nms = {run: ev[run]["nms"] for run in
                 ("coarse_det", "mp_det_res50", "tta", "ufpmp_bf16",
@@ -7325,6 +7476,13 @@ def main() -> None:
          "video_bound_ms": {f"{t['batch']}x{t['k']}": t["bound_ms"]
                             for t in vid["nms"]["shapes"]},
          "video_max_abs_err": 0.0,
+         "h264_launches": h264["launches"]["nms"],
+         "h264_shapes": [[t["batch"], t["k"], t["launches"]]
+                         for t in h264["nms"]["shapes"]],
+         "h264_ms": [t["ms"] for t in h264["nms"]["shapes"]],
+         "h264_plain_ms": [t["plain_ms"] for t in h264["nms"]["shapes"]],
+         "h264_bound_ms": [t["bound_ms"] for t in h264["nms"]["shapes"]],
+         "h264_max_abs_err": 0.0,
          "replicas_launches_per_card": replica_launches(rep, "nms")},
         {"name": "paint_mosaic", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/paint.cu",
@@ -7362,6 +7520,13 @@ def main() -> None:
          "video_bound_ms": {f"{t['hw']}x{t['batch']}": t["bound_ms"]
                             for t in vid.get("paint", [])},
          "video_max_abs_err": 0.0,
+         "h264_launches": h264["launches"]["paint_inputs"],
+         "h264_ms": [[t["hw"], t["batch"], t["ms"]] for t in h264["paint"]],
+         "h264_plain_ms": [[t["hw"], t["batch"], t["plain_ms"]]
+                           for t in h264["paint"]],
+         "h264_bound_ms": [[t["hw"], t["batch"], t["bound_ms"]]
+                           for t in h264["paint"]],
+         "h264_max_abs_err": 0.0,
          "replicas_launches_per_card": replica_launches(rep, "paint")},
         {"name": "gn_relu_quant", "route": "cuda",
          "source": "glsdet_tpu_torch/csrc/gn_quant.cu",

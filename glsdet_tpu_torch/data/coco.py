@@ -5,9 +5,9 @@ index with per-image annotation lookup, the training filter of empty
 images, the ``ignore_regions`` side list, and GTs padded to ``max_gt``
 with a validity mask so that every batch has fixed shapes.
 
-The one change: frames are read with ``data/image_io.py`` (PNG and
-``.npy``; JPEG raises ``NotImplementedError``), not ``cv2.imread``, which
-the GPU machine lacks; for a PNG the pixels are the same.  The decode
+The one change: frames are read with ``data/image_io.py`` (JPEG, PNG and
+``.npy``), not ``cv2.imread``, which the GPU machine lacks; the pixels are
+the same (``image_io`` decodes JPEG as ``cv2.imread`` does).  The decode
 cache (``cache_images``, insert until ``cache_bytes``, no eviction) is
 per process: each of the loader's worker processes fills its own
 (``__getstate__`` hands workers the index without the frames).

@@ -1,17 +1,20 @@
 """Video containers read and written without OpenCV: ISO BMFF (``.mp4``,
-``.m4v``, ``.mov``) and RIFF AVI, holding MPEG-4 Part 2 (``mp4v``) or
-MJPEG frames.
+``.m4v``, ``.mov``) and RIFF AVI, holding MPEG-4 Part 2 (``mp4v``), MJPEG
+or H.264 frames, and raw H.264 Annex B files (``.h264``, ``.264``).
 
 Reading finds the first video track and its samples (offset, size and
 whether it is a key frame), its codec configuration (the MPEG-4 VOL an
-``.mp4`` keeps in ``esds``; an ``.avi`` carries it inline before the
-first VOP) and its frame rate as ``cv2.VideoCapture`` reports it (the
-stream's average rate: frames over duration in ``.mp4``, ``dwRate /
-dwScale`` in ``.avi``).  A track in another codec (H.264, HEVC, ...), an
-edit list that does not span the whole track, an OpenDML ``AVIX``
-extension and other containers (Matroska, WebM) raise
-``NotImplementedError`` (ROADMAP.md, queue A item 19); a file that holds
-no readable video track (cut before its ``moov``, not a container) raises
+``.mp4`` keeps in ``esds``, H.264's ``avcC``; an ``.avi`` carries either
+inline) and its frame rate and frame count as ``cv2.VideoCapture``
+reports them (the stream's average rate: frames over duration in
+``.mp4``, ``dwRate / dwScale`` in ``.avi``; a raw H.264 file has FFmpeg's
+default 25 fps and no duration, which OpenCV turns into the frame count
+of :data:`RAW_FRAME_COUNT`).  A track in another codec (HEVC, ...), a
+``ctts`` box (an output order other than decoding order), an edit list
+that does not span the whole track, an OpenDML ``AVIX`` extension and
+other containers (Matroska, WebM) raise ``NotImplementedError``
+(ROADMAP.md, queue A item 19); a file that holds no readable video track
+(cut before its ``moov``, not a container) raises
 :class:`VideoOpenError`.
 
 Writing repeats what FFmpeg's muxers write for ``cv2.VideoWriter``: an
@@ -25,6 +28,7 @@ refuses to grow past 1 GiB (an OpenDML file is not written).
 
 from __future__ import annotations
 
+import math
 import os
 import struct
 from dataclasses import dataclass
@@ -42,7 +46,15 @@ _MJPEG_ENTRIES = (b"jpeg", b"mjpa")
 _MP4V_FOURCCS = (b"FMP4", b"XVID", b"DIVX", b"DX50", b"MP4V", b"mp4v",
                  b"fmp4", b"xvid", b"divx", b"dx50")
 _MJPEG_FOURCCS = (b"MJPG", b"mjpg")
+_H264_ENTRIES = (b"avc1", b"avc3")
+_H264_FOURCCS = (b"H264", b"X264", b"h264", b"x264", b"avc1")
+H264_EXTS = (".h264", ".264")
 _AVI_MAX = 1 << 30
+_RAW_CHUNK = 1 << 20
+# FFmpeg's raw H.264 demuxer: 25 fps, a 1/1200000 time base and no
+# duration (AV_NOPTS_VALUE), which OpenCV's frame count multiplies out
+RAW_FPS = 25.0
+RAW_FRAME_COUNT = int(math.floor(-(2 ** 63) / 1200000.0 * RAW_FPS + 0.5))
 
 
 class VideoOpenError(ValueError):
@@ -51,8 +63,8 @@ class VideoOpenError(ValueError):
 
 def _refuse(what: str):
     raise NotImplementedError(
-        f"{what}: the port reads MPEG-4 Part 2 (mp4v) and MJPEG video in "
-        f".mp4/.mov and .avi files ({ITEM})")
+        f"{what}: the port reads MPEG-4 Part 2 (mp4v), MJPEG and H.264 video "
+        f"in .mp4/.mov and .avi files and raw H.264 ({ITEM})")
 
 
 @dataclass
@@ -60,8 +72,8 @@ class VideoTrack:
     """The first video track of a file."""
 
     path: str
-    container: str               # "mp4" | "avi"
-    codec: str                   # "mp4v" | "mjpeg"
+    container: str               # "mp4" | "avi" | "h264" (raw Annex B)
+    codec: str                   # "mp4v" | "mjpeg" | "h264"
     fourcc: str                  # sample entry (.mp4) or strh handler (.avi)
     width: int
     height: int
@@ -69,11 +81,13 @@ class VideoTrack:
     offsets: np.ndarray          # int64 byte offset of each sample
     sizes: np.ndarray            # int64 byte size of each sample
     keyframes: np.ndarray        # bool, one a sample
-    config: bytes = b""          # decoder configuration (the VOL), if any
+    config: bytes = b""          # decoder configuration (VOL, avcC), if any
+    count: Optional[int] = None  # the frame count cv2 reports, if not
+                                 # the number of samples
 
     @property
     def frame_count(self) -> int:
-        return int(len(self.sizes))
+        return int(len(self.sizes)) if self.count is None else self.count
 
     def samples(self, head: int = 0) -> Iterator[bytes]:
         """Each sample's bytes (only the first ``head`` of each, if set)."""
@@ -102,7 +116,21 @@ def open_track(path: str) -> VideoTrack:
         return _open_mp4(path)
     if head[:4] == b"\x1a\x45\xdf\xa3":
         _refuse(f"{path}: Matroska/WebM")
-    raise VideoOpenError(f"{path}: not an MP4/MOV or AVI file")
+    if (os.path.splitext(path)[1].lower() in H264_EXTS
+            and (head[:4] == b"\0\0\0\1" or head[:3] == b"\0\0\1")):
+        return _open_annexb(path)
+    raise VideoOpenError(f"{path}: not an MP4/MOV, AVI or H.264 file")
+
+
+def _open_annexb(path: str) -> VideoTrack:
+    """A raw Annex B file: its bytes as chunks of a stream (the reader
+    splits them into NAL units)."""
+    size = os.path.getsize(path)
+    offsets = np.arange(0, size, _RAW_CHUNK, dtype=np.int64)
+    sizes = np.minimum(size - offsets, _RAW_CHUNK)
+    keys = np.zeros(len(offsets), bool)
+    return VideoTrack(path, "h264", "h264", "", 0, 0, RAW_FPS, offsets,
+                      sizes, keys, count=RAW_FRAME_COUNT)
 
 
 # ---------------------------------------------------------------- ISO BMFF
@@ -227,13 +255,22 @@ def _mp4_track(f, path, s, e, movie_ts) -> Optional[VideoTrack]:
         codec = "mp4v"
     elif entry in _MJPEG_ENTRIES:
         codec = "mjpeg"
+    elif entry in _H264_ENTRIES:
+        codec = "h264"
     else:
         _refuse(f"{path}: video track in {entry.decode('latin-1')!r}")
     width, height = struct.unpack(">HH", body[24:28])
     config = b""
     for t, cs, ce in _boxes_bytes(body, 78):
-        if t == b"esds":
+        if t == b"esds" and codec == "mp4v":
             config = _esds_config(body[cs:ce])
+        elif t == b"avcC" and codec == "h264":
+            config = body[cs:ce]
+    if codec == "h264" and not config:
+        raise VideoOpenError(f"{path}: an {entry.decode()} entry without avcC")
+    if b"ctts" in stbl:
+        _refuse(f"{path}: a ctts box (pictures output in another order than "
+                f"they are decoded: B frames)")
     # sample table
     n, sizes = _stsz(f, stbl, path)
     offsets = _chunk_offsets(f, stbl, n, sizes, path)
@@ -391,6 +428,8 @@ def _open_avi(path: str) -> VideoTrack:
             codec = "mp4v"
         elif fourcc in _MJPEG_FOURCCS or handler in _MJPEG_FOURCCS:
             codec = "mjpeg"
+        elif fourcc in _H264_FOURCCS or handler in _H264_FOURCCS:
+            codec = "h264"
         else:
             _refuse(f"{path}: video stream in {fourcc.decode('latin-1')!r}")
         tag = b"%02d" % stream

@@ -853,8 +853,11 @@ void Decoder::decode_mb(Bits& b, int mbx, int mby, bool pvop) {
 // works on samples shifted left by 3 with pmulhw (a product's high 16
 // bits) by the coefficients yuv2rgb.c: ff_yuv2rgb_c_init_tables derives
 // from ITU-R BT.601 (ff_yuv2rgb_coeffs[SWS_CS_DEFAULT]) at swscale's
-// default contrast, saturation and brightness.  Chroma is not
-// interpolated: each 2x2 block of luma shares its chroma sample.
+// default contrast, saturation and brightness, or from the matrix an
+// H.264 stream's VUI names (its matrix_coefficients, which OpenCV hands to
+// swscale: 1 BT.709, 4 FCC, 7 SMPTE 240M, 9 BT.2020; every other value
+// converts as BT.601).  Chroma is not interpolated: each 2x2 block of luma
+// shares its chroma sample.
 struct YuvCoeffs {
   int y, yoff, vr, ub, ug, vg;
 };
@@ -864,8 +867,12 @@ inline int round_int16(int64_t f) {
   return (int)(r < -0x8000 ? -0x8000 : r > 0x7FFF ? 0x7FFF : r);
 }
 
-YuvCoeffs yuv_coeffs(bool full_range) {
+YuvCoeffs yuv_coeffs(bool full_range, int matrix) {
   int64_t crv = 104597, cbu = 132201, cgu = -25675, cgv = -53279;
+  if (matrix == 1) crv = 117489, cbu = 138438, cgu = -13975, cgv = -34925;
+  if (matrix == 4) crv = 104448, cbu = 132798, cgu = -24759, cgv = -53109;
+  if (matrix == 7) crv = 117579, cbu = 136230, cgu = -16907, cgv = -35559;
+  if (matrix == 9) crv = 110013, cbu = 140363, cgu = -12277, cgv = -42626;
   int64_t cy = 1 << 16, oy = 0;
   if (!full_range) {
     cy = (cy * 255) / 219;
@@ -1531,8 +1538,8 @@ void m4v_planes(void* h, uint8_t* out) {
 // Y (w x h), U, V ((w + 1) / 2 x (h + 1) / 2) -> (h, w, 3) RGB, as
 // cv2.VideoCapture's BGR frame reversed
 void yuv420_to_rgb(const uint8_t* y, const uint8_t* u, const uint8_t* v,
-                   int w, int h, int full_range, uint8_t* rgb) {
-  const YuvCoeffs k = yuv_coeffs(full_range != 0);
+                   int w, int h, int full_range, int matrix, uint8_t* rgb) {
+  const YuvCoeffs k = yuv_coeffs(full_range != 0, matrix);
   const int cw = (w + 1) / 2;
   for (int j = 0; j < h; j++) {
     const uint8_t* yr = y + (size_t)j * w;

@@ -220,10 +220,21 @@ def recording(monkeypatch):
 
 
 @pytest.mark.parametrize("ext,fourcc", [(".mp4", "mp4v"), (".avi", "mp4v"),
-                                        (".avi", "MJPG")])
+                                        (".avi", "MJPG"), (".mp4", "h264"),
+                                        (".avi", "h264")])
 def test_video_hands_the_jax_frames(tmp_path, recording, ext, fourcc):
+    """The JAX CLI (cv2.VideoCapture) and the port hand the detector equal
+    frames: clips of cv2's writer, and H.264 of tests/h264_stream.py (which
+    cv2 cannot write)."""
     clip = str(tmp_path / f"clip{ext}")
-    cv2_write(clip, scrolling_clip(121, 161, 14, seed=11), 29.97, fourcc)
+    if fourcc == "h264":
+        import h264_stream
+
+        h264_stream.write_clip(clip, h264_stream.Spec(
+            width=160, height=120, frames=14, fps=29.97, seed=11, refs=2,
+            entropy="cabac" if ext == ".mp4" else "cavlc", t8=ext == ".mp4"))
+    else:
+        cv2_write(clip, scrolling_clip(121, 161, 14, seed=11), 29.97, fourcc)
     jout, tout = str(tmp_path / "j.mp4"), str(tmp_path / "t.mp4")
     run_jax("predict", ["video", clip, "--output", jout],
             **{"cv2:VideoWriter": Cv2Writer})

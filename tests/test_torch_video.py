@@ -16,9 +16,11 @@ swscale's x86 yuv2rgb is repeated exactly); frame count, size (161x121 and
 equal ``cv2.VideoCapture``'s.  cv2 reads the port's files with the count,
 size and fps its own ``mp4v`` writer gives, decodes them to the port's own
 frames, at a mean PSNR no lower than its writer's and no more than twice
-its size.  Other codecs, B-VOPs, quarter-pel and the other MPEG-4 tools
-the decoder does not handle, XviD-tagged streams, other containers, an
-edit list, an OpenDML extension and an AVI past 1 GiB raise
+its size.  H.264 in ``avc1``/``avc3`` entries and ``H264``/``X264`` AVIs
+decodes to cv2's frames (``tests/test_torch_h264.py`` holds the rest of
+H.264).  HEVC and other codecs, B-VOPs, quarter-pel and the other MPEG-4
+tools the decoder does not handle, XviD-tagged streams, other containers,
+an edit list, an OpenDML extension and an AVI past 1 GiB raise
 ``NotImplementedError`` naming item 19; a file cut before its ``moov``
 raises ``VideoOpenError``.
 """
@@ -185,8 +187,25 @@ def _cv2_clip(tmp_path, ext=".mp4", fourcc="mp4v", n=14):
     return path, open(path, "rb").read()
 
 
+def _h264_clip(tmp_path, ext, **kw):
+    """An H.264 clip of ``tests/h264_stream.py``, 14 frames at 64x48."""
+    import h264_stream
+
+    path = str(tmp_path / f"h264{ext}")
+    h264_stream.write_clip(path, h264_stream.Spec(
+        width=64, height=48, frames=14, seed=3, refs=2, **kw))
+    return path
+
+
 @pytest.mark.parametrize("entry", [b"avc1", b"avc3", b"hvc1", b"hev1"])
 def test_refuses_other_codecs_in_mp4(tmp_path, entry):
+    """H.264 (avc1, avc3) decodes to cv2's frames; HEVC is refused."""
+    if entry in (b"avc1", b"avc3"):
+        path = _h264_clip(tmp_path, ".mp4", entry=entry.decode(),
+                          entropy="cabac")
+        assert open_track(path).fourcc == entry.decode()
+        assert_same_frames(port_read(path), cv2_read(path))
+        return
     path, b = _cv2_clip(tmp_path)
     i = b.index(b"mp4v")
     patched = str(tmp_path / "h26x.mp4")
@@ -197,6 +216,12 @@ def test_refuses_other_codecs_in_mp4(tmp_path, entry):
 
 @pytest.mark.parametrize("fourcc", [b"H264", b"X264", b"HEVC"])
 def test_refuses_other_codecs_in_avi(tmp_path, fourcc):
+    """H.264 (H264, X264) decodes to cv2's frames; HEVC is refused."""
+    if fourcc != b"HEVC":
+        path = _h264_clip(tmp_path, ".avi", fourcc=fourcc.decode())
+        assert open_track(path).fourcc == fourcc.decode()
+        assert_same_frames(port_read(path), cv2_read(path))
+        return
     path, b = _cv2_clip(tmp_path, ".avi")
     patched = str(tmp_path / "h26x.avi")
     open(patched, "wb").write(b.replace(b"mp4v", fourcc))
